@@ -1,0 +1,56 @@
+"""Carry engine state between the JAX package and the port.
+
+This system has no weights; its state is what crosses: the JAX
+package's ``SimState`` (converted to numpy arrays, e.g. with
+``jax.tree.map(np.asarray, state)``) becomes the port's ``SimState``
+on a device and back.  Both trees have the same field names, nesting,
+shapes and dtypes, so a run can be handed over mid-flight and resumed
+in either package round for round.  The port reads fields by name and
+imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_paxos_torch.core import net as netm
+from tpu_paxos_torch.core import sim
+from tpu_paxos_torch.utils import device as devm
+
+_SUBTREES = {
+    "acc": sim.AcceptorState,
+    "prop": sim.ProposerState,
+    "net": netm.NetBuffers,
+    "met": sim.Metrics,
+}
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    # a C-ordered, writable copy (keeps 0-d leaves 0-d)
+    return torch.from_numpy(np.array(x, order="C", copy=True)).to(dev)
+
+
+def sim_state_from_jax(np_tree, device="cuda") -> sim.SimState:
+    """The port's SimState on ``device`` from a JAX ``SimState`` whose
+    leaves are numpy arrays (any object with the same attribute names)."""
+    dev = devm.resolve(device)
+    fields = {}
+    for name in sim.SimState._fields:
+        node = getattr(np_tree, name)
+        cls = _SUBTREES.get(name)
+        if cls is None:
+            fields[name] = _tensor(node, dev)
+        else:
+            fields[name] = cls(**{f: _tensor(getattr(node, f), dev) for f in cls._fields})
+    return sim.SimState(**fields)
+
+
+def sim_state_to_numpy(state: sim.SimState) -> sim.SimState:
+    """The same tree with every leaf as a host numpy array."""
+    def conv(node):
+        if isinstance(node, torch.Tensor):
+            return node.detach().cpu().numpy()
+        return type(node)(*[conv(x) for x in node])
+
+    return conv(state)
