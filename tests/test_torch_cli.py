@@ -1,6 +1,7 @@
-"""The port's CLI (``python -m tpu_paxos_torch``) against the JAX CLI,
-the port's import boundary (no ``jax``, no ``tpu_paxos``), and the
-committed JAX goldens that ``chip_smoke.py`` holds the card run to."""
+"""The port's CLI (``python -m tpu_paxos_torch``, general engine and fast
+path) against the JAX CLI, the port's import boundary (no ``jax``, no
+``tpu_paxos``), and the committed JAX goldens that ``chip_smoke.py``
+holds the card run to."""
 
 import hashlib
 import importlib.util
@@ -9,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from tpu_paxos_torch import __main__ as tcli
@@ -67,8 +69,35 @@ def test_cli_json_summary_equals_the_jax_cli(capsys):
     assert (summary["ok"], summary["crashed"], summary["done"]) == (False, 1, True)
 
 
+@pytest.mark.parametrize("args", [["4", "4", "10"], ["5", "4", "10"]])
+@pytest.mark.parametrize("as_json", [False, True])
+def test_fast_engine_equals_the_jax_cli(args, as_json, tmp_path, capsys):
+    """``--engine=fast``: the same stdout (verdict line or ``--json``
+    summary) and the same ``--save-state`` arrays as the JAX CLI."""
+    from tpu_paxos import __main__ as jcli
+
+    argv = args + ["--engine=fast"] + (["--json"] if as_json else [])
+    assert jcli.main(argv + ["--save-state", str(tmp_path / "j.npz")]) == 0
+    jax_out = capsys.readouterr().out
+    assert tcli.main(argv + ["--save-state", str(tmp_path / "t.npz"), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == jax_out
+    with np.load(tmp_path / "j.npz") as want, np.load(tmp_path / "t.npz") as got:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
+    """The full-size fast CLI run that the card repeats: the port on the
+    CPU prints the JAX CLI's committed stdout."""
+    gold = _goldens()["fast_cli_2p23"]
+    assert tcli.main(gold["args"] + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == gold["stdout"]
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["4", "4", "10", "--engine=fast"], "--engine=fast"),
+    (["4", "4", "10", "--engine=fast", "--mesh", "2"], "--engine=fast"),
     (["4", "4", "10", "--engine=member"], "--engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
     (["repro", "artifact.json"], "'repro'"),
@@ -92,11 +121,20 @@ import tpu_paxos_torch
 mods = [m.name for m in pkgutil.walk_packages(tpu_paxos_torch.__path__, "tpu_paxos_torch.")]
 for m in mods:
     importlib.import_module(m)
+import torch
 from tpu_paxos_torch import config
-from tpu_paxos_torch.core import sim
+from tpu_paxos_torch.core import fast, fastwin, faults, sim
 res = sim.run(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1)), device="cpu")
+sched = faults.FaultSchedule((faults.partition(1, 5, (0,), (1, 2)), faults.gray(2, 6, 1, delay=1)))
+res2 = sim.run(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1),
+               faults=config.FaultConfig(max_delay=1, schedule=sched)), device="cpu")
+st, n = fast.choose_all(fast.init_state(16, 3, device="cpu"),
+                        torch.arange(16, dtype=torch.int32), proposer=0, quorum=2)
+_, counts = fastwin.steady_state_windows_fused(
+    fast.init_state(fastwin.TILE, 3, device="cpu"), None, reps=2, quorum=2, iota_vids=True)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
-print(len(mods), bool(res.done), loaded)
+ok = res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
+print(len(mods), bool(ok), loaded)
 """
 
 
@@ -104,7 +142,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 20  # every module of the package was imported
+    assert int(n_mods) >= 24  # every module of the package was imported
     assert done == "True"
     assert loaded.strip() == "[]"
 

@@ -59,8 +59,8 @@ def test_knob_path_equals_static_path_at_zero(kw):
 def test_copy_plans_batch_equals_single_plans():
     _, tfc = _faults(FAULTS[2])
     keys = tprng.split(tprng.root_key(1), 4)
-    sites = list(zip(keys, [(2, 5), (5, 2), (5, 2), (2, 5)]))
-    for (key, shape), (al, dl) in zip(sites, tnet.copy_plans(sites, tfc)):
+    sites = [(k, shape, None, None) for k, shape in zip(keys, [(2, 5), (5, 2), (5, 2), (2, 5)])]
+    for (key, shape, _, _), (al, dl) in zip(sites, tnet.copy_plans(sites, tfc)):
         a1, d1 = tnet.copy_plan(key, shape, tfc)
         assert torch.equal(al, a1) and torch.equal(dl, d1)
 
@@ -75,9 +75,18 @@ def test_knobs_from_faults_matches_jax(kw):
 
 
 def test_knobs_from_faults_rejects_edges():
-    fc = tcfg.FaultConfig(max_delay=1, edges=tcfg.EdgeFaultConfig.uniform(2, drop_rate=5))
-    with pytest.raises(NotImplementedError, match="edges"):
-        tnet.knobs_from_faults(fc)
+    """An edges-bearing config no longer raises: it encodes to the same
+    matrix-form knobs as the JAX package's, and the static scalar plan
+    path rejects it as JAX's does."""
+    edges = dict(drop_rate=((0, 5), (7, 0)), dup_rate=((0, 0), (1, 0)),
+                 min_delay=((0, 1), (0, 0)), max_delay=((0, 1), (1, 0)))
+    jfc = jcfg.FaultConfig(max_delay=1, edges=jcfg.EdgeFaultConfig(**edges))
+    tfc = tcfg.FaultConfig(max_delay=1, edges=tcfg.EdgeFaultConfig(**edges))
+    jk, tk = jnet.knobs_from_faults(jfc), tnet.knobs_from_faults(tfc)
+    for name in jk._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(tk, name)), np.asarray(getattr(jk, name)))
+    with pytest.raises(ValueError, match="needs knobs="):
+        tnet.copy_plan(tprng.root_key(0), (2, 2), tfc)
 
 
 def test_init_and_clear_slot_match_jax():

@@ -336,14 +336,22 @@ def test_cuda_default_raises_without_a_card():
 
 @pytest.mark.parametrize("field", ["schedule", "edges", "delivery_cut"])
 def test_unported_faults_raise_by_name(field):
+    """These three fault fields raised by name before the port ran
+    them; now each runs and equals the JAX run."""
     faults = {
-        "schedule": tcfg.FaultConfig(schedule=tfaults.FaultSchedule((tfaults.pause(2, 5, 1),))),
-        "edges": tcfg.FaultConfig(max_delay=1, edges=tcfg.EdgeFaultConfig.uniform(3, drop_rate=5)),
-        "delivery_cut": tcfg.FaultConfig(delivery_cut=True),
+        "schedule": dict(DEBUG_FAULTS, schedule=jfaults.FaultSchedule((jfaults.pause(2, 5, 1),))),
+        "edges": dict(max_delay=1, edges=jcfg.EdgeFaultConfig.uniform(3, drop_rate=5)),
+        "delivery_cut": dict(DEBUG_FAULTS, delivery_cut=True, schedule=jfaults.FaultSchedule(
+            (jfaults.partition(1, 6, (0,), (1, 2)),))),
     }[field]
-    tc = tcfg.SimConfig(n_nodes=3, n_instances=16, faults=faults)
-    with pytest.raises(NotImplementedError, match=field):
-        tsim.run(tc, device="cpu")
+    jc = jcfg.SimConfig(n_nodes=3, n_instances=16, faults=jcfg.FaultConfig(**faults))
+    tfaults_kw = dict(faults)
+    if "schedule" in faults:
+        tfaults_kw["schedule"] = tfaults.FaultSchedule.from_dict(faults["schedule"].to_dict())
+    if "edges" in faults:
+        tfaults_kw["edges"] = tcfg.EdgeFaultConfig.from_dict(faults["edges"].to_dict())
+    tc = tcfg.SimConfig(n_nodes=3, n_instances=16, faults=tcfg.FaultConfig(**tfaults_kw))
+    _assert_same_result(jc, jsim.run(jc), tsim.run(tc, device="cpu"), 1024)
 
 
 @pytest.mark.parametrize("flag", ["telemetry", "runtime_knobs", "runtime_schedule",

@@ -12,6 +12,7 @@ import torch
 from test_torch_simkern_cuda import rand_state
 from tpu_paxos.core import simkern as jsk
 from tpu_paxos_torch.core import simkern as tsk
+from tpu_paxos_torch.utils import kbuild
 
 I = jsk.TILE  # one whole tile
 
@@ -84,8 +85,13 @@ def test_bytes_per_launch(kernel, per_instance):
 
 
 def test_build_targets_hopper_from_the_package_source():
-    cmd = tsk.build_command("nvcc", "/out.so")
-    assert "-arch=sm_90a" in cmd and cmd[-1] == tsk.SOURCE
-    assert tsk.SOURCE.endswith("tpu_paxos_torch/csrc/simkern.cu")
-    assert tsk.library_path().startswith(tsk.BUILD_DIR)
-    assert tsk.BUILD_DIR.endswith("build/tpu_paxos_torch")
+    """Both kernel sources build through utils/kbuild.py, each keyed by
+    its own sha256."""
+    for name in (tsk.NAME, "fastwin"):
+        src = kbuild.source(name)
+        cmd = kbuild.build_command("nvcc", name, "/out.so")
+        assert "-arch=sm_90a" in cmd and cmd[-1] == src
+        assert src.endswith(f"tpu_paxos_torch/csrc/{name}.cu")
+        assert kbuild.library_path(name).startswith(kbuild.BUILD_DIR)
+    assert kbuild.library_path("simkern") != kbuild.library_path("fastwin")
+    assert kbuild.BUILD_DIR.endswith("build/tpu_paxos_torch")

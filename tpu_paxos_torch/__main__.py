@@ -1,14 +1,16 @@
 """``python -m tpu_paxos_torch`` — the reference CLI on the port.
 
-The ``--engine=sim`` surface of ``python -m tpu_paxos``: positional
-``srvcnt cltcnt idcnt [propose_interval]`` plus the ``--key=value``
-knobs (ref multi/main.cpp:456-521, delays in rounds), and ``--device
-{cuda,cpu}`` (default cuda; there is no quiet fallback to the CPU).
+The ``--engine=sim`` and ``--engine=fast`` surfaces of ``python -m
+tpu_paxos``: positional ``srvcnt cltcnt idcnt [propose_interval]`` plus
+the ``--key=value`` knobs (ref multi/main.cpp:456-521, delays in
+rounds), and ``--device {cuda,cpu}`` (default cuda; there is no quiet
+fallback to the CPU).
 
-Output, byte for byte as the JAX CLI prints it: the decision log in the
-reference grammar on stdout, then one invariant verdict line.  Exit
-code 0 iff every invariant holds; 2 for what the port does not run yet
-(other engines, ``--mesh``, subcommands).
+Output, byte for byte as the JAX CLI prints it: for the general engine
+the decision log in the reference grammar on stdout, then one invariant
+verdict line; for the fast path the verdict line alone.  Exit code 0
+iff every invariant holds; 2 for what the port does not run yet
+(``--engine=member``, ``--mesh``, subcommands).
 """
 
 from __future__ import annotations
@@ -145,17 +147,63 @@ def run_sim(args) -> int:
     return 0 if ok else 1
 
 
+def run_fast(args) -> int:
+    """One prepared proposer chooses ``cltcnt * idcnt`` sequential vids
+    in one prepare -> accept -> commit pipeline (``core/fast.py``)."""
+    import numpy as np
+    import torch
+
+    from tpu_paxos_torch.core import fast
+    from tpu_paxos_torch.harness import validate
+    from tpu_paxos_torch.utils import log as logm
+
+    logger = logm.get_logger("cli", logm.parse_level(args.log_level))
+    n = args.cltcnt * args.idcnt
+    quorum = args.srvcnt // 2 + 1
+    state = fast.init_state(n, args.srvcnt, device=args.device)
+    vids = torch.arange(n, dtype=torch.int32, device=state.learned.device)
+    state, n_chosen = fast.choose_all(state, vids, proposer=0, quorum=quorum)
+    n_chosen = int(n_chosen)
+    learned = fast.learned_ia(state)
+    if args.save_state:
+        # all tensors in the validators' [instances, nodes] convention
+        np.savez(
+            args.save_state,
+            learned=learned,
+            acc_ballot=state.acc_ballot.cpu().numpy().T,
+            acc_vid=state.acc_vid.cpu().numpy().T,
+            n_chosen=np.int64(n_chosen),
+        )
+        logger.info("decision tensors saved to %s", args.save_state)
+    ok = True
+    try:
+        validate.check_all(learned, np.arange(n))
+    except validate.InvariantViolation as e:
+        ok = False
+        logger.error("invariant violated: %s", e)
+    _emit(args, {
+        "engine": "fast",
+        "chosen": n_chosen,
+        "devices": 1,
+        "invariants": ["agreement", "exactly_once"] if ok else [],
+        "ok": ok and n_chosen == n,
+    })
+    return 0 if ok and n_chosen == n else 1
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _SUBCOMMANDS:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
-    if args.engine != "sim" or args.mesh:
-        what = f"--engine={args.engine}" if args.engine != "sim" else "--mesh"
+    if args.engine == "member" or args.mesh:
+        what = "--engine=member" if args.engine == "member" else "--mesh"
+        if args.mesh and args.engine != "sim":
+            what = f"--mesh with --engine={args.engine}"
         print(f"tpu_paxos_torch: {what} is not ported yet", file=sys.stderr)
         return 2
-    return run_sim(args)
+    return run_fast(args) if args.engine == "fast" else run_sim(args)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The port's own copy of ``tpu_paxos/core/faults.py`` (jax-free there too): the port
-imports nothing of the JAX package.
+"""The port's own copy of ``tpu_paxos/core/faults.py`` (jax-free there
+too): the port imports nothing of the JAX package.
 
 Correlated fault schedules: deterministic, round-interval episodes.
 
@@ -43,11 +43,9 @@ windows.  This module adds that layer as a ``FaultSchedule`` of
 
 Episodes compose: overlapping cuts AND their reachability, pauses OR,
 burst rates add, crash sets union (and stay crashed forever), gray
-inflations ADD per node.  The port holds only the schedule types that
-``config.py`` needs: its engine does not run schedules yet, and raises
-``NotImplementedError`` on a schedule with episodes.  The JAX
-package's ``compile_schedule`` (the per-round table lowering) comes
-with the slice that runs them.
+inflations ADD per node.  :func:`compile_schedule` lowers a schedule
+to dense per-round numpy tables that the general engine
+(``core/sim.py``) reads with ``min(t, horizon)``.
 
 Liveness contract (enforced by the engines): paused nodes are excused
 only *while* paused, and quiescence is never declared before the last
@@ -63,6 +61,9 @@ be baked statically into an engine closure.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
+
+import numpy as np
 
 KINDS = ("partition", "one_way", "pause", "burst", "crash", "gray")
 
@@ -230,3 +231,119 @@ class FaultSchedule:
                 )
             )
         return cls(tuple(eps))
+
+
+class CompiledSchedule(NamedTuple):
+    """Dense per-round tables, horizon+1 rows; row ``horizon`` is the
+    healed steady state (engines index with ``min(t, horizon)``) —
+    except ``crashed``, which is CUMULATIVE: crash points never heal,
+    so row ``horizon`` carries every crash and the min-index read
+    stays correct forever.  The ``has_*`` flags say which dimensions
+    the schedule has: an engine skips the table read (and, for
+    ``reach``, the per-edge send masking) for an absent one."""
+
+    reach: np.ndarray  # [H+1, N, N] bool, True = src row can reach dst col
+    paused: np.ndarray  # [H+1, N] bool
+    extra_drop: np.ndarray  # [H+1] int32, additional per-1e4 drop rate
+    crashed: np.ndarray  # [H+1, N] bool, cumulative scheduled crashes
+    gray: np.ndarray  # [H+1, N] int32, per-node extra delay rounds
+    horizon: int
+    has_reach: bool
+    has_pause: bool
+    has_burst: bool
+    has_crash: bool
+    has_gray: bool
+
+
+def validate_episode(e: Episode, n_nodes: int) -> None:
+    """Cluster-size checks of one episode."""
+    if e._max_node() >= n_nodes:
+        raise ValueError(
+            f"episode {e.kind}[{e.t0},{e.t1}) names node "
+            f"{e._max_node()} but the cluster has {n_nodes} nodes"
+        )
+    if e.kind == "partition":
+        # a single group needs unlisted nodes to form the implicit
+        # complement, or the 'partition' cuts nothing
+        listed = sum(len(g) for g in e.groups)
+        if len(e.groups) < 2 and listed >= n_nodes:
+            raise ValueError(
+                f"partition[{e.t0},{e.t1}) lists every node in one "
+                "group — nothing is cut; name >= 2 groups or leave "
+                "nodes unlisted to form the implicit complement"
+            )
+
+
+def episode_tables(e: Episode, n_nodes: int):
+    """Static per-episode masks: ``(cut [N, N] bool, paused [N] bool,
+    extra_drop int, crash [N] bool, gray [N] int32)`` where ``cut[s, d]``
+    means the s->d edge is severed while the episode is active,
+    ``crash`` names the nodes a crash point fail-stops (active from
+    ``t0`` FOREVER — crashes never heal), and ``gray`` is the per-node
+    extra delay a gray episode inflicts while active.  The diagonal is
+    never cut (a node always reaches itself).  Only the episode's own
+    dimension is non-trivial; the others return zeros."""
+    validate_episode(e, n_nodes)
+    cut = np.zeros((n_nodes, n_nodes), bool)
+    paused = np.zeros((n_nodes,), bool)
+    crash_m = np.zeros((n_nodes,), bool)
+    gray_v = np.zeros((n_nodes,), np.int32)
+    extra = 0
+    if e.kind == "partition":
+        group_of = np.full((n_nodes,), len(e.groups), np.int32)
+        for gi, g in enumerate(e.groups):
+            group_of[list(g)] = gi
+        cut = group_of[:, None] != group_of[None, :]
+    elif e.kind == "one_way":
+        cut[np.ix_(list(e.src), list(e.dst))] = True
+        np.fill_diagonal(cut, False)
+    elif e.kind == "pause":
+        paused[list(e.nodes)] = True
+    elif e.kind == "burst":
+        extra = e.drop_rate
+    elif e.kind == "crash":
+        crash_m[list(e.nodes)] = True
+    elif e.kind == "gray":
+        gray_v[list(e.nodes)] = e.delay
+    return cut, paused, extra, crash_m, gray_v
+
+
+def compile_schedule(
+    sched: FaultSchedule | None, n_nodes: int
+) -> CompiledSchedule | None:
+    """Lower a schedule to per-round tables for ``n_nodes`` nodes.
+    Returns None for an absent/empty schedule."""
+    if sched is None or not sched.episodes:
+        return None
+    h = sched.horizon
+    reach = np.ones((h + 1, n_nodes, n_nodes), bool)
+    paused = np.zeros((h + 1, n_nodes), bool)
+    extra = np.zeros((h + 1,), np.int64)
+    crashed = np.zeros((h + 1, n_nodes), bool)
+    gray_t = np.zeros((h + 1, n_nodes), np.int64)
+    for e in sched.episodes:
+        rows = slice(e.t0, e.t1)  # t1 <= h, so row h stays healed
+        cut, pmask, xd, cmask, gv = episode_tables(e, n_nodes)
+        reach[rows] &= ~cut[None]
+        paused[rows] |= pmask[None]
+        extra[rows] += xd
+        gray_t[rows] += gv[None]
+        # crash points are permanent: from t0 through row h inclusive,
+        # so the engine's min(t, horizon) read never un-crashes a node
+        crashed[e.t0:] |= cmask[None]
+    np.einsum("tnn->tn", reach)[:] = True  # a node always reaches itself
+    return CompiledSchedule(
+        reach=reach,
+        paused=paused,
+        extra_drop=np.minimum(extra, 10_000).astype(np.int32),
+        crashed=crashed,
+        # uncapped sum here; the engine clamps the INFLATED delay at
+        # the ring bound, which also bounds any overlapping-gray sum
+        gray=np.minimum(gray_t, np.iinfo(np.int32).max).astype(np.int32),
+        horizon=h,
+        has_reach=any(e.kind in ("partition", "one_way") for e in sched.episodes),
+        has_pause=any(e.kind == "pause" for e in sched.episodes),
+        has_burst=any(e.kind == "burst" for e in sched.episodes),
+        has_crash=any(e.kind == "crash" for e in sched.episodes),
+        has_gray=any(e.kind == "gray" for e in sched.episodes),
+    )

@@ -15,16 +15,21 @@ drop_rate/1e4, up to three duplicates chain with probability
 dup_rate/1e4 and are never dropped, and each copy samples a delay in
 [min_delay, max_delay] rounds.
 
-The copy plans are drawn on the host: their inputs are the seed and
-the round number only, so the engine computes every plan of a round in
-one batched threefry pass (:func:`copy_plans`) and moves the small
-result to the device once.
+The copy plans are drawn on the host: their inputs are the seed, the
+round number and the fault knobs and schedule rows of that round, so
+the engine computes every plan of a round in one batched threefry pass
+(:func:`copy_plans`) and moves the small result to the device once.
+Per-edge ``[A, A]`` knob matrices (``FaultConfig.edges``), the
+schedule's burst-loss addition and its gray delay inflation all apply
+at that step; the reachability cuts apply to the send masks in the
+engine and, with ``delivery_cut``, to arrivals (:func:`delivery_mask`).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpu_paxos_torch.config import FaultConfig
@@ -35,26 +40,34 @@ MAX_COPIES = 4  # original + up to 3 recursive duplicates, ref multi/main.cpp:12
 
 
 class FaultKnobs(NamedTuple):
-    """The i.i.d. fault knobs as runtime integers (scalar form).  With
-    knobs, :func:`copy_plan` samples in always-on masked form, which is
-    exact at zero: ``randint(.., 0, 10000) < 0`` is all false and a
-    ``[0, 0]`` delay span samples 0.  The per-edge matrix form waits
-    for the slice that ports ``FaultConfig.edges``."""
+    """The i.i.d. fault knobs as runtime values.  With knobs,
+    :func:`copy_plan` samples in always-on masked form, which is exact
+    at zero: ``randint(.., 0, 10000) < 0`` is all false and a ``[0, 0]``
+    delay span samples 0.
 
-    drop_rate: int
-    dup_rate: int
-    min_delay: int
-    max_delay: int
-    crash_rate: int
-    delay_bound: int
+    The first four fields may also be per-edge ``[A, A]`` int32
+    MATRICES (entry ``[s, d]`` governs node ``s`` -> node ``d``
+    messages): the drawn bits depend only on key and shape, and the
+    rates and spans apply elementwise, so a UNIFORM matrix draws exactly
+    what the scalar knob draws.  Matrix knobs are sliced to an edge
+    shape (:func:`edge_knobs`) before they reach :func:`copy_plan`.
+    ``crash_rate`` stays a scalar (crashes are per node), and
+    ``delay_bound`` is the config's declared ring bound, the gray
+    inflation clamp."""
+
+    drop_rate: object  # int or [A, A] int32, per 1e4
+    dup_rate: object  # int or [A, A] int32, per 1e4
+    min_delay: object  # int or [A, A] int32 rounds
+    max_delay: object  # int or [A, A] int32 rounds
+    crash_rate: int  # per 1e6
+    delay_bound: int  # the config's max_delay
 
 
 def knobs_from_faults(fc: FaultConfig) -> FaultKnobs:
-    """Host-side encoding of a FaultConfig's i.i.d. knobs."""
+    """Host-side encoding of a FaultConfig's i.i.d. knobs; an
+    ``edges``-bearing config encodes to matrix-form knobs."""
     if fc.edges is not None:
-        raise NotImplementedError(
-            "cfg.faults.edges (matrix-form knobs) is not ported yet"
-        )
+        return matrix_knobs(fc)
     return FaultKnobs(
         drop_rate=int(fc.drop_rate),
         dup_rate=int(fc.dup_rate),
@@ -62,6 +75,56 @@ def knobs_from_faults(fc: FaultConfig) -> FaultKnobs:
         max_delay=int(fc.max_delay),
         crash_rate=int(fc.crash_rate),
         delay_bound=int(fc.max_delay),
+    )
+
+
+def matrix_knobs(fc: FaultConfig, n_nodes: int | None = None) -> FaultKnobs:
+    """Matrix-form host knobs for ``fc``: its ``edges`` tables when
+    present, else the scalar knobs broadcast to a uniform ``[A, A]``
+    matrix (``n_nodes`` is then required)."""
+    e = fc.edges
+    if e is not None:
+        return FaultKnobs(
+            drop_rate=np.asarray(e.drop_rate, np.int32),
+            dup_rate=np.asarray(e.dup_rate, np.int32),
+            min_delay=np.asarray(e.min_delay, np.int32),
+            max_delay=np.asarray(e.max_delay, np.int32),
+            crash_rate=int(fc.crash_rate),
+            delay_bound=int(fc.max_delay),
+        )
+    if n_nodes is None:
+        raise ValueError("matrix_knobs needs n_nodes for an edge-free config")
+
+    def full(v):
+        return np.full((n_nodes, n_nodes), v, np.int32)
+
+    return FaultKnobs(
+        drop_rate=full(fc.drop_rate),
+        dup_rate=full(fc.dup_rate),
+        min_delay=full(fc.min_delay),
+        max_delay=full(fc.max_delay),
+        crash_rate=int(fc.crash_rate),
+        delay_bound=int(fc.max_delay),
+    )
+
+
+def edge_knobs(knobs: FaultKnobs, rows, cols) -> FaultKnobs:
+    """Slice matrix-form knob fields to one edge shape: ``rows`` are the
+    source node ids of the edge shape's leading axis, ``cols`` the
+    destination ids of its trailing axis (proposer->node sends slice
+    ``[pn, :]``, node->proposer replies ``[:, pn]``).  Scalar fields
+    pass through."""
+    rows, cols = np.asarray(rows), np.asarray(cols)
+
+    def sl(x):
+        x = np.asarray(x)
+        return x if x.ndim < 2 else x[rows][:, cols]
+
+    return knobs._replace(
+        drop_rate=sl(knobs.drop_rate),
+        dup_rate=sl(knobs.dup_rate),
+        min_delay=sl(knobs.min_delay),
+        max_delay=sl(knobs.max_delay),
     )
 
 
@@ -106,7 +169,11 @@ def clear_slot(buffers: NetBuffers, slot: int) -> NetBuffers:
     return NetBuffers(*out)
 
 
-def _plan_requests(key, edge_shape, fc: FaultConfig, knobs: FaultKnobs | None):
+def _i64(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), dtype=torch.int64)
+
+
+def _plan_requests(key, edge_shape, fc: FaultConfig, knobs, extra_drop):
     """The randint draws of one plan, as ``(name, request)`` pairs; a
     draw the static path elides is absent."""
     k_drop, k_dup, k_delay = prng.split(key, 3)
@@ -116,12 +183,19 @@ def _plan_requests(key, edge_shape, fc: FaultConfig, knobs: FaultKnobs | None):
         return [
             ("drop", (k_drop, edge_shape, 0, 10_000)),
             ("dup", (k_dup, dup_shape, 0, 10_000)),
-            ("delay", (k_delay, delay_shape, knobs.min_delay, knobs.max_delay + 1)),
+            ("delay", (k_delay, delay_shape, _i64(knobs.min_delay),
+                       _i64(knobs.max_delay) + 1)),
         ]
     if fc.edges is not None:
-        raise NotImplementedError("cfg.faults.edges is not ported yet")
+        # an edges-bearing config must arrive with its matrix knobs:
+        # the static scalar path would sample its zeroed scalar knobs
+        raise ValueError(
+            "copy_plan with per-edge tables needs knobs= "
+            "(net.matrix_knobs); the static scalar path would drop "
+            "the matrix"
+        )
     reqs = []
-    if fc.drop_rate:
+    if extra_drop is not None or fc.drop_rate:
         reqs.append(("drop", (k_drop, edge_shape, 0, 10_000)))
     if fc.dup_rate:
         reqs.append(("dup", (k_dup, dup_shape, 0, 10_000)))
@@ -130,25 +204,30 @@ def _plan_requests(key, edge_shape, fc: FaultConfig, knobs: FaultKnobs | None):
     return reqs
 
 
-def copy_plans(sites, fc: FaultConfig, knobs: FaultKnobs | None = None):
-    """Fault plans for several sends in one hash pass.  ``sites`` is a
-    list of ``(key, edge_shape)``; returns a list of ``(alive, delay)``
-    pairs as :func:`copy_plan` gives them."""
-    per_site = [_plan_requests(k, tuple(shape), fc, knobs) for k, shape in sites]
+def copy_plans(sites, fc: FaultConfig, extra_drop: int | None = None,
+               delay_bound: int | None = None):
+    """Fault plans for several sends in one hash pass.  Each site is
+    ``(key, edge_shape, knobs, gray)`` with ``knobs`` and ``gray`` as
+    :func:`copy_plan` takes them (either may be None); returns a list of
+    ``(alive, delay)`` pairs as :func:`copy_plan` gives them."""
+    sites = [(key, tuple(shape), kn, gray) for key, shape, kn, gray in sites]
+    per_site = [
+        _plan_requests(key, shape, fc, kn, extra_drop) for key, shape, kn, _ in sites
+    ]
     flat = [req for reqs in per_site for _, req in reqs]
     draws = iter(prng.randint_many(flat))
-    drop_rate = fc.drop_rate if knobs is None else knobs.drop_rate
-    dup_rate = fc.dup_rate if knobs is None else knobs.dup_rate
     out = []
-    for (_, shape), reqs in zip(sites, per_site):
+    for (_, shape, kn, gray), reqs in zip(sites, per_site):
         got = {name: next(draws) for name, _ in reqs}
-        shape = tuple(shape)
         if "drop" in got:
-            drop = got["drop"] < drop_rate
+            rate = _i64(fc.drop_rate if kn is None else kn.drop_rate)
+            if extra_drop is not None:
+                rate = torch.clamp(rate + extra_drop, max=10_000)
+            drop = got["drop"] < rate
         else:
             drop = torch.zeros(shape, dtype=torch.bool)
         if "dup" in got:
-            coins = got["dup"] < dup_rate
+            coins = got["dup"] < _i64(fc.dup_rate if kn is None else kn.dup_rate)
             dup1 = coins[0]
             dup2 = dup1 & coins[1]
             dup3 = dup2 & coins[2]
@@ -160,15 +239,44 @@ def copy_plans(sites, fc: FaultConfig, knobs: FaultKnobs | None = None):
             delay = got["delay"]
         else:
             delay = torch.zeros((MAX_COPIES, *shape), dtype=torch.int32)
+        if gray is not None:
+            # gray inflation, clamped at the config's declared ring
+            # bound: it slows copies, never drops them
+            bound = kn.delay_bound if kn is not None else delay_bound
+            delay = torch.clamp(delay + _i64(gray)[None], max=int(bound)).to(torch.int32)
         out.append((alive, delay))
     return out
 
 
-def copy_plan(key, edge_shape, fc: FaultConfig, knobs: FaultKnobs | None = None):
+def copy_plan(key, edge_shape, fc: FaultConfig, extra_drop=None,
+              knobs: FaultKnobs | None = None, gray=None, delay_bound=None):
     """Sample the THNetWork fault plan for one send: ``(alive
     [MAX_COPIES, *edge] bool, delay [MAX_COPIES, *edge] int32)`` on the
-    CPU.  ``knobs`` selects the always-on masked form (scalar knobs)."""
-    return copy_plans([(key, edge_shape)], fc, knobs)[0]
+    CPU.  ``extra_drop`` is the schedule's burst-loss addition to the
+    drop rate this round (clamped to 1e4); ``knobs`` selects the
+    always-on masked form (scalar or edge-sliced matrix knobs); ``gray``
+    (``[*edge]`` ints) adds extra delay rounds to every copy, clamped at
+    ``knobs.delay_bound`` or else ``delay_bound`` (``fc.max_delay``)."""
+    return copy_plans(
+        [(key, edge_shape, knobs, gray)], fc, extra_drop=extra_drop,
+        delay_bound=delay_bound,
+    )[0]
+
+
+def delivery_mask(ar: NetBuffers, reach_pa, reach_ap) -> NetBuffers:
+    """Delivery-time partition cut: void the popped arrival slot's
+    entries on edges severed at the ARRIVAL round (``reach_pa`` is the
+    [P, A] proposer->node reachability, ``reach_ap`` the [A, P]
+    node->proposer one).  An all-true reach round is the identity."""
+    return NetBuffers(
+        prep_req=torch.where(reach_pa, ar.prep_req, bal.NONE),
+        prep_echo=torch.where(reach_ap, ar.prep_echo, bal.NONE),
+        rej=torch.where(reach_ap, ar.rej, bal.NONE),
+        acc_req=torch.where(reach_pa, ar.acc_req, bal.NONE),
+        acc_echo=torch.where(reach_ap, ar.acc_echo, bal.NONE),
+        com_pres=ar.com_pres & reach_pa,
+        com_rep=ar.com_rep & reach_ap,
+    )
 
 
 def _slot_onehot(t: int, s: int, alive: torch.Tensor, delay: torch.Tensor) -> torch.Tensor:

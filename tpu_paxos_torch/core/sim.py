@@ -31,9 +31,16 @@ How the port runs what JAX compiles:
   a donated JAX loop state is consumed) on every device alike.  A
   caller that needs a state again keeps a copy
   (``interop.sim_state_to_numpy``) before the round.
+- Correlated faults run on the constant path: the schedule
+  (``cfg.faults.schedule``) is lowered once to per-round numpy tables
+  (``faults.compile_schedule``) and each round reads its rows at
+  ``min(t, horizon)`` on the host; per-edge ``[A, A]`` fault tables
+  (``cfg.faults.edges``) are matrix knobs sliced per send direction;
+  burst loss, gray inflation and the knob matrices shape the host-drawn
+  copy plans, and the pause, reachability and crash rows ride the
+  round's one host-to-device copy.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming
-itself): fault schedules, per-edge fault tables, ``delivery_cut``,
+Not ported yet (each raises ``NotImplementedError`` naming itself):
 ``admit_block``, and the sharded, runtime-knob, runtime-schedule,
 telemetry, geometry and runtime-protocol builds.
 """
@@ -50,6 +57,7 @@ import torch
 
 from tpu_paxos_torch.config import FaultConfig, SimConfig
 from tpu_paxos_torch.core import ballot as bal
+from tpu_paxos_torch.core import faults as fltm
 from tpu_paxos_torch.core import geom as geo
 from tpu_paxos_torch.core import net as netm
 from tpu_paxos_torch.core import simkern as sk
@@ -268,18 +276,6 @@ _UNPORTED_FLAGS = (
 )
 
 
-def check_ported(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first config field this
-    slice does not port (it must never run a different program)."""
-    fc = cfg.faults
-    if fc.schedule is not None and fc.schedule.episodes:
-        raise NotImplementedError("cfg.faults.schedule is not ported yet")
-    if fc.edges is not None:
-        raise NotImplementedError("cfg.faults.edges is not ported yet")
-    if fc.delivery_cut:
-        raise NotImplementedError("cfg.faults.delivery_cut is not ported yet")
-
-
 def build_engine(
     cfg: SimConfig,
     n_pend_cap: int,
@@ -290,7 +286,9 @@ def build_engine(
 ):
     """Returns ``round_fn(root, state) -> state``, the unpadded,
     unsharded round of the JAX engine with i.i.d. drop/dup/delay and
-    crash faults, gates (``vid_cap``) and the seeded takeover wedge.
+    crash faults, per-edge fault tables, the correlated-fault schedule
+    (``delivery_cut`` included), gates (``vid_cap``) and the seeded
+    takeover wedge.
     ``round_fn`` consumes its ``state``: the acceptor arrays and the ack
     cube are updated in place, on the CPU as on a card.
 
@@ -307,7 +305,6 @@ def build_engine(
         raise NotImplementedError("build_engine n_shards is not ported yet")
     if flags:
         raise TypeError(f"unknown build_engine options {sorted(flags)}")
-    check_ported(cfg)
     dev = devm.resolve(device)
     if use_kernels is not None and use_kernels != (dev.type == "cuda"):
         raise ValueError(
@@ -324,7 +321,28 @@ def build_engine(
     max_crash = (a - 1) // 2
     pk = geo.static_protocol(cfg.protocol, stall_patience=IDLE_RESTART_ROUNDS)
     wedge_no_takeover = seeded_wedge() == "takeover"
-    crash_faults = bool(fc.crash_rate)
+    # Correlated-fault schedule as per-round host tables; a dimension
+    # the schedule lacks is never read.
+    comp = fltm.compile_schedule(fc.schedule, a)
+    horizon = comp.horizon if comp is not None else 0
+    has = {
+        k: comp is not None and getattr(comp, f"has_{k}")
+        for k in ("reach", "pause", "burst", "crash", "gray")
+    }
+    # Per-edge [A, A] fault tables: matrix knobs sliced once per send
+    # direction (proposer->node rows pn, node->proposer columns pn).
+    if fc.edges is not None:
+        mknobs = netm.matrix_knobs(fc)
+        kn_pa = netm.edge_knobs(mknobs, cfg.proposers, range(a))
+        kn_ap = netm.edge_knobs(mknobs, range(a), cfg.proposers)
+    else:
+        kn_pa = kn_ap = None
+    # delivery_cut only acts where reachability masks exist.
+    delivery_cut = bool(fc.delivery_cut) and has["reach"]
+    iid_crash = bool(fc.crash_rate)
+    # Scheduled crash points change `crashed` without an i.i.d. draw:
+    # the crash-coupled cached blocks then refresh every round too.
+    crash_faults = iid_crash or has["crash"]
     r_cap = min(w, i_cap)
     span = min(2 * r_cap, i_cap)
 
@@ -334,28 +352,53 @@ def build_engine(
     offs_w = torch.arange(w, dtype=_I32, device=dev)
     none_pi = torch.full((p, i_cap), val.NONE, dtype=_I32, device=dev)
     bcast_a = torch.ones((p, a), dtype=torch.bool, device=dev)
-    site_shapes = [(p, a), (a, p), (a, p), (p, a), (a, p), (p, a), (a, p)]
+    # the seven send sites in message order: True = proposer->node [P, A]
+    site_pa = [True, False, False, True, False, True, False]
+    pn_np = np.asarray(cfg.proposers)
 
     def draws(root, t: int):
         """Every coin of round ``t``, drawn on the host in one batched
-        pass per kind and moved to the device in one copy: the seven
-        copy plans, the restart backoff and the crash coins."""
+        pass per kind, and the schedule's rows for round ``t``, moved to
+        the device in one copy: the seven copy plans, the restart
+        backoff, the crash coins, and the pause / reachability / crash
+        rows.  Returns ``(plans, rnd_delay, crash_u, rows)`` with
+        ``rows`` a dict of the rows the schedule has."""
+        tt = min(t, horizon)
+        gray_pa = gray_ap = None
+        if has["gray"]:
+            g = comp.gray[tt].astype(np.int64)
+            gray_pa = g[pn_np][:, None] + g[None, :]  # [P, A] src + dst
+            gray_ap = g[:, None] + g[pn_np][None, :]  # [A, P]
         keys = prng.split(prng.stream(root, prng.STREAM_NET_DROP, t), 8)
-        plans = netm.copy_plans(list(zip(keys, site_shapes)), fc)
+        sites = [
+            (key, (p, a), kn_pa, gray_pa) if pa else (key, (a, p), kn_ap, gray_ap)
+            for key, pa in zip(keys, site_pa)
+        ]
+        plans = netm.copy_plans(
+            sites, fc, extra_drop=int(comp.extra_drop[tt]) if has["burst"] else None,
+            delay_bound=fc.max_delay,
+        )
         extra = [(
             prng.stream(root, prng.STREAM_PREPARE_DELAY, t + 1), (p,),
             pk.prepare_delay_min, pk.prepare_delay_max + 1,
         )]
-        if crash_faults:
+        if iid_crash:
             extra.append((prng.stream(root, prng.STREAM_CRASH, t), (a,), 0, 1_000_000))
         coins = prng.randint_many(extra)
-        parts = [x for al, dl in plans for x in (al.to(_I32), dl)] + coins
+        rows = {
+            name: torch.from_numpy(getattr(comp, table)[tt].astype(np.int32))
+            for name, table in (("pause", "paused"), ("reach", "reach"), ("crash", "crashed"))
+            if has[name]
+        }
+        parts = [x for al, dl in plans for x in (al.to(_I32), dl)] + coins + list(rows.values())
         flat = torch.cat([x.reshape(-1) for x in parts]).to(dev)
         out = list(torch.split(flat, [x.numel() for x in parts]))
         out = [o.reshape(x.shape) for o, x in zip(out, parts)]
         plans_d = [(out[2 * k].bool(), out[2 * k + 1]) for k in range(len(plans))]
         rest = out[2 * len(plans):]
-        return plans_d, rest[0], (rest[1] if crash_faults else None)
+        crash_u = rest[1] if iid_crash else None
+        rows_d = dict(zip(rows, (x.bool() for x in rest[1 + iid_crash:])))
+        return plans_d, rest[0], crash_u, rows_d
 
     def round_fn(root, st: SimState) -> SimState:
         for name in ("pend", "gate"):
@@ -370,10 +413,22 @@ def build_engine(
         slot = t % s
         ar = netm.NetBuffers(*[b[slot] for b in st.net])
         net = netm.clear_slot(st.net, slot)
-        plans, rnd_delay, crash_u = draws(root, t)
+        plans, rnd_delay, crash_u, rows = draws(root, t)
 
+        # I/O-alive mask: crashed or currently paused nodes neither
+        # send, receive nor act on timers this round; excusals stay on
+        # `crashed` alone (a paused node's obligations are deferred).
         alive_a = ~st.crashed  # [A]
+        if "pause" in rows:
+            alive_a = alive_a & ~rows["pause"]
         prop_alive = alive_a[pn]  # [P]
+        # Per-edge reachability cuts, ANDed into every send mask (and,
+        # with delivery_cut, into this round's arrivals).
+        reach = rows.get("reach")
+        cut_pa = reach[pn] if reach is not None else None  # [P, A]
+        cut_ap = reach[:, pn] if reach is not None else None  # [A, P]
+        if delivery_cut:
+            ar = netm.delivery_mask(ar, cut_pa, cut_ap)
 
         # ---------------- acceptor side ----------------
         acc = st.acc
@@ -426,7 +481,7 @@ def build_engine(
         return _proposer_round(
             ctx, st, t, net, ar, plans, rnd_delay, crash_u, alive_a,
             prop_alive, acc, learned, preq, grant, rej_prep, rej_acc,
-            abal, elig, cpres, any_com_arr,
+            abal, elig, cpres, any_com_arr, cut_pa, cut_ap, rows.get("crash"),
         )
 
     # The proposer half of the round is below; it shares the build's
@@ -434,7 +489,8 @@ def build_engine(
     ctx = types.SimpleNamespace(
         a=a, p=p, i_cap=i_cap, w=w, quorum=quorum,
         max_crash=max_crash, pk=pk, wedge=wedge_no_takeover,
-        crash_faults=crash_faults, r_cap=r_cap, span=span, pn=pn, pn32=pn32,
+        crash_faults=crash_faults, iid_crash=iid_crash, horizon=horizon,
+        r_cap=r_cap, span=span, pn=pn, pn32=pn32,
         idx=idx, offs_w=offs_w, none_pi=none_pi, bcast_a=bcast_a,
         vid_cap=vid_cap, crash_rate=fc.crash_rate,
     )
@@ -558,10 +614,12 @@ def _requeue(b, pend, own_assign, ptail, conflict):
 def _proposer_round(
     b, st, t, net, ar, plans, rnd_delay, crash_u, alive_a, prop_alive,
     acc, learned, preq, grant, rej_prep, rej_acc, abal, elig, cpres,
-    any_com_arr,
+    any_com_arr, cut_pa, cut_ap, crash_t,
 ):
     """The proposer half of the round, the network writes, crash
-    injection and quiescence (``tpu_paxos/core/sim.py:1022-2039``)."""
+    injection and quiescence (``tpu_paxos/core/sim.py:1022-2039``).
+    ``cut_pa``/``cut_ap`` are the round's reachability masks and
+    ``crash_t`` its cumulative scheduled crashes (None without them)."""
     a, p, pn, pk, quorum = b.a, b.p, b.pn, b.pk, b.quorum
     pr = st.prop
     # A->P arrivals are masked on both ends.
@@ -772,6 +830,14 @@ def _proposer_round(
         send_accept = want_acc_send
 
     # ---------------- network writes ----------------
+    # Every send mask passes through the reachability cut; the message
+    # counters below stay pre-fault.
+    def cpa(m):  # [P, A] proposer->node send mask through the cuts
+        return m if cut_pa is None else m & cut_pa
+
+    def cap(m):  # [A, P] node->proposer send mask through the cuts
+        return m if cut_ap is None else m & cut_ap
+
     bcast_a = b.bcast_a
     (al0, dl0), (al1, dl1), (al2, dl2), (al3, dl3), (al4, dl4), (al5, dl5), (al6, dl6) = plans
     send_rep = grant.T  # [A, P]
@@ -780,22 +846,22 @@ def _proposer_round(
     send_crep = cpres.T  # [A, P]
     net = netm.NetBuffers(
         prep_req=netm.write_ballot(
-            net.prep_req, t, al0, dl0, ballot[:, None], send_prep[:, None] & bcast_a
+            net.prep_req, t, al0, dl0, ballot[:, None], cpa(send_prep[:, None] & bcast_a)
         ),
-        prep_echo=netm.write_ballot(net.prep_echo, t, al1, dl1, preq.T, send_rep),
+        prep_echo=netm.write_ballot(net.prep_echo, t, al1, dl1, preq.T, cap(send_rep)),
         rej=netm.write_ballot(
-            net.rej, t, al2, dl2, acc.max_seen[:, None].expand(a, p), send_rej
+            net.rej, t, al2, dl2, acc.max_seen[:, None].expand(a, p), cap(send_rej)
         ),
         acc_req=netm.write_ballot(
-            net.acc_req, t, al3, dl3, ballot[:, None], send_accept[:, None] & bcast_a
+            net.acc_req, t, al3, dl3, ballot[:, None], cpa(send_accept[:, None] & bcast_a)
         ),
         acc_echo=netm.write_ballot(
-            net.acc_echo, t, al4, dl4, abal[None, :].expand(a, p), send_arep
+            net.acc_echo, t, al4, dl4, abal[None, :].expand(a, p), cap(send_arep)
         ),
         com_pres=netm.write_flag(
-            net.com_pres, t, al5, dl5, send_commit[:, None] & bcast_a
+            net.com_pres, t, al5, dl5, cpa(send_commit[:, None] & bcast_a)
         ),
-        com_rep=netm.write_flag(net.com_rep, t, al6, dl6, send_crep),
+        com_rep=netm.write_flag(net.com_rep, t, al6, dl6, cap(send_crep)),
     )
     msgs = met.msgs + torch.stack([
         send_prep.sum() * a, send_rep.sum(), send_rej.sum(),
@@ -806,7 +872,11 @@ def _proposer_round(
 
     # ---------------- crash injection ----------------
     crashed = st.crashed
-    if b.crash_faults:
+    if crash_t is not None:
+        # scheduled crash points apply before the i.i.d. draw, so its
+        # minority-cap room accounts for them
+        crashed = crashed | crash_t
+    if b.iid_crash:
         want = (crash_u < b.crash_rate) & ~crashed
         room = b.max_crash - _sum32(crashed)
         allow = torch.cumsum(want.to(_I32), dim=0, dtype=_I32) <= room
@@ -840,6 +910,9 @@ def _proposer_round(
     contiguous = n_chosen == hmax + 1
     learned_ok = ((n_learned == hmax + 1) | crashed).all()
     done = q_empty & own_none & contiguous & learned_ok & (t > 0)
+    if b.horizon:
+        # heal-then-converge: never quiescent before the last heal
+        done = done & (t >= b.horizon)
     unresolved = ~(contiguous & learned_ok)
     idle_now = (
         (mode == PREPARED) & (inflight_n == 0) & ~commit_wait
@@ -947,7 +1020,6 @@ def gates_vid_cap(workload, gates) -> int:
 
 def init_state(cfg: SimConfig, pend, gate, tail, root, device="cuda") -> SimState:
     """Initial state on ``device`` (queue arrays as numpy or tensors)."""
-    check_ported(cfg)
     dev = devm.resolve(device)
     to_np = lambda x: x.cpu().numpy() if torch.is_tensor(x) else x  # noqa: E731
     return _init_state(cfg, to_np(pend), to_np(gate), to_np(tail), root, dev)

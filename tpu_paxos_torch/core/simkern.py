@@ -15,10 +15,8 @@ Hopper, with their plain PyTorch versions (port of
 
 Both are bound by device-memory bytes; the source,
 ``tpu_paxos_torch/csrc/simkern.cu``, says what its design does about
-that.  The source is compiled with ``nvcc -arch=sm_90a`` into a shared
-library with a plain C interface at first use, under
-``build/tpu_paxos_torch/`` beside the package, keyed by the source's
-sha256, and loaded with ``ctypes``.
+that.  ``utils/kbuild.py`` compiles it at first use into a shared
+library with a plain C interface and loads it with ``ctypes``.
 
 Three functions per kernel:
 
@@ -41,27 +39,17 @@ reuses a state after a round sees the same thing on both devices.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from tpu_paxos_torch.core import ballot as bal
 from tpu_paxos_torch.core import values as val
+from tpu_paxos_torch.utils import kbuild
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "simkern.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tpu_paxos_torch")
-ARCH = "sm_90a"
+NAME = "simkern"
 
 #: Kernel launches since the last :func:`reset_counts`, by kernel name.
 LAUNCHES = {"store_accepts": 0, "accum_acks": 0}
-
-_lib = None
-_lock = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -69,81 +57,13 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the simkern CUDA kernels cannot be built")
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"simkern_{ARCH}_{digest}.so")
-
-
-def build_command(nvcc: str, out: str) -> list[str]:
-    return [
-        nvcc, f"-arch={ARCH}", "-O3", "-std=c++17", "-shared",
-        "-Xcompiler", "-fPIC", "-o", out, SOURCE,
-    ]
-
-
-def build() -> str:
-    """Compile the kernels if the library for the current source is
-    missing; returns its path.  Raises with nvcc's output on failure."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(build_command(_nvcc(), tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
 def load():
     """Build the kernels if needed and load them (once per process)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.simkern_store_accepts.argtypes = [vp] * 5 + [i32, i32, i64, vp]
-            lib.simkern_store_accepts.restype = i32
-            lib.simkern_accum_acks.argtypes = [vp] * 7 + [i32, i32, i64, vp]
-            lib.simkern_accum_acks.restype = i32
-            lib.simkern_error_string.argtypes = [i32]
-            lib.simkern_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
-
-
-def _check_launch(lib, code: int, name: str) -> None:
-    if code != 0:
-        msg = lib.simkern_error_string(code).decode()
-        raise RuntimeError(f"simkern.{name} launch failed: {msg} ({code})")
-
-
-def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return kbuild.load(NAME, {
+        "simkern_store_accepts": ([vp] * 5 + [i32, i32, i64, vp], i32),
+        "simkern_accum_acks": ([vp] * 7 + [i32, i32, i64, vp], i32),
+    })
 
 
 def _scalars(first: torch.Tensor, pa: torch.Tensor, device) -> torch.Tensor:
@@ -208,12 +128,12 @@ def store_accepts_cuda(acc_ballot, acc_vid, learned, abat, abal, elig):
         raise ValueError("simkern.store_accepts_cuda needs CUDA tensors")
     a, i = acc_ballot.shape
     p = abat.shape[0]
-    _require(acc_ballot, "acc_ballot", torch.int32, (a, i), dev)
-    _require(acc_vid, "acc_vid", torch.int32, (a, i), dev)
-    _require(learned, "learned", torch.int32, (a, i), dev)
-    _require(abat, "abat", torch.int32, (p, i), dev)
-    _require(abal, "abal", torch.int32, (p,), dev)
-    _require(elig, "elig", torch.bool, (p, a), dev)
+    kbuild.require(acc_ballot, "acc_ballot", torch.int32, (a, i), dev)
+    kbuild.require(acc_vid, "acc_vid", torch.int32, (a, i), dev)
+    kbuild.require(learned, "learned", torch.int32, (a, i), dev)
+    kbuild.require(abat, "abat", torch.int32, (p, i), dev)
+    kbuild.require(abal, "abal", torch.int32, (p,), dev)
+    kbuild.require(elig, "elig", torch.bool, (p, a), dev)
     scal = _scalars(abal, elig, dev)
     lib = load()
     with torch.cuda.device(dev):
@@ -222,7 +142,7 @@ def store_accepts_cuda(acc_ballot, acc_vid, learned, abat, abal, elig):
             acc_ballot.data_ptr(), acc_vid.data_ptr(), learned.data_ptr(),
             abat.data_ptr(), scal.data_ptr(), a, p, i, stream,
         )
-    _check_launch(lib, code, "store_accepts")
+    kbuild.check_launch(lib, NAME, code, "simkern.store_accepts")
     LAUNCHES["store_accepts"] += 1
     return acc_ballot, acc_vid
 
@@ -234,13 +154,13 @@ def accum_acks_cuda(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatc
     if dev.type != "cuda":
         raise ValueError("simkern.accum_acks_cuda needs CUDA tensors")
     p, a, i = acks.shape
-    _require(acks, "acks", torch.int8, (p, a, i), dev)
-    _require(cur_batch, "cur_batch", torch.int32, (p, i), dev)
-    _require(acc_ballot, "acc_ballot", torch.int32, (a, i), dev)
-    _require(acc_vid, "acc_vid", torch.int32, (a, i), dev)
-    _require(learned, "learned", torch.int32, (a, i), dev)
-    _require(ballot, "ballot", torch.int32, (p,), dev)
-    _require(amatch_pa, "amatch_pa", torch.bool, (p, a), dev)
+    kbuild.require(acks, "acks", torch.int8, (p, a, i), dev)
+    kbuild.require(cur_batch, "cur_batch", torch.int32, (p, i), dev)
+    kbuild.require(acc_ballot, "acc_ballot", torch.int32, (a, i), dev)
+    kbuild.require(acc_vid, "acc_vid", torch.int32, (a, i), dev)
+    kbuild.require(learned, "learned", torch.int32, (a, i), dev)
+    kbuild.require(ballot, "ballot", torch.int32, (p,), dev)
+    kbuild.require(amatch_pa, "amatch_pa", torch.bool, (p, a), dev)
     scal = _scalars(ballot, amatch_pa, dev)
     n_ack = torch.empty((p, i), dtype=torch.int32, device=dev)
     lib = load()
@@ -251,7 +171,7 @@ def accum_acks_cuda(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatc
             acc_ballot.data_ptr(), acc_vid.data_ptr(), learned.data_ptr(),
             scal.data_ptr(), a, p, i, stream,
         )
-    _check_launch(lib, code, "accum_acks")
+    kbuild.check_launch(lib, NAME, code, "simkern.accum_acks")
     LAUNCHES["accum_acks"] += 1
     return acks, n_ack
 
