@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught):
    PyTorch versions on the card, at the main path's shape (A=5, P=2,
    I=2**23) and at odd sizes, with exact equality (all protocol state is
    integer), and time kernel and plain version with CUDA events (median
-   of 25 launches).
+   of 25 launches; before each, the in-place operands are restored and
+   the L2 is flushed, so every launch does a first launch's work),
+   against the bytes these operands need (``simkern.bytes_needed``; the
+   dense count, ``bytes_per_launch``, is printed beside it).
 3. Drive the general engine's main path — ``tpu_paxos_torch.core.sim.run``
    at the ``"engine": "sim"`` bench configuration (5 nodes, 2**23
    instances, proposers (0, 1), assign_window 2**20, drop 500 / dup
@@ -19,6 +22,13 @@ Phases (any failure exits non-zero; nothing is caught):
    and read just after; it must launch both kernels, pass the invariant
    checks and reproduce the committed JAX golden (rounds, chosen count,
    decision-log sha256, ``tpu_paxos_torch/data/goldens.json``).
+   Then run it again, recording the operands of every simkern launch
+   (about 12 GB on the card, freed before phase 5), and on each of those
+   snapshots hold the kernel against its plain version exactly, time it
+   (median of 9 launches, restored operands, cold L2) and count the
+   32-byte sectors its operands need (``simkern.bytes_needed``): the
+   sums over the run are each simkern record's ``main_path_ms`` and
+   ``main_path_bound_ms``.
 4. Run the CLI-sized workload (``4 4 10`` with the debug.conf faults,
    gates on) through ``python -m tpu_paxos_torch``'s entry point; its
    decision log must match the second golden.
@@ -65,6 +75,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 A, P, I_FULL = 5, 2, 1 << 23
 REPS = 25
+SNAP_REPS = 9  # launches timed on each main-path snapshot
+L2_FLUSH_BYTES = 1 << 30
 I_FW, WINDOWS, FW_REPS = 1 << 27, 16, 10  # the fast path's headline shape
 DEV = "cuda"
 
@@ -80,8 +92,8 @@ def _card_line() -> str:
 def _rand_inputs(i: int, seed: int):
     """Seeded acceptor/proposer arrays with realistic NONE density and
     ballot ties between the accepted ballots and the proposers' ballots."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dev = DEV
 
     def rint(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
@@ -104,9 +116,22 @@ def _rand_inputs(i: int, seed: int):
     return acc_ballot, acc_vid, learned, batch.contiguous(), abal, elig, acks
 
 
-def _median_ms(fn, reps: int = REPS) -> float:
+def _flusher():
+    """A setup step that reads a buffer twenty times the 50 MB L2, so the
+    next launch finds its operands in device memory, as the main path
+    does at 2**23.  It keeps the card busy for about 0.3 ms, longer than
+    the wrapper's host work, so the events time the kernel alone."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    return buf.sum
+
+
+def _median_ms(fn, reps: int = REPS, setup=None) -> float:
+    """Median CUDA-event time of ``fn``; ``setup`` runs before each timed
+    launch, outside the events."""
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -116,6 +141,22 @@ def _median_ms(fn, reps: int = REPS) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def time_in_place(fn, ops, in_place, reps: int = REPS) -> float:
+    """Median time of ``fn(*work)`` where ``work`` is a copy of ``ops``
+    whose in-place operands (indices ``in_place``) are restored from
+    ``ops`` before every launch, and the L2 flushed: each launch does a
+    first launch's work on cold operands, and nothing compounds."""
+    work = [t.clone() if k in in_place else t for k, t in enumerate(ops)]
+    flush = _flusher()
+
+    def setup():
+        for k in in_place:
+            work[k].copy_(ops[k])
+        flush()
+
+    return _median_ms(lambda: fn(*work), reps, setup)
 
 
 def _max_abs_err(pairs) -> int:
@@ -148,72 +189,161 @@ def check_kernels(sk) -> dict:
             raise SystemExit(f"kernel disagrees with its plain version at I={i}")
         if i != I_FULL:
             continue
-        wb, wv, wa = ab.clone(), av.clone(), acks.clone()
+        store_ops = (ab, av, lr, bat, abal, elig)
+        ack_ops = (acks, bat, ab, av, lr, abal, elig)
         rec["simkern.store_accepts"] = {
             "max_abs_err": err_s,
-            "ms": _median_ms(lambda: sk.store_accepts_cuda(wb, wv, lr, bat, abal, elig)),
-            "plain_ms": _median_ms(lambda: sk.store_accepts_plain(ab, av, lr, bat, abal, elig)),
-            "bytes": sk.bytes_per_launch("store_accepts", A, P, i),
+            "ms": time_in_place(sk.store_accepts_cuda, store_ops, (0, 1)),
+            "plain_ms": _median_ms(lambda: sk.store_accepts_plain(*store_ops), setup=_flusher()),
+            "dense_bytes": sk.bytes_per_launch("store_accepts", A, P, i),
+            "bytes": sk.bytes_needed("store_accepts", *store_ops),
             "ops": 8 * A * P * i,
         }
         rec["simkern.accum_acks"] = {
             "max_abs_err": err_a,
-            "ms": _median_ms(lambda: sk.accum_acks_cuda(wa, bat, ab, av, lr, abal, elig)),
-            "plain_ms": _median_ms(lambda: sk.accum_acks_plain(acks, bat, ab, av, lr, abal, elig)),
-            "bytes": sk.bytes_per_launch("accum_acks", A, P, i),
+            "ms": time_in_place(sk.accum_acks_cuda, ack_ops, (0,)),
+            "plain_ms": _median_ms(lambda: sk.accum_acks_plain(*ack_ops), setup=_flusher()),
+            "dense_bytes": sk.bytes_per_launch("accum_acks", A, P, i),
+            "bytes": sk.bytes_needed("accum_acks", *ack_ops),
             "ops": 9 * A * P * i,
         }
-        del wb, wv, wa
+        del store_ops, ack_ops
     for name, r in rec.items():
         r["bytes_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["ops_ms"] = r["ops"] / SCALAR_OPS_PER_S * 1e3
-        print(f"{name}: {r['bytes']} bytes/launch ({r['bytes'] / I_FULL:.1f} B/instance), "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bytes bound {r['bytes_ms']:.4f} ms")
+        print(f"{name}: needs {r['bytes']} bytes/launch of {r['dense_bytes']} dense "
+              f"({r['dense_bytes'] / I_FULL:.1f} B/instance), kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bytes bound {r['bytes_ms']:.4f} ms "
+              f"({r['bytes_ms'] / r['ms']:.1%} of bound; dense "
+              f"{r['dense_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     torch.cuda.empty_cache()
     return rec
 
 
-def run_main_path(sk, goldens) -> dict:
-    """Phase 3: the full-size general-engine run on the card."""
+def _bench_cfg(gold):
     from tpu_paxos_torch import config as cfgm
-    from tpu_paxos_torch.core import sim
-    from tpu_paxos_torch.harness import validate
-    from tpu_paxos_torch.replay.decision_log import decision_log, sha256
 
-    gold = goldens["bench_sim"]
     bc = gold["config"]
-    cfg = cfgm.SimConfig(
+    return cfgm.SimConfig(
         n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
         proposers=tuple(bc["proposers"]), seed=bc["seed"],
         assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
         faults=cfgm.FaultConfig(**bc["faults"]),
     )
-    torch.cuda.reset_peak_memory_stats()
-    sk.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = sim.run(cfg, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    text = decision_log(res.chosen_vid, res.chosen_ballot, gold["stride"], cfg.n_instances)
-    sha = sha256(text)
+
+
+def _check_bench_sim(res, cfg, gold) -> str:
+    from tpu_paxos_torch.replay.decision_log import decision_log, sha256
+
+    sha = sha256(decision_log(res.chosen_vid, res.chosen_ballot, gold["stride"], cfg.n_instances))
     chosen = int((res.chosen_vid != -1).sum())
-    print(f"main path (sim.run, I={cfg.n_instances}): rounds={res.rounds} done={res.done} "
-          f"chosen={chosen} wall_s={wall:.3f} peak_mem_gb={peak_gb:.2f} "
-          f"launches={json.dumps(launches, sort_keys=True)} decision_log_sha256={sha}")
-    validate.check_all(res.learned, res.expected_vids)
-    print("main path invariants: agreement, exactly_once, executed_identical")
     if (res.rounds, bool(res.done), chosen, sha) != (
         gold["rounds"], gold["done"], gold["chosen"], gold["decision_log_sha256"]
     ):
         raise SystemExit(f"main path disagrees with the JAX golden: {gold}")
+    return sha
+
+
+def run_main_path(sk, goldens) -> dict:
+    """Phase 3: the full-size general-engine run on the card."""
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.harness import validate
+
+    gold = goldens["bench_sim"]
+    cfg = _bench_cfg(gold)
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(cfg, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chosen = int((res.chosen_vid != -1).sum())
+    print(f"main path (sim.run, I={cfg.n_instances}): rounds={res.rounds} done={res.done} "
+          f"chosen={chosen} wall_s={wall:.3f} peak_mem_gb={peak_gb:.2f} "
+          f"launches={json.dumps(launches, sort_keys=True)}")
+    validate.check_all(res.learned, res.expected_vids)
+    print("main path invariants: agreement, exactly_once, executed_identical")
+    sha = _check_bench_sim(res, cfg, gold)
+    print(f"main path decision_log_sha256={sha} (matches the JAX golden)")
     for name, n in launches.items():
         if n < 1:
             raise SystemExit(f"kernel simkern.{name} was never launched on the main path")
     return launches
+
+
+@contextlib.contextmanager
+def capture_operands(sk):
+    """Record a clone of every simkern launch's operands, as the kernel
+    is given them (before its in-place update), by kernel name."""
+    snaps = {"store_accepts": [], "accum_acks": []}
+    kernels = {"store_accepts": sk.store_accepts_cuda, "accum_acks": sk.accum_acks_cuda}
+
+    def recording(name):
+        def launch(*ops):
+            snaps[name].append([t.clone() for t in ops])
+            return kernels[name](*ops)
+        return launch
+
+    sk.store_accepts_cuda = recording("store_accepts")
+    sk.accum_acks_cuda = recording("accum_acks")
+    try:
+        yield snaps
+    finally:
+        sk.store_accepts_cuda = kernels["store_accepts"]
+        sk.accum_acks_cuda = kernels["accum_acks"]
+
+
+def snapshot_main_path(sk, goldens, launches) -> dict:
+    """Phase 3b: a second bench_sim run that records every kernel
+    launch's operands (the timed run above stays a plain run)."""
+    from tpu_paxos_torch.core import sim
+
+    gold = goldens["bench_sim"]
+    cfg = _bench_cfg(gold)
+    with capture_operands(sk) as snaps:
+        res = sim.run(cfg, device=DEV)
+    torch.cuda.synchronize()
+    _check_bench_sim(res, cfg, gold)
+    counts = {k: len(v) for k, v in snaps.items()}
+    gb = sum(t.numel() * t.element_size() for v in snaps.values() for ops in v for t in ops) / 1e9
+    print(f"main path snapshots: {json.dumps(counts, sort_keys=True)} launches, {gb:.2f} GB on the card")
+    if counts != launches:
+        raise SystemExit(f"snapshot run launched {counts}, the main path {launches}")
+    return snaps
+
+
+def time_main_path_operands(sk, snaps) -> dict:
+    """Phase 3c: each kernel on each main-path snapshot: equal to its
+    plain version, timed (median of SNAP_REPS launches from restored
+    operands and a cold L2), and the bytes those operands need."""
+    out = {}
+    kernels = {  # kernel, plain version, in-place operand indices
+        "store_accepts": (sk.store_accepts_cuda, sk.store_accepts_plain, (0, 1)),
+        "accum_acks": (sk.accum_acks_cuda, sk.accum_acks_plain, (0,)),
+    }
+    for key, (kern, plain, in_place) in kernels.items():
+        ms = needed = 0
+        for n, ops in enumerate(snaps[key]):
+            want = plain(*ops)
+            got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(ops)])
+            torch.cuda.synchronize()
+            if _max_abs_err(zip(got, want)):
+                raise SystemExit(f"simkern.{key} disagrees with its plain version on main-path launch {n}")
+            t = time_in_place(kern, ops, in_place, SNAP_REPS)
+            b = sk.bytes_needed(key, *ops)
+            ms += t
+            needed += b
+            print(f"main path simkern.{key} launch {n}: {t:.4f} ms, needs {b} bytes "
+                  f"(bound {b / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+            del want, got
+        bound = needed / HBM_BYTES_PER_S * 1e3
+        out[f"simkern.{key}"] = {"main_path_ms": ms, "main_path_bound_ms": bound}
+        print(f"main path simkern.{key}: {len(snaps[key])} launches, {ms:.4f} ms in all, "
+              f"needed bytes {needed} -> bound {bound:.4f} ms ({bound / ms:.1%} of bound)")
+    return out
 
 
 def run_cli(sk, goldens) -> None:
@@ -449,6 +579,10 @@ def main() -> int:
     rec = check_kernels(sk)
     print(f"kernels: {json.dumps(list(rec))}")
     launches = run_main_path(sk, goldens)
+    snaps = snapshot_main_path(sk, goldens, launches)
+    main_rec = time_main_path_operands(sk, snaps)
+    del snaps
+    torch.cuda.empty_cache()
     run_cli(sk, goldens)
     fw_rec = check_fastwin(fw, fast)
     fw_launches = run_fast_headline(fw, fast, card)
@@ -475,6 +609,8 @@ def main() -> int:
             "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": None,
+            "main_path_ms": main_rec[name]["main_path_ms"],
+            "main_path_bound_ms": main_rec[name]["main_path_bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

@@ -43,6 +43,52 @@ def rand_state(seed, a, i):
     return acc_ballot, acc_vid, learned, batch, abal, pa, acks
 
 
+ACK_KINDS = ("random", "window", "none", "no_match")
+
+
+def ack_operands(seed, a, p, i, kind="window"):
+    """Seeded accum_acks operands (numpy, in the kernel's argument order)
+    at any (A, P).  ``"window"`` is shaped like a real round: each
+    proposer's batches live on one contiguous window with NONE elsewhere,
+    acceptors hold or have learned some of them, and some instances are
+    already at quorum.  ``"random"`` has rand_state's density, ``"none"``
+    no batch anywhere, ``"no_match"`` no acceptor echo (amatch all
+    false)."""
+    r = np.random.default_rng(seed)
+    ballot = ((np.arange(p) + 1) * 65536 + np.arange(p)).astype(np.int32)
+    acc_ballot = np.where(r.random((a, i)) < 0.3, ballot[r.integers(0, p, (a, i))], -1)
+    acc_vid = np.where(acc_ballot != -1, r.integers(0, 1 << 20, (a, i)), -1)
+    learned = np.where(r.random((a, i)) < 0.2, r.integers(0, 1 << 20, (a, i)), -1)
+    batch = np.where(r.random((p, i)) < 0.7, r.integers(0, 1 << 20, (p, i)), -1)
+    batch = np.where(r.random((p, i)) < 0.2, acc_vid[r.integers(0, a, p)], batch)
+    batch = np.where(r.random((p, i)) < 0.1, learned[r.integers(0, a, p)], batch)
+    acks = r.random((p, a, i)) < 0.2
+    if kind == "window":
+        batch = np.full((p, i), -1)
+        for pi in range(p):
+            w = int(r.integers(1, max(2, i // 4)))
+            w0 = int(r.integers(0, i - w + 1))
+            batch[pi, w0:w0 + w] = r.integers(0, 1 << 20, w)
+        cols = np.arange(i)
+        for ai in range(a):
+            src = r.integers(0, p, i)
+            cb = batch[src, cols]
+            pick = (cb != -1) & (r.random(i) < 0.6)
+            hold = pick & (r.random(i) < 0.7)
+            acc_vid[ai, hold] = cb[hold]
+            acc_ballot[ai, hold] = ballot[src[hold]]
+            learned[ai, pick & ~hold] = cb[pick & ~hold]
+        acks[:, : a // 2 + 1, r.random(i) < 0.3] = True  # already at quorum
+    elif kind == "none":
+        batch[:] = -1
+    amatch = r.random((p, a)) < 0.6
+    amatch[:, 0] = True
+    if kind == "no_match":
+        amatch[:] = False
+    return (acks.astype(np.int8), batch.astype(np.int32), acc_ballot.astype(np.int32),
+            acc_vid.astype(np.int32), learned.astype(np.int32), ballot, amatch)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -65,6 +111,51 @@ def test_cuda_kernels_equal_plain_on_card(card, i):
     got = tsk.accum_acks_cuda(acks.clone(), bat, ab, av, lr, abal, pa)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose base is one element past an
+    allocation's start (4 bytes off a 16-byte boundary for int32)."""
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = big[1:1 + t.numel()].view(t.shape)
+    return view.copy_(t)
+
+
+# (5, 2) is the kernel's compiled shape; the others run its run-time loop
+ACK_SHAPES = [(1, 1), (3, 2), (4, 4), (5, 2), (7, 3), (9, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ACK_KINDS)
+@pytest.mark.parametrize("i", [80, 4099, (1 << 20) + 3])
+@pytest.mark.parametrize("a,p", ACK_SHAPES)
+def test_accum_acks_kernel_equals_plain_in_place(card, a, p, i, kind):
+    """Equal to the plain version bit for bit, in the storage it was
+    given, changing exactly the ack bytes the plain version changes."""
+    ops = _on(card, *ack_operands(i + 17 * a + p, a, p, i, kind))
+    want, want_n = tsk.accum_acks_plain(*ops)
+    acks = ops[0].clone()
+    ptr = acks.data_ptr()
+    got, got_n = tsk.accum_acks_cuda(acks, *ops[1:])
+    torch.cuda.synchronize()
+    assert got is acks and got.data_ptr() == ptr
+    assert torch.equal(got, want) and torch.equal(got_n, want_n)
+    assert torch.equal(got != ops[0], want != ops[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [80, 4099])
+@pytest.mark.parametrize("a,p", ACK_SHAPES)
+def test_accum_acks_kernel_on_unaligned_rows(card, a, p, i):
+    """Operands whose base is off a 16-byte boundary take the scalar
+    path and give the same result."""
+    ops = _on(card, *ack_operands(i + a, a, p, i, "window"))
+    want, want_n = tsk.accum_acks_plain(*ops)
+    moved = [_unaligned(x) for x in ops[:5]] + ops[5:]
+    assert all(x.data_ptr() % 16 for x in moved[:5])
+    got, got_n = tsk.accum_acks_cuda(*moved)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_n, want_n)
 
 
 @pytest.mark.cuda

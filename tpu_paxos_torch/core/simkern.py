@@ -15,8 +15,11 @@ Hopper, with their plain PyTorch versions (port of
 
 Both are bound by device-memory bytes; the source,
 ``tpu_paxos_torch/csrc/simkern.cu``, says what its design does about
-that.  ``utils/kbuild.py`` compiles it at first use into a shared
-library with a plain C interface and loads it with ``ctypes``.
+that.  :func:`bytes_per_launch` counts the bytes of dense operands,
+:func:`bytes_needed` the bytes that given operands need (a real round's
+instances mostly carry no batch).  ``utils/kbuild.py`` compiles the
+source at first use into a shared library with a plain C interface and
+loads it with ``ctypes``.
 
 Three functions per kernel:
 
@@ -212,4 +215,65 @@ def bytes_per_launch(kernel: str, a: int, p: int, i: int) -> int:
     if kernel == "accum_acks":
         # acks, cur_batch, acc_* and learned in; acks, n_ack out
         return i * (p * a + 4 * p + 3 * 4 * a + p * a + 4 * p) + 4 * p + p * a
+    raise ValueError(kernel)
+
+
+SECTOR = 32  # bytes: the unit in which the card's memory moves data
+
+
+def _sector_bytes(mask: torch.Tensor, elem_bytes: int) -> int:
+    """Bytes of the 32-byte sectors that hold at least one element set in
+    ``mask`` (the array's elements in memory order, its base aligned to
+    a sector, as torch's allocations are)."""
+    per = SECTOR // elem_bytes
+    flat = mask.reshape(-1)
+    pad = -flat.numel() % per
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return int(flat.view(-1, per).any(dim=1).sum()) * SECTOR
+
+
+def _all_sectors(t: torch.Tensor) -> int:
+    """Bytes of the sectors of a whole array, read or written in full."""
+    return -(-t.numel() * t.element_size() // SECTOR) * SECTOR
+
+
+def bytes_needed(kernel: str, *operands) -> int:
+    """Bytes one launch on these operands (given as to the kernel, before
+    it updates them) needs at the least: the 32-byte sectors holding an
+    element it must read, or one it must change, plus the scalars as
+    :func:`bytes_per_launch` counts them.  On fully dense operands it
+    equals :func:`bytes_per_launch`; on a real round, whose instances
+    mostly carry no batch, it is far less."""
+    if kernel == "store_accepts":
+        acc_ballot, acc_vid, learned, abat, abal, elig = operands
+        p, a = elig.shape
+        has = elig[:, :, None] & (abat != val.NONE)[:, None, :]  # [P, A, I]
+        need = has.any(dim=0)  # [A, I]: some eligible proposer has a batch
+        new_b, new_v = store_accepts_plain(acc_ballot, acc_vid, learned, abat, abal, elig)
+        return (
+            _sector_bytes(need, 4)  # learned
+            + _sector_bytes(need & (learned == val.NONE), 4)  # acc_ballot
+            + _sector_bytes(elig.any(dim=1)[:, None].expand_as(abat), 4)  # abat rows
+            + _sector_bytes(new_b != acc_ballot, 4)
+            + _sector_bytes(new_v != acc_vid, 4)
+            + 4 * p + p * a
+        )
+    if kernel == "accum_acks":
+        acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch_pa = operands
+        p, a, _ = acks.shape
+        # acceptor state matters only where a matched proposer has a
+        # batch whose ack is not yet in the cube
+        live = cur_batch != val.NONE  # [P, I]
+        unacked = (acks & 1) == 0  # [P, A, I]
+        need = (amatch_pa[:, :, None] & live[:, None, :] & unacked).any(dim=0)  # [A, I]
+        new, _ = accum_acks_plain(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch_pa)
+        return (
+            3 * _sector_bytes(need, 4)  # acc_ballot, acc_vid, learned
+            + _all_sectors(cur_batch)
+            + _all_sectors(acks)  # read in full: n_ack sums it
+            + _sector_bytes(new != acks, 1)  # written where a bit changed
+            + _all_sectors(cur_batch)  # n_ack, written in full
+            + 4 * p + p * a
+        )
     raise ValueError(kernel)
