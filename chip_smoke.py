@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught):
 2. Hold the general engine's kernels (``simkern``) against their plain
    PyTorch versions on the card, at the main path's shape (A=5, P=2,
    I=2**23) and at odd sizes, with exact equality (all protocol state is
-   integer), and time kernel and plain version with CUDA events (median
+   integer), ``store_accepts`` also on a full-size set shaped like a real
+   round (batches on one 2**20 window per proposer, one proposer
+   eligible nowhere), and time kernel and plain version with CUDA events (median
    of 25 launches; before each, the in-place operands are restored and
    the L2 is flushed, so every launch does a first launch's work),
    against the bytes these operands need (``simkern.bytes_needed``; the
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (median of 9 launches, restored operands, cold L2) and count the
    32-byte sectors its operands need (``simkern.bytes_needed``): the
    sums over the run are each simkern record's ``main_path_ms`` and
-   ``main_path_bound_ms``.
+   ``main_path_bound_ms``.  Each ``store_accepts`` line also gives the
+   launch's live-batch share and the batch rows it reads.
 4. Run the CLI-sized workload (``4 4 10`` with the debug.conf faults,
    gates on) through ``python -m tpu_paxos_torch``'s entry point; its
    decision log must match the second golden.
@@ -114,6 +117,41 @@ def _rand_inputs(i: int, seed: int):
     elig[:, 0] = True
     acks = coin(0.2, (P, A, i)).to(torch.int8)
     return acc_ballot, acc_vid, learned, batch.contiguous(), abal, elig, acks
+
+
+def _round_store_inputs(i: int, seed: int):
+    """store_accepts operands shaped like a real round at full size: each
+    proposer's batches on one assignment window of 2**20 instances with
+    NONE elsewhere, acceptors holding (at the proposer's ballot or a
+    higher one) or having learned some of proposer 0's, and proposer 1
+    eligible at no acceptor, so one batch row is read."""
+    acc_ballot, acc_vid, learned, _, abal, elig, _ = _rand_inputs(i, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    win = 1 << 20
+    batch = torch.full((P, i), -1, dtype=torch.int32, device=DEV)
+    for p in range(P):
+        w0 = int(torch.randint(0, i // win, (1,), generator=g, device=DEV)) * win
+        batch[p, w0:w0 + win] = torch.randint(
+            0, 1 << 23, (win,), generator=g, device=DEV, dtype=torch.int32)
+    for a in range(A):
+        pick = (batch[0] != -1) & (torch.rand(i, generator=g, device=DEV) < 0.5)
+        hold = pick & (torch.rand(i, generator=g, device=DEV) < 0.7)
+        higher = torch.rand(i, generator=g, device=DEV) < 0.3
+        acc_vid[a] = torch.where(hold, batch[0], acc_vid[a])
+        acc_ballot[a] = torch.where(hold, torch.where(higher, abal[1], abal[0]), acc_ballot[a])
+        learned[a] = torch.where(pick & ~hold, batch[0], learned[a])
+    elig[1] = False
+    return acc_ballot, acc_vid, learned, batch, abal, elig
+
+
+def _store_shape(ops) -> tuple[float, int]:
+    """A store_accepts operand set's live-batch share (instances where a
+    batch row the kernel reads holds a batch) and the batch rows it reads
+    (the proposers eligible at some acceptor)."""
+    abat, elig = ops[3], ops[5]
+    rows = elig.any(dim=1)
+    live = (abat[rows] != -1).any(dim=0)
+    return float(live.float().mean()), int(rows.sum())
 
 
 def _flusher():
@@ -208,6 +246,21 @@ def check_kernels(sk) -> dict:
             "ops": 9 * A * P * i,
         }
         del store_ops, ack_ops
+    ops = _round_store_inputs(I_FULL, seed=1)
+    want = sk.store_accepts_plain(*ops)
+    got = sk.store_accepts_cuda(ops[0].clone(), ops[1].clone(), *ops[2:])
+    torch.cuda.synchronize()
+    err = _max_abs_err(zip(got, want))
+    share, rows = _store_shape(ops)
+    b = sk.bytes_needed("store_accepts", *ops)
+    print(f"store_accepts vs plain on a round-shaped set at A={A} P={P} I={I_FULL} "
+          f"(live share {share:.4f}, {rows} batch row read): max_abs_err={err}, kernel "
+          f"{time_in_place(sk.store_accepts_cuda, ops, (0, 1)):.4f} ms, needs {b} bytes "
+          f"(bound {b / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    if err:
+        raise SystemExit("store_accepts disagrees with its plain version on the round-shaped set")
+    rec["simkern.store_accepts"]["max_abs_err"] = max(rec["simkern.store_accepts"]["max_abs_err"], err)
+    del ops, want, got
     for name, r in rec.items():
         r["bytes_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["ops_ms"] = r["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -336,8 +389,12 @@ def time_main_path_operands(sk, snaps) -> dict:
             b = sk.bytes_needed(key, *ops)
             ms += t
             needed += b
+            shape = ""
+            if key == "store_accepts":
+                share, rows = _store_shape(ops)
+                shape = f", live share {share:.4f}, {rows} batch rows read"
             print(f"main path simkern.{key} launch {n}: {t:.4f} ms, needs {b} bytes "
-                  f"(bound {b / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+                  f"(bound {b / HBM_BYTES_PER_S * 1e3:.4f} ms){shape}")
             del want, got
         bound = needed / HBM_BYTES_PER_S * 1e3
         out[f"simkern.{key}"] = {"main_path_ms": ms, "main_path_bound_ms": bound}

@@ -1,22 +1,29 @@
-"""Time builds of ``simkern.cu``'s ``accum_acks`` against each other on
-one card, in turns, on chip_smoke's synthetic operands and on the
-operands of every ``accum_acks`` launch of one bench_sim run.
+"""Time builds of one ``simkern.cu`` kernel against each other on one
+card, in turns, on chip_smoke's synthetic operands and on the operands
+of every launch of that kernel in one bench_sim run.
 
-    python3 scripts/torch_simkern_ab.py [LABEL=path/to/simkern.cu ...]
+    python3 scripts/torch_simkern_ab.py [--kernel accum_acks|store_accepts] \\
+        [LABEL=path/to/simkern.cu ...]
 
 The package's own source is labelled ``tree`` and always comes first.
 Each source is compiled with ``nvcc -Xptxas -v`` (all at once; the
 register and spill lines are printed) and loaded with ``ctypes``; each
-must equal ``simkern.accum_acks_plain`` exactly on every operand set.
-Times are CUDA-event medians from restored operands after an L2 flush
+must equal the kernel's plain version exactly on every operand set.  A
+source whose ``simkern_store_accepts`` takes one packed scalar array
+(``scal``, as earlier versions of ``simkern.cu`` did) is launched through
+that interface, the others with ``abal`` and ``elig`` as given.  Times
+are CUDA-event
+medians from restored operands after an L2 flush
 (``chip_smoke.time_in_place``), taken in turns: the sources in the order
 given, then in reverse, so each has two turns in one call.
 
-Per bench_sim snapshot it also prints the acceptor sectors the ack fold
-needs under two rules: a matched proposer has a batch there (``live``),
-and a matched proposer has a batch there that is not yet acked
-(``unacked``, the rule ``simkern.bytes_needed`` counts).  The last line
-is a JSON summary.
+Per bench_sim snapshot it also prints the acceptor sectors the kernel
+needs under two rules.  ``accum_acks``: a matched proposer has a batch
+there (``live``), or one not yet acked (``unacked``, the rule
+``simkern.bytes_needed`` counts).  ``store_accepts``: ``learned`` and
+``acc_ballot`` where an eligible proposer has a batch (``needed``), or
+``acc_ballot`` only where ``learned`` is also NONE (``unlearned``, the
+rule ``simkern.bytes_needed`` counts).  The last line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -39,8 +47,14 @@ from tpu_paxos_torch.core import simkern as sk  # noqa: E402
 from tpu_paxos_torch.core import values as val  # noqa: E402
 from tpu_paxos_torch.utils import kbuild  # noqa: E402
 
+# kernel: (plain version, in-place operand indices, the two sector rules)
+KERNELS = {
+    "accum_acks": (sk.accum_acks_plain, (0,), ("live", "unacked")),
+    "store_accepts": (sk.store_accepts_plain, (0, 1), ("needed", "unlearned")),
+}
 
-def build(sources: list) -> list:
+
+def build(kernel: str, sources: list) -> list:
     """Compile every ``(label, path)`` source at once; return
     ``[(label, launch function)]`` in the same order."""
     out_dir = os.path.join(kbuild.BUILD_DIR, "ab")
@@ -49,26 +63,40 @@ def build(sources: list) -> list:
     builds = []
     for label, src in sources:
         with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+            text = f.read()
+        digest = hashlib.sha256(text).hexdigest()[:16]
         out = os.path.join(out_dir, f"{label}_{kbuild.ARCH}_{digest}.so")
-        builds.append((label, src, out, subprocess.Popen(
+        builds.append((label, src, text.decode(), out, subprocess.Popen(
             [compiler, f"-arch={kbuild.ARCH}", "-O3", "-std=c++17", "-shared",
              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     launches = []
-    for label, src, out, proc in builds:
+    for label, src, text, out, proc in builds:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {src}:\n{log}")
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas [{label}] {line.split(':', 1)[-1].strip()}")
-        launches.append((label, _launcher(ctypes.CDLL(out))))
+        lib = ctypes.CDLL(out)
+        if kernel == "accum_acks":
+            launches.append((label, _ack_launcher(lib)))
+        else:
+            launches.append((label, _store_launcher(lib, packed_store_scalars(text))))
     return launches
 
 
-def _launcher(lib):
+def packed_store_scalars(text: str) -> bool:
+    """Whether a source's ``simkern_store_accepts`` takes one packed
+    scalar array (``scal``) instead of ``abal`` and ``elig``."""
+    m = re.search(r"int\s+simkern_store_accepts\s*\(([^)]*)\)", text)
+    if m is None:
+        raise ValueError("no simkern_store_accepts in the source")
+    return re.search(r"\bscal\b", m.group(1)) is not None
+
+
+def _ack_launcher(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.simkern_accum_acks.argtypes = [vp] * 7 + [i32, i32, i64, vp]
     lib.simkern_accum_acks.restype = i32
@@ -89,77 +117,119 @@ def _launcher(lib):
     return launch
 
 
-def in_turns(launches: list, ops, reps: int) -> dict:
+def _store_launcher(lib, packed: bool):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.simkern_store_accepts.argtypes = [vp] * (5 if packed else 6) + [i32, i32, i64, vp]
+    lib.simkern_store_accepts.restype = i32
+
+    def launch(acc_ballot, acc_vid, learned, abat, abal, elig):
+        a, i = acc_ballot.shape
+        if packed:  # the scalars' two launches stay inside the timed events
+            scalars = [sk._scalars(abal, elig, abal.device).data_ptr()]
+        else:
+            scalars = [abal.data_ptr(), elig.data_ptr()]
+        code = lib.simkern_store_accepts(
+            acc_ballot.data_ptr(), acc_vid.data_ptr(), learned.data_ptr(),
+            abat.data_ptr(), *scalars, a, abat.shape[0], i,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        if code != 0:
+            raise RuntimeError(f"store_accepts launch failed ({code})")
+        return acc_ballot, acc_vid
+
+    return launch
+
+
+def in_turns(kernel: str, launches: list, ops, reps: int) -> dict:
     """Each build equal to the plain version on ``ops``, then timed in
     the given order and in reverse: ``{label: [ms, ms]}``."""
-    want = sk.accum_acks_plain(*ops)
+    plain, in_place, _ = KERNELS[kernel]
+    want = plain(*ops)
     for label, launch in launches:
-        got = launch(ops[0].clone(), *ops[1:])
+        got = launch(*[t.clone() if k in in_place else t for k, t in enumerate(ops)])
         torch.cuda.synchronize()
         if cs._max_abs_err(zip(got, want)):
-            raise SystemExit(f"build {label} disagrees with accum_acks_plain")
+            raise SystemExit(f"build {label} disagrees with {kernel}'s plain version")
     del want
     times = {label: [] for label, _ in launches}
     for label, launch in launches + launches[::-1]:
-        times[label].append(cs.time_in_place(launch, ops, (0,), reps))
+        times[label].append(cs.time_in_place(launch, ops, in_place, reps))
     return times
 
 
-def acceptor_sectors(ops) -> tuple[int, int]:
-    """Acceptor-array bytes (three [A, I] int32 rows' sectors) under the
-    ``live`` and the ``unacked`` rule."""
-    acks, cur_batch, _, _, _, _, amatch_pa = ops
-    live = amatch_pa[:, :, None] & (cur_batch != val.NONE)[:, None, :]
-    unacked = live & ((acks & 1) == 0)
-    return (3 * sk._sector_bytes(live.any(dim=0), 4),
-            3 * sk._sector_bytes(unacked.any(dim=0), 4))
+def acceptor_sectors(kernel: str, ops) -> tuple[int, int]:
+    """Acceptor-array bytes (the [A, I] int32 rows' sectors) the kernel
+    needs under its two rules (``KERNELS``), the wider rule first."""
+    if kernel == "accum_acks":
+        acks, cur_batch, _, _, _, _, amatch_pa = ops
+        live = amatch_pa[:, :, None] & (cur_batch != val.NONE)[:, None, :]
+        unacked = live & ((acks & 1) == 0)
+        # acc_ballot, acc_vid and learned
+        return (3 * sk._sector_bytes(live.any(dim=0), 4),
+                3 * sk._sector_bytes(unacked.any(dim=0), 4))
+    _, _, learned, abat, _, elig = ops
+    need = (elig[:, :, None] & (abat != val.NONE)[:, None, :]).any(dim=0)
+    # learned, and acc_ballot beside it or only where learned is NONE
+    rows = sk._sector_bytes(need, 4)
+    return 2 * rows, rows + sk._sector_bytes(need & (learned == val.NONE), 4)
+
+
+def _synthetic_ops(kernel: str):
+    ab, av, lr, bat, abal, elig, acks = cs._rand_inputs(cs.I_FULL, seed=cs.I_FULL)
+    if kernel == "accum_acks":
+        return (acks, bat, ab, av, lr, abal, elig)
+    return (ab, av, lr, bat, abal, elig)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="accum_acks")
     ap.add_argument("sources", nargs="*", metavar="LABEL=PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_simkern_ab: CUDA is not available", file=sys.stderr)
         return 1
+    kernel = args.kernel
+    wide, narrow = KERNELS[kernel][2]
     sources = [("tree", kbuild.source(sk.NAME))]
     sources += [tuple(arg.split("=", 1)) for arg in args.sources]
     card = cs._card_line()
-    print(f"card: {card}")
-    launches = build(sources)
+    print(f"card: {card} | kernel {kernel}")
+    launches = build(kernel, sources)
     sk.load()
 
-    ab, av, lr, bat, abal, elig, acks = cs._rand_inputs(cs.I_FULL, seed=cs.I_FULL)
-    ops = (acks, bat, ab, av, lr, abal, elig)
-    synthetic = in_turns(launches, ops, cs.REPS)
-    synth_bound = sk.bytes_needed("accum_acks", *ops) / cs.HBM_BYTES_PER_S * 1e3
+    ops = _synthetic_ops(kernel)
+    synthetic = in_turns(kernel, launches, ops, cs.REPS)
+    synth_bound = sk.bytes_needed(kernel, *ops) / cs.HBM_BYTES_PER_S * 1e3
     print(f"synthetic A={cs.A} P={cs.P} I={cs.I_FULL}: {json.dumps(synthetic, sort_keys=True)} "
           f"needed bound {synth_bound:.4f} ms")
-    del ab, av, lr, bat, abal, elig, acks, ops
+    del ops
 
     with open(os.path.join(HERE, "tpu_paxos_torch", "data", "goldens.json")) as fh:
         goldens = json.load(fh)
     counts = cs.run_main_path(sk, goldens)
-    snaps = cs.snapshot_main_path(sk, goldens, counts)["accum_acks"]
+    snaps = cs.snapshot_main_path(sk, goldens, counts)[kernel]
     main_path = {label: [0.0, 0.0] for label, _ in launches}
-    needed = live_b = unacked_b = 0
+    needed = wide_b = narrow_b = 0
     for n, ops in enumerate(snaps):
-        t = in_turns(launches, ops, cs.SNAP_REPS)
+        t = in_turns(kernel, launches, ops, cs.SNAP_REPS)
         for label, _ in launches:
             main_path[label][0] += t[label][0]
             main_path[label][1] += t[label][1]
-        b = sk.bytes_needed("accum_acks", *ops)
-        lb, ub = acceptor_sectors(ops)
-        needed, live_b, unacked_b = needed + b, live_b + lb, unacked_b + ub
-        print(f"snapshot {n}: needs {b} bytes; acceptor sectors live {lb}, unacked {ub} "
-              f"({1 - ub / max(lb, 1):.1%} fewer) {json.dumps(t, sort_keys=True)}")
+        b = sk.bytes_needed(kernel, *ops)
+        wb, nb = acceptor_sectors(kernel, ops)
+        needed, wide_b, narrow_b = needed + b, wide_b + wb, narrow_b + nb
+        print(f"snapshot {n}: needs {b} bytes; acceptor sectors {wide} {wb}, {narrow} {nb} "
+              f"({1 - nb / max(wb, 1):.1%} fewer) {json.dumps(t, sort_keys=True)}")
     bound = needed / cs.HBM_BYTES_PER_S * 1e3
-    print(f"main path accum_acks sums: {json.dumps(main_path, sort_keys=True)} needed bound {bound:.4f} ms; "
-          f"acceptor sectors live {live_b}, unacked {unacked_b} ({1 - unacked_b / max(live_b, 1):.1%} fewer)")
+    print(f"main path {kernel} sums: {json.dumps(main_path, sort_keys=True)} needed bound {bound:.4f} ms; "
+          f"acceptor sectors {wide} {wide_b}, {narrow} {narrow_b} "
+          f"({1 - narrow_b / max(wide_b, 1):.1%} fewer)")
     print(json.dumps({
-        "card": card, "synthetic_ms": synthetic, "synthetic_bound_ms": synth_bound,
-        "main_path_ms": main_path, "main_path_bound_ms": bound,
-        "acceptor_bytes_live": live_b, "acceptor_bytes_unacked": unacked_b,
+        "card": card, "kernel": kernel, "synthetic_ms": synthetic,
+        "synthetic_bound_ms": synth_bound, "main_path_ms": main_path,
+        "main_path_bound_ms": bound,
+        f"acceptor_bytes_{wide}": wide_b, f"acceptor_bytes_{narrow}": narrow_b,
     }, sort_keys=True))
     return 0
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_simkern_cuda import ack_operands, rand_state
+from test_torch_simkern_cuda import STORE_KINDS, ack_operands, rand_state, store_operands
 from tpu_paxos.core import simkern as jsk
 from tpu_paxos_torch.core import simkern as tsk
 from tpu_paxos_torch.utils import kbuild
@@ -24,10 +24,14 @@ def _t(*xs):
     return [torch.from_numpy(np.array(x)) for x in xs]
 
 
+@pytest.mark.parametrize("kind", STORE_KINDS)
 @pytest.mark.parametrize("a", [3, 5])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_store_accepts_plain_matches_pallas_interpret(a, seed):
-    ab, av, lr, bat, abal, elig, _ = rand_state(seed, a, I)
+def test_store_accepts_plain_matches_pallas_interpret(a, seed, kind):
+    """On every kind of operand set the card tests use (a real round's
+    windows, random density, no batch, an ineligible proposer, ballot
+    ties and a NONE ballot)."""
+    ab, av, lr, bat, abal, elig = store_operands(seed, a, 2, I, kind)
     want_b, want_v = jsk.store_accepts(
         jnp.asarray(ab), jnp.asarray(av), jnp.asarray(lr), jnp.asarray(bat),
         jnp.asarray(abal), jnp.asarray(elig), interpret=True,
@@ -36,6 +40,7 @@ def test_store_accepts_plain_matches_pallas_interpret(a, seed):
     assert got_b.dtype == got_v.dtype == torch.int32
     np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert torch.equal(got_b, torch.from_numpy(ab)) == (kind == "none")  # only "none" stores nothing
 
 
 @pytest.mark.parametrize("a", [3, 5])
@@ -142,23 +147,45 @@ def test_bytes_needed_counts_sectors(a, p):
 
 
 def test_ab_script_counts_acceptor_sectors_by_both_rules():
-    """scripts/torch_simkern_ab.py: the ``unacked`` rule (bytes_needed's)
-    never needs more acceptor sectors than the ``live`` rule, equals it
-    on an empty cube and needs none on a full one; without CUDA the
-    script exits 1."""
+    """scripts/torch_simkern_ab.py.  accum_acks: the ``unacked`` rule
+    (bytes_needed's) never needs more acceptor sectors than the ``live``
+    rule, equals it on an empty cube and needs none on a full one.
+    store_accepts: the ``unlearned`` rule (bytes_needed's) never needs
+    more than the ``needed`` rule, equals it where nothing is learned and
+    needs only ``learned``'s sectors where everything is.  The script
+    tells the older packed-scalar store interface from the tree's, and
+    without CUDA it exits 1."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "scripts", "torch_simkern_ab.py")
     spec = importlib.util.spec_from_file_location("torch_simkern_ab", path)
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
     ops = _t(*ack_operands(0, 5, 2, 4096, "window"))
-    live, unacked = ab.acceptor_sectors(ops)
+    live, unacked = ab.acceptor_sectors("accum_acks", ops)
     assert 0 < unacked <= live
     ops[0].zero_()
-    assert ab.acceptor_sectors(ops) == (live, live)
+    assert ab.acceptor_sectors("accum_acks", ops) == (live, live)
     ops[0].fill_(1)
-    assert ab.acceptor_sectors(ops) == (live, 0)
+    assert ab.acceptor_sectors("accum_acks", ops) == (live, 0)
+
+    ops = _t(*store_operands(0, 5, 2, 4096, "window"))
+    needed, unlearned = ab.acceptor_sectors("store_accepts", ops)
+    assert 0 < unlearned < needed
+    learned = ops[2]
+    learned.fill_(-1)
+    assert ab.acceptor_sectors("store_accepts", ops) == (needed, needed)
+    learned.fill_(7)
+    assert ab.acceptor_sectors("store_accepts", ops) == (needed, needed // 2)
+    ops[5].zero_()  # no eligible proposer: no acceptor row
+    assert ab.acceptor_sectors("store_accepts", ops) == (0, 0)
+
+    with open(tsk.kbuild.source(tsk.NAME)) as f:
+        assert not ab.packed_store_scalars(f.read())
+    assert ab.packed_store_scalars(
+        "int simkern_store_accepts(void* acc_ballot, void* acc_vid, const void* learned,\n"
+        "    const void* abat, const void* scal, int A, int P, long long I, void* stream) {")
     assert ab.main([]) == 1
+    assert ab.main(["--kernel", "store_accepts"]) == 1
 
 
 def test_bytes_needed_store_accepts():
@@ -174,6 +201,15 @@ def test_bytes_needed_store_accepts():
     assert tsk.bytes_needed("store_accepts", *ops) == floor + 4 * a * 32
     abat[1] = torch.arange(i, dtype=torch.int32)  # dense
     assert tsk.bytes_needed("store_accepts", *ops) == tsk.bytes_per_launch("store_accepts", a, p, i)
+    # only proposer 0 eligible, its batch at one instance: only its abat
+    # row is read, and one sector of each acceptor array
+    abat[0, :] = -1
+    abat[0, 100] = 8
+    elig[1] = False
+    one_row = 4 * i + 4 * p + p * a
+    assert tsk.bytes_needed("store_accepts", *ops) == one_row + 4 * a * 32
+    elig[0, 1:] = False  # and only at acceptor 0
+    assert tsk.bytes_needed("store_accepts", *ops) == one_row + 4 * 32
     elig[:] = False  # nobody eligible: not even abat is needed
     assert tsk.bytes_needed("store_accepts", *ops) == 4 * p + p * a
 

@@ -89,6 +89,58 @@ def ack_operands(seed, a, p, i, kind="window"):
             acc_vid.astype(np.int32), learned.astype(np.int32), ballot, amatch)
 
 
+STORE_KINDS = ("window", "random", "none", "one_ineligible", "ties")
+
+
+def store_operands(seed, a, p, i, kind="window"):
+    """Seeded store_accepts operands (numpy, in the kernel's argument
+    order) at any (A, P).  ``"window"`` is shaped like a real round: each
+    proposer's batches live on one contiguous window with NONE elsewhere,
+    and some acceptors already hold them (at the proposer's ballot or a
+    higher one) or have learned them.  ``"random"`` has rand_state's
+    density, ``"none"`` no batch anywhere, ``"one_ineligible"`` is a
+    window round with one proposer's ``elig`` row all false.  ``"ties"``
+    gives every proposer the same ballot, held by the acceptors at many
+    instances, and every proposer ``elig`` everywhere; with an odd seed
+    the first proposer's ballot is NONE."""
+    r = np.random.default_rng(seed)
+    ballot = ((np.arange(p) + 1) * 65536 + np.arange(p)).astype(np.int32)
+    ladder = np.concatenate([ballot, ballot + 65536])  # some above every abal
+    acc_ballot = np.where(r.random((a, i)) < 0.3, ladder[r.integers(0, 2 * p, (a, i))], -1)
+    acc_vid = np.where(acc_ballot != -1, r.integers(0, 1 << 20, (a, i)), -1)
+    learned = np.where(r.random((a, i)) < 0.2, r.integers(0, 1 << 20, (a, i)), -1)
+    batch = np.where(r.random((p, i)) < 0.7, r.integers(0, 1 << 20, (p, i)), -1)
+    elig = r.random((p, a)) < 0.6
+    elig[:, 0] = True
+    if kind in ("window", "one_ineligible"):
+        batch = np.full((p, i), -1)
+        for pi in range(p):
+            w = int(r.integers(1, max(2, i // 4)))
+            w0 = int(r.integers(0, i - w + 1))
+            batch[pi, w0:w0 + w] = r.integers(0, 1 << 20, w)
+        cols = np.arange(i)
+        for ai in range(a):
+            src = r.integers(0, p, i)
+            cb = batch[src, cols]
+            pick = (cb != -1) & (r.random(i) < 0.5)
+            hold = pick & (r.random(i) < 0.7)
+            acc_vid[ai, hold] = cb[hold]
+            acc_ballot[ai, hold] = ladder[src[hold] + p * (r.random(hold.sum()) < 0.3)]
+            learned[ai, pick & ~hold] = cb[pick & ~hold]
+        if kind == "one_ineligible":
+            elig[r.integers(0, p)] = False
+    elif kind == "none":
+        batch[:] = -1
+    elif kind == "ties":
+        ballot[:] = ballot[0]
+        acc_ballot = np.where(r.random((a, i)) < 0.5, ballot[0], acc_ballot)
+        elig[:] = True
+        if seed % 2:
+            ballot[0] = -1
+    return (acc_ballot.astype(np.int32), acc_vid.astype(np.int32), learned.astype(np.int32),
+            batch.astype(np.int32), ballot, elig)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -159,6 +211,40 @@ def test_accum_acks_kernel_on_unaligned_rows(card, a, p, i):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", STORE_KINDS)
+@pytest.mark.parametrize("i", [80, 4099, (1 << 20) + 3])
+@pytest.mark.parametrize("a,p", ACK_SHAPES)
+def test_store_accepts_kernel_equals_plain_in_place(card, a, p, i, kind):
+    """Equal to the plain version bit for bit, in the storage it was
+    given, changing exactly the elements the plain version changes."""
+    ops = _on(card, *store_operands(i + 17 * a + p, a, p, i, kind))
+    want_b, want_v = tsk.store_accepts_plain(*ops)
+    ab, av = ops[0].clone(), ops[1].clone()
+    ptrs = (ab.data_ptr(), av.data_ptr())
+    got_b, got_v = tsk.store_accepts_cuda(ab, av, *ops[2:])
+    torch.cuda.synchronize()
+    assert got_b is ab and got_v is av and (ab.data_ptr(), av.data_ptr()) == ptrs
+    assert torch.equal(got_b, want_b) and torch.equal(got_v, want_v)
+    assert torch.equal(got_b != ops[0], want_b != ops[0])
+    assert torch.equal(got_v != ops[1], want_v != ops[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [80, 4099])
+@pytest.mark.parametrize("a,p", ACK_SHAPES)
+def test_store_accepts_kernel_on_unaligned_rows(card, a, p, i):
+    """Operands whose base is off a 16-byte boundary take the scalar
+    path and give the same result."""
+    ops = _on(card, *store_operands(i + a, a, p, i, "window"))
+    want = tsk.store_accepts_plain(*ops)
+    moved = [_unaligned(x) for x in ops[:4]] + ops[4:]
+    assert all(x.data_ptr() % 16 for x in moved[:4])
+    got = tsk.store_accepts_cuda(*moved)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_operands(card):
     ab, av, lr, bat, abal, pa, acks = _on(card, *rand_state(1, 3, 256))
     before = dict(tsk.LAUNCHES)
@@ -166,6 +252,10 @@ def test_cuda_wrappers_refuse_bad_operands(card):
         tsk.store_accepts_cuda(ab, av, lr.to(torch.int64), bat, abal, pa)
     with pytest.raises(ValueError, match="shape"):
         tsk.store_accepts_cuda(ab, av, lr, bat[:, :128], abal, pa)
+    with pytest.raises(ValueError, match="bool"):
+        tsk.store_accepts_cuda(ab, av, lr, bat, abal, pa.to(torch.int32))
+    with pytest.raises(ValueError, match="shape"):
+        tsk.store_accepts_cuda(ab, av, lr, bat, abal[:1], pa)
     with pytest.raises(ValueError, match="contiguous"):
         tsk.accum_acks_cuda(acks, bat.T.contiguous().T, ab, av, lr, abal, pa)
     with pytest.raises(ValueError, match="CUDA"):

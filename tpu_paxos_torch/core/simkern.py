@@ -64,13 +64,14 @@ def load():
     """Build the kernels if needed and load them (once per process)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return kbuild.load(NAME, {
-        "simkern_store_accepts": ([vp] * 5 + [i32, i32, i64, vp], i32),
+        "simkern_store_accepts": ([vp] * 6 + [i32, i32, i64, vp], i32),
         "simkern_accum_acks": ([vp] * 7 + [i32, i32, i64, vp], i32),
     })
 
 
 def _scalars(first: torch.Tensor, pa: torch.Tensor, device) -> torch.Tensor:
-    """The [P] and [P, A] operands as one small int32 device array."""
+    """The [P] and [P, A] operands as one small int32 device array (the
+    ack kernel's; the store kernel reads the caller's tensors)."""
     return torch.cat([
         first.to(device=device, dtype=torch.int32).reshape(-1),
         pa.to(device=device, dtype=torch.int32).reshape(-1),
@@ -124,8 +125,9 @@ def accum_acks_plain(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amat
 
 
 def store_accepts_cuda(acc_ballot, acc_vid, learned, abat, abal, elig):
-    """Launch the store kernel: updates ``acc_ballot``/``acc_vid`` in
-    place and returns them."""
+    """Launch the store kernel (one device launch: it reads ``abal`` and
+    ``elig`` as given): updates ``acc_ballot``/``acc_vid`` in place and
+    returns them."""
     dev = acc_ballot.device
     if dev.type != "cuda":
         raise ValueError("simkern.store_accepts_cuda needs CUDA tensors")
@@ -137,13 +139,12 @@ def store_accepts_cuda(acc_ballot, acc_vid, learned, abat, abal, elig):
     kbuild.require(abat, "abat", torch.int32, (p, i), dev)
     kbuild.require(abal, "abal", torch.int32, (p,), dev)
     kbuild.require(elig, "elig", torch.bool, (p, a), dev)
-    scal = _scalars(abal, elig, dev)
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.simkern_store_accepts(
             acc_ballot.data_ptr(), acc_vid.data_ptr(), learned.data_ptr(),
-            abat.data_ptr(), scal.data_ptr(), a, p, i, stream,
+            abat.data_ptr(), abal.data_ptr(), elig.data_ptr(), a, p, i, stream,
         )
     kbuild.check_launch(lib, NAME, code, "simkern.store_accepts")
     LAUNCHES["store_accepts"] += 1

@@ -11,10 +11,40 @@
 // B/instance for the store and 96 B/instance for the ack fold at A=5,
 // P=2 (simkern.bytes_per_launch), against a handful of integer compares.
 //
-// store_accepts: one thread per instance column, consecutive threads on
-// consecutive instances so every row access is coalesced, each operand
-// element read once, outputs updated in place, the [P] / [P, A] scalars
-// read from one small device array that stays in L1.
+// store_accepts, per (a, i): the highest abal[p] over the proposers p
+// with elig[p, a], abat[p, i] != NONE, learned[a, i] == NONE and
+// abal[p] >= acc_ballot[a, i] is stored in acc_ballot, that proposer's
+// batch in acc_vid (ties to the first p; a NONE ballot never stores).
+// A real round's batches live on one assignment window per proposer, a
+// quarter of the instances or less, so the bytes it needs are the batch
+// rows and a few acceptor sectors (simkern.bytes_needed), and the
+// design reads only those:
+// - One thread per group of 4 consecutive instances over all proposers:
+//   each batch row is read once as a 16-byte vector, not once per
+//   acceptor.
+// - Batch row p is read only if elig[p, :] has a true (the same test in
+//   every thread, so it costs no divergence); acceptor row a of a group
+//   (learned, acc_ballot) only if some p with elig[p, a] has a batch in
+//   the group.  Batches sit in contiguous windows, so whole warps skip.
+// - Batch rows are streamed (__ldcs, evict first): read once, they
+//   should not push out of L2 what other launches reuse.
+// - A and P are template parameters for the bench shape (5, 2).  A
+//   group's acceptor rows are taken one at a time, so few registers
+//   are live and many threads are in flight, each with one or two row
+//   streams open.  acc_ballot is loaded after learned, and only where a
+//   lane with an eligible batch has not learned (the bytes_needed
+//   rule): timed in turns, that ties with loading both together on the
+//   main path's operands and is 1% faster on dense ones.  Loading all
+//   needed rows first (78 registers) or 2 or 4 groups a thread were
+//   slower (scripts/torch_simkern_ab.py; PERF.md).  Other shapes take
+//   the run-time-loop instantiation (A = P = 0).
+// - Only the lanes that store are written: one 16-byte store per row
+//   where all 4 do, per-lane stores elsewhere.  acc_vid is never read.
+// - abal [P] int32 and elig [P, A] bool (one byte each) are read
+//   straight from the caller's tensors: one launch per call.
+// - A scalar path (groups of one instance) takes I % 4 != 0 and rows
+//   that are not 16-byte aligned; any I works, the tail is
+//   bounds-checked.
 //
 // accum_acks, per (p, a, i):
 //   acks[p, a, i] |= amatch[p, a] & cb[p, i] != NONE & (hold | comm)
@@ -44,8 +74,9 @@
 // - A scalar path (groups of one instance, byte-wide acks) takes
 //   I % 4 != 0 and rows that are not 16-byte aligned; any I works, the
 //   tail is bounds-checked.
-// No shared memory, no TMA: nothing is reused across threads, and the
-// loads are already 16 bytes wide and all in flight together.
+// No shared memory, no TMA, no tensor cores in either kernel: nothing is
+// reused across threads, the loads are already 16 bytes wide and all in
+// flight together, and the work is a few integer compares per word.
 //
 // Plain C interface (built with nvcc -shared, loaded with ctypes): each
 // launcher enqueues on the caller's stream, never synchronizes, and
@@ -58,42 +89,6 @@ namespace {
 
 constexpr int32_t kNone = -1;  // NONE for both ballots and vids
 constexpr int kThreads = 256;
-
-// scal = [abal[P], elig[P * A]] (int32 0/1, [P, A] row-major).
-// acc_ballot/acc_vid/learned [A, I], abat [P, I], all int32.
-__global__ void store_accepts_kernel(int32_t* __restrict__ acc_ballot,
-                                     int32_t* __restrict__ acc_vid,
-                                     const int32_t* __restrict__ learned,
-                                     const int32_t* __restrict__ abat,
-                                     const int32_t* __restrict__ scal,
-                                     int A, int P, long long I) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= I) return;
-  for (int a = 0; a < A; ++a) {
-    long long k = (long long)a * I + i;
-    int32_t ab = acc_ballot[k];
-    int32_t lr = learned[k];
-    bool is_comm = lr != kNone;
-    int32_t best_b = kNone;
-    int32_t best_v = kNone;
-    for (int p = 0; p < P; ++p) {
-      int32_t batp = abat[(long long)p * I + i];
-      int32_t abal_p = scal[p];
-      bool elig = scal[P + p * A + a] != 0;
-      bool store_ok = is_comm ? (batp == lr) : (abal_p >= ab);
-      bool ack = elig && batp != kNone && store_ok;
-      int32_t cand = (ack && !is_comm) ? abal_p : kNone;
-      if (cand > best_b) {
-        best_b = cand;
-        best_v = batp;
-      }
-    }
-    if (best_b != kNone) {
-      acc_ballot[k] = best_b;
-      acc_vid[k] = best_v;
-    }
-  }
-}
 
 // A group of instances: 4 on the vector path, 1 on the scalar path.
 template <bool kVec>
@@ -113,12 +108,50 @@ struct Group {
     }
   }
 
+  // the same, streamed (evict first): a row read once in the launch
+  __device__ static void load_stream(const int32_t* row, long long i, int32_t (&v)[L]) {
+    if constexpr (kVec) {
+      const int4 x = __ldcs(reinterpret_cast<const int4*>(row + i));
+      v[0] = x.x;
+      v[1] = x.y;
+      v[2] = x.z;
+      v[3] = x.w;
+    } else {
+      v[0] = __ldcs(row + i);
+    }
+  }
+
+  // the same for a row the kernel also writes (no read-only cache)
+  __device__ static void load_rw(const int32_t* row, long long i, int32_t (&v)[L]) {
+    if constexpr (kVec) {
+      const int4 x = *reinterpret_cast<const int4*>(row + i);
+      v[0] = x.x;
+      v[1] = x.y;
+      v[2] = x.z;
+      v[3] = x.w;
+    } else {
+      v[0] = row[i];
+    }
+  }
+
   __device__ static void store(int32_t* row, long long i, const int32_t (&v)[L]) {
     if constexpr (kVec) {
       *reinterpret_cast<int4*>(row + i) = make_int4(v[0], v[1], v[2], v[3]);
     } else {
       row[i] = v[0];
     }
+  }
+
+  // the lanes j with bit j of m set: one vector store if all are
+  __device__ static void store_lanes(int32_t* row, long long i, const int32_t (&v)[L],
+                                     unsigned m) {
+    if (m == (1u << L) - 1) {
+      store(row, i, v);
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j)
+      if ((m >> j) & 1u) row[i + j] = v[j];
   }
 
   // the group's int8 acks of one (p, a) row, byte j in bits 8j..8j+7
@@ -138,6 +171,151 @@ struct Group {
     }
   }
 };
+
+// One acceptor row's store for a group: folds proposer p's candidate
+// (ballot bal, batches bt, eligible el) into the best ballot and batch
+// per lane.  learned != NONE never stores, so the plain version's
+// batch == learned test cannot change the result and is left out.
+template <int L>
+__device__ __forceinline__ void fold_store(int32_t (&bb)[L], int32_t (&bv)[L], bool el,
+                                           int32_t bal, const int32_t (&bt)[L],
+                                           const int32_t (&ab)[L], const int32_t (&lr)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (el && bt[j] != kNone && lr[j] == kNone && bal >= ab[j] && bal > bb[j]) {
+      bb[j] = bal;
+      bv[j] = bt[j];
+    }
+  }
+}
+
+template <int L>
+__device__ __forceinline__ unsigned storing_lanes(const int32_t (&bb)[L]) {
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) m |= (unsigned)(bb[j] != kNone) << j;
+  return m;
+}
+
+// acc_ballot/acc_vid [A, I] (in place), learned [A, I], abat [P, I], all
+// int32; abal [P] int32, elig [P, A] bool bytes, row-major.
+// kA = kP = 0 takes A and P at run time.
+template <int kA, int kP, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    store_accepts_kernel(int32_t* __restrict__ acc_ballot, int32_t* __restrict__ acc_vid,
+                         const int32_t* __restrict__ learned,
+                         const int32_t* __restrict__ abat,
+                         const int32_t* __restrict__ abal,
+                         const uint8_t* __restrict__ elig, int A_rt, int P_rt,
+                         long long I) {
+  using G = Group<kVec>;
+  constexpr int L = G::L;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
+  if (i >= I) return;  // the vector path has I % 4 == 0: no partial group
+
+  if constexpr (kA > 0) {
+    constexpr int A = kA;
+    constexpr int P = kP;
+    // 1. The scalars, and the batches of every proposer some acceptor
+    //    takes (the same rows in every thread), streamed: read once.
+    int32_t ballot[P];
+    bool el[P][A];
+    int32_t bt[P][L];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      ballot[p] = __ldg(abal + p);
+      bool row = false;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        el[p][a] = __ldg(elig + p * A + a) != 0;
+        row |= el[p][a];
+      }
+      if (row) {
+        G::load_stream(abat + p * I, i, bt[p]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < L; ++j) bt[p][j] = kNone;
+      }
+    }
+
+    // 2. The acceptor rows some eligible proposer has a batch for.
+    unsigned need = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      bool live = false;
+#pragma unroll
+      for (int j = 0; j < L; ++j) live |= bt[p][j] != kNone;
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+        if (live && el[p][a]) need |= 1u << a;
+    }
+    if (need == 0) return;
+
+    // 3. Each such row in turn: load learned, then acc_ballot if a lane
+    //    with an eligible batch has not learned, fold over the
+    //    proposers, store the lanes that take a batch.
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      if (!((need >> a) & 1u)) continue;
+      int32_t lr[L], ab[L];
+      G::load(learned + a * I, i, lr);
+      bool open = false;
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        bool batch = false;
+#pragma unroll
+        for (int p = 0; p < P; ++p) batch |= el[p][a] && bt[p][j] != kNone;
+        open |= batch && lr[j] == kNone;
+      }
+      if (!open) continue;  // no lane can store
+      G::load_rw(acc_ballot + a * I, i, ab);
+      int32_t bb[L], bv[L];
+#pragma unroll
+      for (int j = 0; j < L; ++j) bb[j] = bv[j] = kNone;
+#pragma unroll
+      for (int p = 0; p < P; ++p) fold_store<L>(bb, bv, el[p][a], ballot[p], bt[p], ab, lr);
+      const unsigned m = storing_lanes<L>(bb);
+      if (m) {
+        G::store_lanes(acc_ballot + a * I, i, bb, m);
+        G::store_lanes(acc_vid + a * I, i, bv, m);
+      }
+    }
+  } else {
+    // Any A and P: acceptors, then proposers, at run time (a batch row
+    // is read again per acceptor, from the cache).
+    const int A = A_rt;
+    const int P = P_rt;
+    for (int a = 0; a < A; ++a) {
+      bool live = false;
+      for (int p = 0; p < P && !live; ++p) {
+        if (__ldg(elig + p * A + a) == 0) continue;
+        int32_t bt[L];
+        G::load(abat + (long long)p * I, i, bt);
+#pragma unroll
+        for (int j = 0; j < L; ++j) live |= bt[j] != kNone;
+      }
+      if (!live) continue;
+      int32_t lr[L], ab[L];
+      G::load(learned + (long long)a * I, i, lr);
+      G::load_rw(acc_ballot + (long long)a * I, i, ab);
+      int32_t bb[L], bv[L];
+#pragma unroll
+      for (int j = 0; j < L; ++j) bb[j] = bv[j] = kNone;
+      for (int p = 0; p < P; ++p) {
+        const bool el = __ldg(elig + p * A + a) != 0;
+        if (!el) continue;
+        int32_t bt[L];
+        G::load(abat + (long long)p * I, i, bt);
+        fold_store<L>(bb, bv, el, __ldg(abal + p), bt, ab, lr);
+      }
+      const unsigned m = storing_lanes<L>(bb);
+      if (m) {
+        G::store_lanes(acc_ballot + (long long)a * I, i, bb, m);
+        G::store_lanes(acc_vid + (long long)a * I, i, bv, m);
+      }
+    }
+  }
+}
 
 // The ack bits one acceptor's state certifies for one proposer's
 // batches (amatch applied by the caller): 1 in byte j where lane j
@@ -276,6 +454,18 @@ bool aligned(const void* p, uintptr_t bytes) {
 }
 
 template <int kA, int kP>
+void launch_store(bool vec, void* acc_ballot, void* acc_vid, const void* learned,
+                  const void* abat, const void* abal, const void* elig, int A, int P,
+                  long long I, cudaStream_t s) {
+  const long long groups = vec ? I / 4 : I;
+  const unsigned blocks = (unsigned)((groups + kThreads - 1) / kThreads);
+  auto kernel = vec ? store_accepts_kernel<kA, kP, true> : store_accepts_kernel<kA, kP, false>;
+  kernel<<<blocks, kThreads, 0, s>>>(
+      (int32_t*)acc_ballot, (int32_t*)acc_vid, (const int32_t*)learned,
+      (const int32_t*)abat, (const int32_t*)abal, (const uint8_t*)elig, A, P, I);
+}
+
+template <int kA, int kP>
 void launch_acks(bool vec, void* acks, void* n_ack, const void* cur_batch,
                  const void* acc_ballot, const void* acc_vid, const void* learned,
                  const void* scal, int A, int P, long long I, cudaStream_t s) {
@@ -293,13 +483,17 @@ void launch_acks(bool vec, void* acks, void* n_ack, const void* cur_batch,
 extern "C" {
 
 int simkern_store_accepts(void* acc_ballot, void* acc_vid, const void* learned,
-                          const void* abat, const void* scal, int A, int P,
-                          long long I, void* stream) {
-  if (I > 0 && A > 0) {
-    dim3 grid((unsigned)((I + kThreads - 1) / kThreads));
-    store_accepts_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (int32_t*)acc_ballot, (int32_t*)acc_vid, (const int32_t*)learned,
-        (const int32_t*)abat, (const int32_t*)scal, A, P, I);
+                          const void* abat, const void* abal, const void* elig,
+                          int A, int P, long long I, void* stream) {
+  if (I > 0 && A > 0 && P > 0) {
+    // every row 16-byte aligned when I % 4 == 0
+    const bool vec = (I & 3) == 0 && aligned(acc_ballot, 16) && aligned(acc_vid, 16) &&
+                     aligned(learned, 16) && aligned(abat, 16);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (A == 5 && P == 2)
+      launch_store<5, 2>(vec, acc_ballot, acc_vid, learned, abat, abal, elig, A, P, I, s);
+    else
+      launch_store<0, 0>(vec, acc_ballot, acc_vid, learned, abat, abal, elig, A, P, I, s);
   }
   return (int)cudaGetLastError();
 }
