@@ -55,6 +55,28 @@ Phases (any failure exits non-zero; nothing is caught):
    and read after; each must launch both simkern kernels, pass the
    invariant checks and reproduce its JAX golden (rounds, done, chosen
    count, decision-log and chosen-round sha256).
+9. Drive the fleet runner (``fleet.runner.FleetRunner.run``) at
+   ``bench.py``'s fleet configuration: 5 nodes, proposers (0, 1), the
+   gated stress workload on 56 instances, ``max_rounds`` 20000, ring bound
+   8, 128 lanes with sampled schedules, first under the headline knob
+   cycle (seeds 0-127), then the delay-spread cycle (seeds 50000+), each
+   with the counts zeroed before and read after: both simkern kernels
+   must launch on lane-stacked operands (128 lanes a launch), every lane
+   be ``ok``, and the six verdict fields and every lane's decision-log
+   sha256 equal the JAX goldens.  Prints lanes/sec to verdict, rounds,
+   ms and host syncs a round.  Then the headline again with every kernel
+   launch held against its plain version on its own lane-stacked
+   operands, timed and its needed bytes counted, and a 2048-lane
+   dispatch (timing only) of which 8 lanes are re-run as single
+   ``sim.run(lane_cfg(i))`` on the card and must match exactly.
+10. The runtime build at full width: one ``FleetRunner`` per mix at
+   bench_sim's shape (2**23 instances), ``partition-flap`` as a runtime
+   table with its knobs and ``wan-3region`` as its runtime edge matrices
+   plus table, 2 lanes each.  Lane 0 runs the golden's seed and must
+   reproduce phase 8's constant-path golden; lane 1 another seed and
+   must equal the single ``sim.run(lane_cfg(1))`` on the card.  Every
+   kernel launch is held against its plain version on its lane-stacked
+   operands, timed and its needed bytes counted.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -79,6 +101,9 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 A, P, I_FULL = 5, 2, 1 << 23
 REPS = 25
 SNAP_REPS = 9  # launches timed on each main-path snapshot
+FLEET_WIDE = 2048  # lanes of the timing-only fleet dispatch
+FLEET_SINGLES = 8  # lanes of it re-run as single runs
+FULL_REPS = 3  # launches timed on each full-width runtime-lane snapshot
 L2_FLUSH_BYTES = 1 << 30
 I_FW, WINDOWS, FW_REPS = 1 << 27, 16, 10  # the fast path's headline shape
 DEV = "cuda"
@@ -328,25 +353,39 @@ def run_main_path(sk, goldens) -> dict:
 
 
 @contextlib.contextmanager
-def capture_operands(sk):
-    """Record a clone of every simkern launch's operands, as the kernel
-    is given them (before its in-place update), by kernel name."""
-    snaps = {"store_accepts": [], "accum_acks": []}
+def _wrapping(sk, wrap):
+    """Within the block both simkern kernel wrappers are replaced by
+    ``wrap(name, kernel)``; the originals come back after it."""
     kernels = {"store_accepts": sk.store_accepts_cuda, "accum_acks": sk.accum_acks_cuda}
-
-    def recording(name):
-        def launch(*ops):
-            snaps[name].append([t.clone() for t in ops])
-            return kernels[name](*ops)
-        return launch
-
-    sk.store_accepts_cuda = recording("store_accepts")
-    sk.accum_acks_cuda = recording("accum_acks")
+    sk.store_accepts_cuda = wrap("store_accepts", kernels["store_accepts"])
+    sk.accum_acks_cuda = wrap("accum_acks", kernels["accum_acks"])
     try:
-        yield snaps
+        yield
     finally:
         sk.store_accepts_cuda = kernels["store_accepts"]
         sk.accum_acks_cuda = kernels["accum_acks"]
+
+
+@contextlib.contextmanager
+def capture_operands(sk):
+    """Record a clone of every simkern launch's operands, as the kernel
+    is given them (before its in-place update), by kernel name; a
+    one-lane launch's without its lane axis."""
+    snaps = {"store_accepts": [], "accum_acks": []}
+
+    def recording(name, kernel):
+        lane_ndim = 3 if name == "store_accepts" else 4
+
+        def launch(*ops):
+            # a single run launches on one lane: keep its operands as
+            # one run's, the shapes an older one-run build takes
+            one = ops[0].ndim == lane_ndim and ops[0].shape[0] == 1
+            snaps[name].append([t[0].clone() if one else t.clone() for t in ops])
+            return kernel(*ops)
+        return launch
+
+    with _wrapping(sk, recording):
+        yield snaps
 
 
 def snapshot_main_path(sk, goldens, launches) -> dict:
@@ -610,6 +649,266 @@ def run_scheduled(sk, goldens, key: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def check_launches(sk, reps: int, stats: dict):
+    """Every simkern launch in the block is first held against its plain
+    version on a snapshot of its operands, timed on it (``reps``
+    launches from restored operands and a cold L2) and its needed bytes
+    counted; then the real launch goes ahead.  ``stats[name]`` gathers
+    the launches, their lane counts, times, needed bytes and the largest
+    error."""
+    plains = {
+        "store_accepts": (sk.store_accepts_plain, (0, 1)),
+        "accum_acks": (sk.accum_acks_plain, (0,)),
+    }
+
+    def checking(name, kern):
+        plain, in_place = plains[name]
+
+        def launch(*ops):
+            snap = [t.clone() for t in ops]
+            want = plain(*snap)
+            got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(snap)])
+            torch.cuda.synchronize()
+            st = stats.setdefault(name, {"launches": 0, "lanes": set(), "ms": [], "bytes": 0,
+                                         "max_abs_err": 0})
+            st["max_abs_err"] = max(st["max_abs_err"], _max_abs_err(zip(got, want)))
+            st["ms"].append(time_in_place(kern, snap, in_place, reps))
+            st["bytes"] += sk.bytes_needed(name, *snap)
+            st["launches"] += 1
+            st["lanes"].add(int(ops[0].shape[0]))
+            del snap, want, got
+            return kern(*ops)
+        return launch
+
+    with _wrapping(sk, checking):
+        yield stats
+
+
+def _summarize_checked(label: str, stats: dict) -> dict:
+    out = {}
+    for name, st in sorted(stats.items()):
+        if st["max_abs_err"]:
+            raise SystemExit(f"simkern.{name} disagrees with its plain version on {label}")
+        ms = sorted(st["ms"])
+        rec = {
+            "launches": st["launches"], "lanes": sorted(st["lanes"]),
+            "ms": sum(ms), "median_ms": ms[len(ms) // 2],
+            "bound_ms": st["bytes"] / HBM_BYTES_PER_S * 1e3, "max_abs_err": st["max_abs_err"],
+        }
+        out[f"simkern.{name}"] = rec
+        print(f"{label} simkern.{name}: {rec['launches']} launches of {rec['lanes']} lanes, "
+              f"{rec['ms']:.4f} ms in all (median {rec['median_ms']:.4f} ms a launch), needed "
+              f"bytes {st['bytes']} -> bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.1%} of bound), max_abs_err={rec['max_abs_err']}")
+    return out
+
+
+@contextlib.contextmanager
+def lane_counts(sk):
+    """The lane count of every simkern launch in the block, by kernel."""
+    seen = {"store_accepts": [], "accum_acks": []}
+
+    def recording(name, kernel):
+        lane_ndim = 3 if name == "store_accepts" else 4
+
+        def launch(*ops):
+            seen[name].append(int(ops[0].shape[0]) if ops[0].ndim == lane_ndim else 0)
+            return kernel(*ops)
+        return launch
+
+    with _wrapping(sk, recording):
+        yield seen
+
+
+def count_syncs(fn) -> int:
+    """Synchronizing CUDA calls made by ``fn()`` (each warns once in
+    'warn' mode)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _lane_sha(rep, i: int, stride: int) -> str:
+    from tpu_paxos_torch.replay.decision_log import decision_log, sha256
+
+    r = rep.lane_result(i)
+    return sha256(decision_log(r.chosen_vid, r.chosen_ballot, stride, rep.cfg.n_instances))
+
+
+def _same_result(a, b) -> bool:
+    fields = ("learned", "chosen_vid", "chosen_round", "chosen_ballot", "crashed", "msgs")
+    return (a.rounds, a.done) == (b.rounds, b.done) and all(
+        (getattr(a, f) == getattr(b, f)).all() for f in fields
+    )
+
+
+def run_fleet(sk, goldens, card) -> dict:
+    """Phase 9: the fleet runner at bench.py's fleet configuration."""
+    import numpy as np
+
+    from tpu_paxos_torch import config as cfgm
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.fleet import search
+    from tpu_paxos_torch.harness import stress
+
+    gold = goldens["fleet"]
+    c = gold["config"]
+    wl, gates, _ = stress._workload(2, np.random.default_rng(0))
+    cfg = cfgm.SimConfig(
+        n_nodes=c["n_nodes"], n_instances=c["n_instances"], proposers=tuple(c["proposers"]),
+        seed=c["seed"], max_rounds=c["max_rounds"], faults=cfgm.FaultConfig(**c["faults"]),
+    )
+    n = c["lanes"]
+    rng = np.random.default_rng(1)
+    scheds = [search.sample_schedule(rng, 5, 4, 96) for _ in range(FLEET_WIDE)]
+    runner = frun.FleetRunner(cfg, wl, gates, device=DEV)
+
+    def cycle(name, lanes):
+        gc = gold[name]
+        mixes = gc["knob_mixes"]
+        knobs = [cfgm.FaultConfig(**mixes[i % len(mixes)]) for i in range(lanes)]
+        return [gc["first_seed"] + i for i in range(lanes)], scheds[:lanes], knobs
+
+    out = {}
+    for name in ("headline", "delay"):
+        gc = gold[name]
+        seeds, sch, knobs = cycle(name, n)
+        torch.cuda.synchronize()
+        sk.reset_counts()
+        with lane_counts(sk) as shapes:
+            rep = runner.run(seeds, sch, knobs=knobs)
+        launches = dict(sk.LAUNCHES)
+        v = rep.verdict
+        bad = [f for f in v._fields if np.asarray(getattr(v, f)).tolist() != gc[f]]
+        shas = [_lane_sha(rep, i, gold["stride"]) for i in range(n)]
+        off = [i for i in range(n) if shas[i] != gc["decision_log_sha256"][i]]
+        lanes_ok = all(s == [n] * len(s) for s in shapes.values())
+        print(f"fleet [{name}] {n} lanes (I={cfg.n_instances}): lanes_per_sec={rep.lanes_per_sec:.2f} "
+              f"seconds={rep.seconds:.3f} rounds_max={int(v.rounds.max())} iterations={rep.iterations} "
+              f"ms_per_round={rep.seconds / rep.iterations * 1e3:.3f} ok={int(v.ok.sum())}/{n} "
+              f"launches={json.dumps(launches, sort_keys=True)} lanes_per_launch_ok={lanes_ok} "
+              f"verdict_fields_off={bad} decision_log_off={off} | {card}")
+        if bad or off or not v.ok.all():
+            raise SystemExit(f"fleet [{name}] disagrees with its JAX golden")
+        if min(launches.values()) < 1 or not lanes_ok:
+            raise SystemExit(f"fleet [{name}]: a simkern kernel did not launch on {n}-lane operands")
+        out[name] = {"launches": launches, "iterations": rep.iterations, "seconds": rep.seconds,
+                     "lanes_per_sec": rep.lanes_per_sec}
+
+    seeds, sch, knobs = cycle("headline", n)
+    it = {}
+    syncs = count_syncs(lambda: it.setdefault("rep", runner.run(seeds, sch, knobs=knobs)))
+    out["headline"]["syncs_per_round"] = syncs / it["rep"].iterations
+    print(f"fleet [headline] host syncs: {syncs} in {it['rep'].iterations} rounds "
+          f"({out['headline']['syncs_per_round']:.2f} a round)")
+
+    stats = {}
+    with check_launches(sk, SNAP_REPS, stats):
+        rep = runner.run(seeds, sch, knobs=knobs)
+    if [_lane_sha(rep, i, gold["stride"]) for i in range(n)] != gold["headline"]["decision_log_sha256"]:
+        raise SystemExit("fleet [headline] rerun disagrees with its JAX golden")
+    out["checked"] = _summarize_checked(f"fleet [headline] {n}-lane operands", stats)
+
+    seeds, sch, knobs = cycle("headline", FLEET_WIDE)
+    torch.cuda.synchronize()
+    it = {}
+    # the syncs are counted in the timed run itself: the warnings cost
+    # about 10 us each, under 0.5% of its wall
+    syncs = count_syncs(lambda: it.setdefault("rep", runner.run(seeds, sch, knobs=knobs)))
+    rep = it.pop("rep")
+    v = rep.verdict
+    print(f"fleet [headline] {FLEET_WIDE} lanes: lanes_per_sec={rep.lanes_per_sec:.2f} "
+          f"seconds={rep.seconds:.3f} rounds_max={int(v.rounds.max())} iterations={rep.iterations} "
+          f"ms_per_round={rep.seconds / rep.iterations * 1e3:.3f} "
+          f"syncs_per_round={syncs / rep.iterations:.2f} ok={int(v.ok.sum())}/{FLEET_WIDE} | {card}")
+    done = rep.final.done.cpu().numpy()
+    cand = [i for i in range(FLEET_WIDE) if done[i] and v.rounds[i] <= 400]
+    picks = [cand[k * len(cand) // FLEET_SINGLES] for k in range(FLEET_SINGLES)]
+    for i in picks:
+        single = sim.run(rep.lane_cfg(i), wl, gates, device=DEV)
+        same = _same_result(rep.lane_result(i), single)
+        print(f"fleet lane {i} of {FLEET_WIDE} vs single sim.run(lane_cfg({i})): rounds={single.rounds} "
+              f"equal={same}")
+        if not same:
+            raise SystemExit(f"fleet lane {i} disagrees with its single run")
+    out["wide"] = {"lanes": FLEET_WIDE, "iterations": rep.iterations, "seconds": rep.seconds,
+                   "lanes_per_sec": rep.lanes_per_sec, "syncs_per_round": syncs / rep.iterations}
+    del rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_runtime_full(sk, goldens) -> dict:
+    """Phase 10: the runtime-schedule, runtime-knob build at bench_sim's
+    width, two lanes per mix."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+
+    from tpu_paxos_torch import config as cfgm
+    from tpu_paxos_torch.core import faults as flt
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.fleet import envelope
+    from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.harness import validate
+    from tpu_paxos_torch.replay.decision_log import decision_log, sha256
+
+    stats = {}
+    for key in ("bench_sim_partition_flap", "bench_sim_wan3"):
+        gold = goldens[key]
+        bc = gold["config"]
+        fc = _rebuild_faults(cfgm, flt, bc["faults"])
+        knob = dataclasses.replace(fc, schedule=None)
+        cfg = cfgm.SimConfig(
+            n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
+            proposers=tuple(bc["proposers"]), seed=bc["seed"],
+            assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
+            faults=cfgm.FaultConfig(max_delay=max(fc.max_delay, envelope.MAX_DELAY_BOUND)),
+        )
+        runner = frun.FleetRunner(cfg, sim.default_workload(cfg), device=DEV)
+        seeds = [bc["seed"], bc["seed"] + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with check_launches(sk, FULL_REPS, stats):
+            rep = runner.run(seeds, [fc.schedule] * 2, knobs=[knob] * 2)
+        wall = time.perf_counter() - t0
+        r0 = rep.lane_result(0)
+        sha = sha256(decision_log(r0.chosen_vid, r0.chosen_ballot, gold["stride"], cfg.n_instances))
+        rsha = hashlib.sha256(np.asarray(r0.chosen_round, "<i4").tobytes()).hexdigest()
+        chosen = int((r0.chosen_vid != -1).sum())
+        validate.check_all(r0.learned, r0.expected_vids)
+        print(f"{key} runtime lanes (I={cfg.n_instances}, ring bound {cfg.faults.max_delay}): "
+              f"lane 0 rounds={r0.rounds} done={r0.done} chosen={chosen} decision_log_sha256={sha} "
+              f"chosen_round_sha256={rsha}; verdict ok={rep.verdict.ok.tolist()} "
+              f"rounds={rep.verdict.rounds.tolist()} wall_s={wall:.3f} (kernel checks included)")
+        if (r0.rounds, bool(r0.done), chosen, sha, rsha) != (
+            gold["rounds"], gold["done"], gold["chosen"], gold["decision_log_sha256"],
+            gold["chosen_round_sha256"],
+        ):
+            raise SystemExit(f"{key} runtime lane 0 disagrees with the constant-path golden")
+        r1, lane_cfg = rep.lane_result(1), rep.lane_cfg(1)
+        del rep
+        single = sim.run(lane_cfg, device=DEV)
+        same = _same_result(r1, single)
+        print(f"{key} runtime lane 1 (seed {seeds[1]}) vs single sim.run: rounds={single.rounds} "
+              f"equal={same}")
+        if not same:
+            raise SystemExit(f"{key} runtime lane 1 disagrees with its single run")
+        del single, r1
+        torch.cuda.empty_cache()
+    return _summarize_checked("runtime lanes at full width (2 mixes)", stats)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -646,6 +945,8 @@ def main() -> int:
     run_fast_cli(goldens)
     for key in ("bench_sim_partition_flap", "bench_sim_wan3"):
         run_scheduled(sk, goldens, key)
+    fleet = run_fleet(sk, goldens, card)
+    full = run_runtime_full(sk, goldens)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -668,6 +969,13 @@ def main() -> int:
             "library_ms": None,
             "main_path_ms": main_rec[name]["main_path_ms"],
             "main_path_bound_ms": main_rec[name]["main_path_bound_ms"],
+            "fleet_lanes": fleet["checked"][name]["lanes"][0],
+            "fleet_launches": fleet["headline"]["launches"][key],
+            "fleet_ms": fleet["checked"][name]["ms"],
+            "fleet_bound_ms": fleet["checked"][name]["bound_ms"],
+            "fleet_full_launches": full[name]["launches"],
+            "fleet_full_ms": full[name]["ms"],
+            "fleet_full_bound_ms": full[name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

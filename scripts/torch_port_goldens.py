@@ -16,7 +16,16 @@ writes) what each must reproduce:
 - ``cli_4_4_10``: ``python -m tpu_paxos 4 4 10 --seed=0
   --net-drop-rate=500 --net-dup-rate=1000 --net-max-delay=2``;
 - ``fast_cli_2p23``: the stdout of ``python -m tpu_paxos 5 8192 1024
-  --engine=fast --json`` (2**23 instances through the fast path).
+  --engine=fast --json`` (2**23 instances through the fast path);
+- ``fleet``: the JAX ``FleetRunner`` at ``bench.py``'s fleet record
+  configuration (``bench.bench_fleet_record``): 5 nodes, proposers (0,
+  1), the gated stress workload ``stress._workload(2, default_rng(0))``
+  on 56 instances, ``max_rounds`` 20000, ring bound 8, 128 lanes with
+  schedules drawn lane after lane by ``search.sample_schedule(rng, 5, 4,
+  96)`` from ``default_rng(1)``, under the headline knob cycle (seeds
+  0-127) and the delay-spread cycle (seeds 50000-50127); per lane the
+  six verdict fields and the decision-log sha256 (stride: the runner's
+  vid bound).
 
 The general-engine entries hold the round count, ``done``, the chosen
 count and the decision-log sha256 (with the config, faults included, as
@@ -126,6 +135,79 @@ def _fast_cli_stdout(argv) -> str:
     return buf.getvalue()
 
 
+FLEET_LANES = 128
+FLEET_CYCLES = {
+    # cycle: (first seed, knob mixes as FaultConfig kwargs, cycled by lane)
+    "headline": (0, [
+        {},
+        {"drop_rate": 500, "dup_rate": 1000, "max_delay": 2},
+        {"drop_rate": 2000, "dup_rate": 500, "max_delay": 2},
+        {"drop_rate": 1000, "dup_rate": 2000, "max_delay": 2},
+    ]),
+    "delay": (50_000, [
+        {"drop_rate": 500, "dup_rate": 1000, "max_delay": 2},
+        {"drop_rate": 2000, "dup_rate": 500, "max_delay": 4},
+        {"drop_rate": 200, "dup_rate": 200, "min_delay": 1, "max_delay": 6},
+        {"drop_rate": 300, "dup_rate": 500, "max_delay": 8},
+    ]),
+}
+
+
+def fleet_config(workload) -> dict:
+    return {
+        "n_nodes": 5,
+        "n_instances": 2 * sum(len(w) for w in workload),
+        "proposers": [0, 1],
+        "seed": 0,
+        "max_rounds": 20_000,
+        "faults": {"drop_rate": 300, "dup_rate": 500, "max_delay": 8},
+        "workload": "stress._workload(2, numpy.random.default_rng(0))",
+        "schedules": "search.sample_schedule(rng, 5, 4, 96) per lane, rng = default_rng(1)",
+        "lanes": FLEET_LANES,
+    }
+
+
+def fleet_goldens(n_lanes: int = FLEET_LANES) -> dict:
+    import numpy as np
+
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.fleet import runner as frun
+    from tpu_paxos.fleet import search
+    from tpu_paxos.harness import stress
+    from tpu_paxos.replay.decision_log import decision_log
+
+    workload, gates, _ = stress._workload(2, np.random.default_rng(0))
+    fc = fleet_config(workload)
+    cfg = cfgm.SimConfig(
+        n_nodes=fc["n_nodes"], n_instances=fc["n_instances"],
+        proposers=tuple(fc["proposers"]), seed=fc["seed"],
+        max_rounds=fc["max_rounds"], faults=cfgm.FaultConfig(**fc["faults"]),
+    )
+    rng = np.random.default_rng(1)
+    schedules = [search.sample_schedule(rng, 5, 4, 96) for _ in range(n_lanes)]
+    runner = frun.FleetRunner(cfg, workload, gates)
+    out = {"config": dict(fc, lanes=n_lanes), "stride": runner.vid_bound}
+    for name, (first, mixes) in sorted(FLEET_CYCLES.items()):
+        knobs = [cfgm.FaultConfig(**mixes[i % len(mixes)]) for i in range(n_lanes)]
+        rep = runner.run([first + i for i in range(n_lanes)], schedules, knobs=knobs)
+        # one transfer per fleet dispatch, after its verdict
+        chosen_vid = np.asarray(rep.final.met.chosen_vid)  # paxlint: allow[JAX103] once per dispatch
+        chosen_ballot = np.asarray(rep.final.met.chosen_ballot)  # paxlint: allow[JAX103] once per dispatch
+        v = rep.verdict
+        out[name] = {
+            "first_seed": first,
+            "knob_mixes": mixes,
+            **{f: np.asarray(getattr(v, f)).tolist() for f in v._fields},
+            "decision_log_sha256": [
+                hashlib.sha256(decision_log(
+                    chosen_vid[i], chosen_ballot[i], runner.vid_bound, cfg.n_instances,
+                ).encode()).hexdigest()
+                for i in range(n_lanes)
+            ],
+        }
+    return out
+
+
 def compute(n_instances: int = 1 << 23) -> dict:
     from tpu_paxos import config as cfgm
     from tpu_paxos.harness import reference_runner as refr
@@ -165,15 +247,22 @@ def compute(n_instances: int = 1 << 23) -> dict:
         "stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
     }
     return {"command": COMMAND, "bench_sim": bench, "cli_4_4_10": cli,
-            "fast_cli_2p23": fast_cli, **scheduled}
+            "fast_cli_2p23": fast_cli, "fleet": fleet_goldens(), **scheduled}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", default="", help="write the goldens JSON here")
     ap.add_argument("--instances", type=int, default=1 << 23)
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="recompute only the fleet entry of the --write file")
     args = ap.parse_args(argv)
-    out = compute(args.instances)
+    if args.fleet_only:
+        with open(args.write) as f:
+            out = json.load(f)
+        out["fleet"] = fleet_goldens()
+    else:
+        out = compute(args.instances)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"
     if args.write:
         with open(args.write, "w") as f:

@@ -8,8 +8,9 @@ configuration (the main path that ``chip_smoke.py`` drives: 5 nodes,
 - the synchronized wall time of a warm run, its rounds and ms/round;
 - the host-to-device synchronizations per round (counted with
   ``torch.cuda.set_sync_debug_mode``);
-- a host split of one run: time in the host-side threefry draws
-  (``prng.randint_many``) and time in the round's global-predicate
+- a host split of one run: time in the threefry draws
+  (``prng.randint_lanes``: keys on the host, words hashed on the card)
+  and time in the round's global-predicate
   reads (``sim._any``, each of which waits for the device to drain),
   per round;
 - under ``torch.profiler``: the device's busy time (the sum of the
@@ -97,13 +98,13 @@ def host_split(cfg, dev, rounds: int) -> dict:
                 calls[name] = calls.get(name, 0) + 1
         return wrapper
 
-    saved = (prng.randint_many, sim._any)
-    prng.randint_many = timed("prng", saved[0])
+    saved = (prng.randint_lanes, sim._any)
+    prng.randint_lanes = timed("prng", saved[0])
     sim._any = timed("predicates", saved[1])
     try:
         timed_run(cfg, dev)
     finally:
-        prng.randint_many, sim._any = saved
+        prng.randint_lanes, sim._any = saved
     return {
         "prng_ms_per_round": spent["prng"] * 1e3 / rounds,
         "predicate_reads_per_round": calls["predicates"] / rounds,

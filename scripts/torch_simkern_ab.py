@@ -8,11 +8,13 @@ of every launch of that kernel in one bench_sim run.
 The package's own source is labelled ``tree`` and always comes first.
 Each source is compiled with ``nvcc -Xptxas -v`` (all at once; the
 register and spill lines are printed) and loaded with ``ctypes``; each
-must equal the kernel's plain version exactly on every operand set.  A
-source whose ``simkern_store_accepts`` takes one packed scalar array
-(``scal``, as earlier versions of ``simkern.cu`` did) is launched through
-that interface, the others with ``abal`` and ``elig`` as given.  Times
-are CUDA-event
+must equal the kernel's plain version exactly on every operand set.
+Each source is launched through the interface it declares: a leading
+lane count (``nL``, the tree's, launched at one lane), or the older
+one-run interfaces, where ``simkern_accum_acks`` (and, earlier still,
+``simkern_store_accepts``) take one packed scalar array (``scal``).  The
+packed array is built once per operand set, outside the timed events, so
+every build is timed on its kernel alone.  Times are CUDA-event
 medians from restored operands after an L2 flush
 (``chip_smoke.time_in_place``), taken in turns: the sources in the order
 given, then in reverse, so each has two turns in one call.
@@ -80,35 +82,64 @@ def build(kernel: str, sources: list) -> list:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas [{label}] {line.split(':', 1)[-1].strip()}")
         lib = ctypes.CDLL(out)
+        lanes = lane_interface(text)
         if kernel == "accum_acks":
-            launches.append((label, _ack_launcher(lib)))
+            launches.append((label, _ack_launcher(lib, lanes)))
         else:
-            launches.append((label, _store_launcher(lib, packed_store_scalars(text))))
+            launches.append((label, _store_launcher(lib, lanes, packed_store_scalars(text))))
     return launches
+
+
+def _signature(text: str, fn: str) -> str:
+    m = re.search(rf"int\s+{fn}\s*\(([^)]*)\)", text)
+    if m is None:
+        raise ValueError(f"no {fn} in the source")
+    return m.group(1)
 
 
 def packed_store_scalars(text: str) -> bool:
     """Whether a source's ``simkern_store_accepts`` takes one packed
     scalar array (``scal``) instead of ``abal`` and ``elig``."""
-    m = re.search(r"int\s+simkern_store_accepts\s*\(([^)]*)\)", text)
-    if m is None:
-        raise ValueError("no simkern_store_accepts in the source")
-    return re.search(r"\bscal\b", m.group(1)) is not None
+    return re.search(r"\bscal\b", _signature(text, "simkern_store_accepts")) is not None
 
 
-def _ack_launcher(lib):
+def lane_interface(text: str) -> bool:
+    """Whether a source's launchers take a leading lane count (``nL``)."""
+    return re.search(r"\bnL\b", _signature(text, "simkern_store_accepts")) is not None
+
+
+_PACKED: dict = {}
+
+
+def _packed(first, pa):
+    """The older interfaces' [P] + [P, A] int32 scalar array, built once
+    per operand pair (outside the timed events)."""
+    key = (first.data_ptr(), pa.data_ptr(), first.device)
+    if key not in _PACKED:
+        _PACKED[key] = torch.cat([
+            first.to(torch.int32).reshape(-1), pa.to(torch.int32).reshape(-1),
+        ]).contiguous()
+    return _PACKED[key]
+
+
+def _ack_launcher(lib, lanes: bool):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.simkern_accum_acks.argtypes = [vp] * 7 + [i32, i32, i64, vp]
+    lib.simkern_accum_acks.argtypes = (
+        [vp] * 8 + [i32] * 3 + [i64, vp] if lanes else [vp] * 7 + [i32, i32, i64, vp]
+    )
     lib.simkern_accum_acks.restype = i32
 
     def launch(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch_pa):
         p, a, i = acks.shape
-        scal = sk._scalars(ballot, amatch_pa, acks.device)
         n_ack = torch.empty((p, i), dtype=torch.int32, device=acks.device)
+        if lanes:
+            scalars, dims = [ballot.data_ptr(), amatch_pa.data_ptr()], [1, a, p, i]
+        else:
+            scalars, dims = [_packed(ballot, amatch_pa).data_ptr()], [a, p, i]
         code = lib.simkern_accum_acks(
             acks.data_ptr(), n_ack.data_ptr(), cur_batch.data_ptr(),
             acc_ballot.data_ptr(), acc_vid.data_ptr(), learned.data_ptr(),
-            scal.data_ptr(), a, p, i, torch.cuda.current_stream().cuda_stream,
+            *scalars, *dims, torch.cuda.current_stream().cuda_stream,
         )
         if code != 0:
             raise RuntimeError(f"accum_acks launch failed ({code})")
@@ -117,21 +148,23 @@ def _ack_launcher(lib):
     return launch
 
 
-def _store_launcher(lib, packed: bool):
+def _store_launcher(lib, lanes: bool, packed: bool):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.simkern_store_accepts.argtypes = [vp] * (5 if packed else 6) + [i32, i32, i64, vp]
+    lib.simkern_store_accepts.argtypes = (
+        [vp] * (5 if packed else 6) + [i32] * (3 if lanes else 2) + [i64, vp]
+    )
     lib.simkern_store_accepts.restype = i32
 
     def launch(acc_ballot, acc_vid, learned, abat, abal, elig):
         a, i = acc_ballot.shape
-        if packed:  # the scalars' two launches stay inside the timed events
-            scalars = [sk._scalars(abal, elig, abal.device).data_ptr()]
+        if packed:
+            scalars = [_packed(abal, elig).data_ptr()]
         else:
             scalars = [abal.data_ptr(), elig.data_ptr()]
+        dims = [1, a, abat.shape[0], i] if lanes else [a, abat.shape[0], i]
         code = lib.simkern_store_accepts(
             acc_ballot.data_ptr(), acc_vid.data_ptr(), learned.data_ptr(),
-            abat.data_ptr(), *scalars, a, abat.shape[0], i,
-            torch.cuda.current_stream().cuda_stream,
+            abat.data_ptr(), *scalars, *dims, torch.cuda.current_stream().cuda_stream,
         )
         if code != 0:
             raise RuntimeError(f"store_accepts launch failed ({code})")

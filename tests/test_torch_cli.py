@@ -132,8 +132,14 @@ st, n = fast.choose_all(fast.init_state(16, 3, device="cpu"),
                         torch.arange(16, dtype=torch.int32), proposer=0, quorum=2)
 _, counts = fastwin.steady_state_windows_fused(
     fast.init_state(fastwin.TILE, 3, device="cpu"), None, reps=2, quorum=2, iota_vids=True)
+from tpu_paxos_torch.fleet import envelope
+fleet = envelope.runner_for(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1)),
+                            [[100, 101], [200]], device="cpu")
+rep = fleet.run([0, 1], [sched, None], workloads=[([[100, 101], [200]], None)] * 2,
+                knobs=[config.FaultConfig(max_delay=1), config.FaultConfig(drop_rate=500)])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
-ok = res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
+ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
+      and bool(rep.verdict.ok.all()))
 print(len(mods), bool(ok), loaded)
 """
 
@@ -142,7 +148,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 24  # every module of the package was imported
+    assert int(n_mods) >= 30  # every module of the package was imported, fleet/ too
     assert done == "True"
     assert loaded.strip() == "[]"
 

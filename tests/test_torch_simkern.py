@@ -180,10 +180,11 @@ def test_ab_script_counts_acceptor_sectors_by_both_rules():
     assert ab.acceptor_sectors("store_accepts", ops) == (0, 0)
 
     with open(tsk.kbuild.source(tsk.NAME)) as f:
-        assert not ab.packed_store_scalars(f.read())
-    assert ab.packed_store_scalars(
-        "int simkern_store_accepts(void* acc_ballot, void* acc_vid, const void* learned,\n"
-        "    const void* abat, const void* scal, int A, int P, long long I, void* stream) {")
+        tree = f.read()
+    assert not ab.packed_store_scalars(tree) and ab.lane_interface(tree)
+    older = ("int simkern_store_accepts(void* acc_ballot, void* acc_vid, const void* learned,\n"
+             "    const void* abat, const void* scal, int A, int P, long long I, void* stream) {")
+    assert ab.packed_store_scalars(older) and not ab.lane_interface(older)
     assert ab.main([]) == 1
     assert ab.main(["--kernel", "store_accepts"]) == 1
 

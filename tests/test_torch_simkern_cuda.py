@@ -322,3 +322,108 @@ def test_round_consumes_its_state_alike_on_card_and_cpu(card):
         state = out
     assert state.done and stored
     assert min(tsk.LAUNCHES.values()) >= 1
+
+
+LANE_COUNTS = [1, 2, 3, 128]
+LANE_SIZES = [56, 64, 80, 4096, 4099]
+
+
+def lane_operands(make, lanes, a, p, i, frozen=True):
+    """Lane-stacked operands (numpy): lane ``l`` is ``make``'s operand set
+    of seed ``l`` (kinds cycling through the real-round window, random
+    density and no batch), and with ``frozen`` the last lane of several
+    has its ``elig``/``amatch`` all false, as a finished lane's are."""
+    kinds = ("window", "random", "none")
+    per = [list(make(1000 * i + 7 * lane + a, a, p, i, kinds[lane % 3])) for lane in range(lanes)]
+    if frozen and lanes > 1:
+        per[-1][-1][:] = False
+    return [np.stack([ops[k] for ops in per]) for k in range(len(per[0]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
+@pytest.mark.parametrize("i", LANE_SIZES)
+@pytest.mark.parametrize("a,p", [(5, 2), (3, 2)])
+def test_lane_kernels_equal_plain_in_place(card, lanes, i, a, p):
+    """One launch over every lane equals the plain version on the stack,
+    bit for bit and in place; a frozen lane (all-false elig / amatch)
+    keeps its acceptor arrays and ack cube."""
+    ops = _on(card, *lane_operands(store_operands, lanes, a, p, i))
+    want = tsk.store_accepts_plain(*ops)
+    ab, av = ops[0].clone(), ops[1].clone()
+    before = tsk.LAUNCHES["store_accepts"]
+    got = tsk.store_accepts_cuda(ab, av, *ops[2:])
+    torch.cuda.synchronize()
+    assert tsk.LAUNCHES["store_accepts"] == before + 1
+    assert got[0] is ab and got[1] is av
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if lanes > 1:
+        assert torch.equal(ab[-1], ops[0][-1]) and torch.equal(av[-1], ops[1][-1])
+
+    ops = _on(card, *lane_operands(ack_operands, lanes, a, p, i))
+    want, want_n = tsk.accum_acks_plain(*ops)
+    acks = ops[0].clone()
+    got, got_n = tsk.accum_acks_cuda(acks, *ops[1:])
+    torch.cuda.synchronize()
+    assert got is acks and got_n.shape == (lanes, p, i)
+    assert torch.equal(got, want) and torch.equal(got_n, want_n)
+    if lanes > 1:
+        assert torch.equal(acks[-1], ops[0][-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 3])
+@pytest.mark.parametrize("i", [56, 64])
+def test_lane_kernels_on_unaligned_rows(card, lanes, i):
+    """Lane-stacked operands whose base is off a 16-byte boundary take
+    the scalar path for every lane and give the same result."""
+    ops = _on(card, *lane_operands(store_operands, lanes, 5, 2, i))
+    want = tsk.store_accepts_plain(*ops)
+    moved = [_unaligned(x) for x in ops[:4]] + ops[4:]
+    got = tsk.store_accepts_cuda(*moved)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ops = _on(card, *lane_operands(ack_operands, lanes, 5, 2, i))
+    want = tsk.accum_acks_plain(*ops)
+    moved = [_unaligned(x) for x in ops[:5]] + ops[5:]
+    got = tsk.accum_acks_cuda(*moved)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_lane_wrappers_refuse_mismatched_lanes(card):
+    ops = _on(card, *lane_operands(store_operands, 3, 5, 2, 64))
+    with pytest.raises(ValueError, match="shape"):
+        tsk.store_accepts_cuda(*ops[:4], ops[4][:2], ops[5])
+    ops = _on(card, *lane_operands(ack_operands, 3, 5, 2, 64))
+    with pytest.raises(ValueError, match="shape"):
+        tsk.accum_acks_cuda(*ops[:6], ops[6][0])
+
+
+@pytest.mark.cuda
+def test_fleet_on_card_equals_cpu(card):
+    """A fleet whose lanes finish at different rounds: on the card, with
+    the lane-batched kernels, every lane's final state equals the CPU
+    dispatch's, and both kernels launched."""
+    from tpu_paxos_torch.core import faults as tflt
+    from tpu_paxos_torch.fleet import runner as trun
+    from tpu_paxos_torch.harness import stress as tstress
+
+    wl, gates, _ = tstress._workload(2, np.random.default_rng(0))
+    cfg = tcfg.SimConfig(n_nodes=5, n_instances=56, proposers=(0, 1), max_rounds=2000,
+                         faults=tcfg.FaultConfig(max_delay=8))
+    scheds = [tstress.SCHED_PARTITION_FLAP, None, tstress.SCHED_WAN_GRAY,
+              tflt.FaultSchedule((tflt.partition(28, 63, (1, 2, 4, 0), (3,)), tflt.crash(63, 0, 1)))]
+    knobs = [tcfg.FaultConfig(drop_rate=300, dup_rate=500, max_delay=2),
+             tcfg.FaultConfig(drop_rate=500, dup_rate=1000, max_delay=2, crash_rate=20_000),
+             tcfg.FaultConfig(max_delay=8, edges=tstress.WAN_MIXES[0][1]["edges"]),
+             tcfg.FaultConfig()]
+    want = trun.FleetRunner(cfg, wl, gates, device="cpu").run(range(4), scheds, knobs=knobs)
+    tsk.reset_counts()
+    got = trun.FleetRunner(cfg, wl, gates, device=card).run(range(4), scheds, knobs=knobs)
+    assert min(tsk.LAUNCHES.values()) >= 1
+    assert len(set(want.verdict.rounds.tolist())) == 4
+    for f in want.verdict._fields:
+        np.testing.assert_array_equal(getattr(got.verdict, f), getattr(want.verdict, f), err_msg=f)
+    assert_same_state(interop.sim_state_to_numpy(got.final), interop.sim_state_to_numpy(want.final))

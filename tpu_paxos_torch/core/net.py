@@ -15,10 +15,11 @@ drop_rate/1e4, up to three duplicates chain with probability
 dup_rate/1e4 and are never dropped, and each copy samples a delay in
 [min_delay, max_delay] rounds.
 
-The copy plans are drawn on the host: their inputs are the seed, the
-round number and the fault knobs and schedule rows of that round, so
-the engine computes every plan of a round in one batched threefry pass
-(:func:`copy_plans`) and moves the small result to the device once.
+The copy plans' inputs are the seed, the round number and the fault
+knobs and schedule rows of that round, so the engine computes every
+plan of a round, for every lane of a fleet, in one batched threefry pass
+(:func:`lane_copy_plans`): the keys are derived on the host and the
+words hashed on the engine's device.
 Per-edge ``[A, A]`` knob matrices (``FaultConfig.edges``), the
 schedule's burst-loss addition and its gray delay inflation all apply
 at that step; the reachability cuts apply to the send masks in the
@@ -34,6 +35,7 @@ import torch
 
 from tpu_paxos_torch.config import FaultConfig
 from tpu_paxos_torch.core import ballot as bal
+from tpu_paxos_torch.utils import device as devm
 from tpu_paxos_torch.utils import prng
 
 MAX_COPIES = 4  # original + up to 3 recursive duplicates, ref multi/main.cpp:120
@@ -112,13 +114,14 @@ def edge_knobs(knobs: FaultKnobs, rows, cols) -> FaultKnobs:
     """Slice matrix-form knob fields to one edge shape: ``rows`` are the
     source node ids of the edge shape's leading axis, ``cols`` the
     destination ids of its trailing axis (proposer->node sends slice
-    ``[pn, :]``, node->proposer replies ``[:, pn]``).  Scalar fields
-    pass through."""
+    ``[pn, :]``, node->proposer replies ``[:, pn]``); lane-stacked
+    ``[L, A, A]`` tables are sliced per lane.  Scalar and per-lane
+    ``[L]`` fields pass through."""
     rows, cols = np.asarray(rows), np.asarray(cols)
 
     def sl(x):
         x = np.asarray(x)
-        return x if x.ndim < 2 else x[rows][:, cols]
+        return x if x.ndim < 2 else x[..., rows, :][..., cols]
 
     return knobs._replace(
         drop_rate=sl(knobs.drop_rate),
@@ -141,12 +144,16 @@ class NetBuffers(NamedTuple):
     com_rep: torch.Tensor  # [S, A, P] bool
 
 
-def init_buffers(s: int, p: int, a: int, device="cpu") -> NetBuffers:
+def init_buffers(s: int, p: int, a: int, device="cpu", lanes: int | None = None) -> NetBuffers:
+    """Empty calendars; with ``lanes`` every buffer gains a leading lane
+    axis (``[L, S, ...]``)."""
+    lead = () if lanes is None else (lanes,)
+
     def none(*shape):
-        return torch.full(shape, bal.NONE, dtype=torch.int32, device=device)
+        return torch.full(lead + shape, bal.NONE, dtype=torch.int32, device=device)
 
     def false(*shape):
-        return torch.zeros(shape, dtype=torch.bool, device=device)
+        return torch.zeros(lead + shape, dtype=torch.bool, device=device)
 
     return NetBuffers(
         prep_req=none(s, p, a),
@@ -160,11 +167,12 @@ def init_buffers(s: int, p: int, a: int, device="cpu") -> NetBuffers:
 
 
 def clear_slot(buffers: NetBuffers, slot: int) -> NetBuffers:
-    """Copies of the calendars with the just-popped slot cleared."""
+    """Copies of the calendars with the just-popped slot cleared (the
+    ring axis is the third from last, after any lane axis)."""
     out = []
     for buf in buffers:
         buf = buf.clone()
-        buf[slot] = False if buf.dtype == torch.bool else bal.NONE
+        buf[..., slot, :, :] = False if buf.dtype == torch.bool else bal.NONE
         out.append(buf)
     return NetBuffers(*out)
 
@@ -173,18 +181,19 @@ def _i64(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.int64)
 
 
-def _plan_requests(key, edge_shape, fc: FaultConfig, knobs, extra_drop):
-    """The randint draws of one plan, as ``(name, request)`` pairs; a
-    draw the static path elides is absent."""
-    k_drop, k_dup, k_delay = prng.split(key, 3)
+def _plan_requests(edge_shape, fc: FaultConfig, knobs, extra_drop, lw):
+    """The randint draws of one plan, as ``(name, subkey, shape, lo,
+    hi)`` with ``subkey`` 0, 1, 2 for the drop, dup and delay keys; a
+    draw the static path elides is absent.  ``lw`` brings knob fields to
+    their lane-broadcast form."""
     dup_shape = (MAX_COPIES - 1, *edge_shape)
     delay_shape = (MAX_COPIES, *edge_shape)
     if knobs is not None:
         return [
-            ("drop", (k_drop, edge_shape, 0, 10_000)),
-            ("dup", (k_dup, dup_shape, 0, 10_000)),
-            ("delay", (k_delay, delay_shape, _i64(knobs.min_delay),
-                       _i64(knobs.max_delay) + 1)),
+            ("drop", 0, edge_shape, 0, 10_000),
+            ("dup", 1, dup_shape, 0, 10_000),
+            ("delay", 2, delay_shape, lw(knobs.min_delay)[:, None],
+             lw(knobs.max_delay)[:, None] + 1),
         ]
     if fc.edges is not None:
         # an edges-bearing config must arrive with its matrix knobs:
@@ -196,56 +205,29 @@ def _plan_requests(key, edge_shape, fc: FaultConfig, knobs, extra_drop):
         )
     reqs = []
     if extra_drop is not None or fc.drop_rate:
-        reqs.append(("drop", (k_drop, edge_shape, 0, 10_000)))
+        reqs.append(("drop", 0, edge_shape, 0, 10_000))
     if fc.dup_rate:
-        reqs.append(("dup", (k_dup, dup_shape, 0, 10_000)))
+        reqs.append(("dup", 1, dup_shape, 0, 10_000))
     if fc.max_delay:
-        reqs.append(("delay", (k_delay, delay_shape, fc.min_delay, fc.max_delay + 1)))
+        reqs.append(("delay", 2, delay_shape, fc.min_delay, fc.max_delay + 1))
     return reqs
 
 
 def copy_plans(sites, fc: FaultConfig, extra_drop: int | None = None,
                delay_bound: int | None = None):
-    """Fault plans for several sends in one hash pass.  Each site is
-    ``(key, edge_shape, knobs, gray)`` with ``knobs`` and ``gray`` as
+    """Fault plans for several sends of one run in one hash pass
+    (:func:`lane_copy_plans` at one lane).  Each site is ``(key,
+    edge_shape, knobs, gray)`` with ``knobs`` and ``gray`` as
     :func:`copy_plan` takes them (either may be None); returns a list of
     ``(alive, delay)`` pairs as :func:`copy_plan` gives them."""
-    sites = [(key, tuple(shape), kn, gray) for key, shape, kn, gray in sites]
-    per_site = [
-        _plan_requests(key, shape, fc, kn, extra_drop) for key, shape, kn, _ in sites
-    ]
-    flat = [req for reqs in per_site for _, req in reqs]
-    draws = iter(prng.randint_many(flat))
-    out = []
-    for (_, shape, kn, gray), reqs in zip(sites, per_site):
-        got = {name: next(draws) for name, _ in reqs}
-        if "drop" in got:
-            rate = _i64(fc.drop_rate if kn is None else kn.drop_rate)
-            if extra_drop is not None:
-                rate = torch.clamp(rate + extra_drop, max=10_000)
-            drop = got["drop"] < rate
-        else:
-            drop = torch.zeros(shape, dtype=torch.bool)
-        if "dup" in got:
-            coins = got["dup"] < _i64(fc.dup_rate if kn is None else kn.dup_rate)
-            dup1 = coins[0]
-            dup2 = dup1 & coins[1]
-            dup3 = dup2 & coins[2]
-            dups = torch.stack([dup1, dup2, dup3])
-        else:
-            dups = torch.zeros((MAX_COPIES - 1, *shape), dtype=torch.bool)
-        alive = torch.cat([(~drop)[None], dups], dim=0)
-        if "delay" in got:
-            delay = got["delay"]
-        else:
-            delay = torch.zeros((MAX_COPIES, *shape), dtype=torch.int32)
-        if gray is not None:
-            # gray inflation, clamped at the config's declared ring
-            # bound: it slows copies, never drops them
-            bound = kn.delay_bound if kn is not None else delay_bound
-            delay = torch.clamp(delay + _i64(gray)[None], max=int(bound)).to(torch.int32)
-        out.append((alive, delay))
-    return out
+    keys = np.asarray([[key for key, _, _, _ in sites]], np.uint64)
+    one = [(shape, kn, None if gray is None else np.asarray(gray)[None])
+           for _, shape, kn, gray in sites]
+    plans, _ = lane_copy_plans(
+        keys, one, fc, extra_drop=None if extra_drop is None else [extra_drop],
+        delay_bound=delay_bound,
+    )
+    return [(al[0], dl[0]) for al, dl in plans]
 
 
 def copy_plan(key, edge_shape, fc: FaultConfig, extra_drop=None,
@@ -261,6 +243,88 @@ def copy_plan(key, edge_shape, fc: FaultConfig, extra_drop=None,
         [(key, edge_shape, knobs, gray)], fc, extra_drop=extra_drop,
         delay_bound=delay_bound,
     )[0]
+
+
+def _lanewise(x, device=None) -> torch.Tensor:
+    """A knob or gray value as an int64 tensor broadcastable to
+    ``[L, *edge]`` (edges are 2-D): a scalar, a per-lane ``[L]`` vector,
+    an edge-shaped ``[*edge]`` table shared by every lane, or a
+    lane-stacked ``[L, *edge]`` one."""
+    if torch.is_tensor(x):
+        x = x.to(dtype=torch.int64)
+        x = x if device is None or x.device == torch.device(device) else devm.to_device(x, device)
+    else:
+        x = _i64(x) if device is None else devm.to_device(_i64(x), device)
+    if x.ndim == 0:
+        return x.reshape(1, 1, 1)
+    if x.ndim == 1:
+        return x.reshape(-1, 1, 1)
+    return x if x.ndim == 3 else x[None]
+
+
+def lane_copy_plans(keys, sites, fc: FaultConfig, extra_drop=None, delay_bound=None,
+                    extra=(), device=None):
+    """Every lane's fault plans for several sends, and ``extra`` per-lane
+    randint requests (``prng.randint_lanes``'s form), in ONE hash pass.
+
+    ``keys`` is ``[L, K, 2]`` (site ``k``'s key per lane); ``sites`` is a
+    list of ``K`` ``(edge_shape, knobs, gray)``: ``knobs`` is None (the
+    static path) or a :class:`FaultKnobs` whose fields are scalars,
+    per-lane ``[L]`` vectors, shared ``[*edge]`` tables or lane-stacked
+    ``[L, *edge]`` ones (``delay_bound`` scalar or ``[L]``); ``gray`` is
+    None or ``[L, *edge]``.  ``extra_drop`` is None or ``[L]``; on the
+    static path the gray clamp is ``delay_bound``.  Lane ``l`` of each
+    plan is bit-identical to :func:`copy_plan` with lane ``l``'s key,
+    knobs, burst addition and gray row.  Returns ``(plans, draws)``:
+    ``(alive [L, MAX_COPIES, *edge] bool, delay [L, MAX_COPIES, *edge]
+    int32)`` per site and one tensor per ``extra`` request, all drawn and
+    shaped on ``device`` (the CPU by default); knob fields may already
+    be tensors there."""
+    lanes = keys.shape[0]
+    dev = torch.device("cpu") if device is None else torch.device(device)
+
+    def lw(x):
+        return _lanewise(x, dev)
+
+    subs = prng.split_keys(keys, 3)  # [L, K, 3, 2]: drop, dup, delay
+    reqs, names = [], []
+    for k, (shape, kn, _) in enumerate(sites):
+        mine = []
+        for name, sub, shp, lo, hi in _plan_requests(tuple(shape), fc, kn, extra_drop, lw):
+            reqs.append((subs[:, k, sub], shp, lo, hi))
+            mine.append(name)
+        names.append(mine)
+    draws = iter(prng.randint_lanes(reqs + list(extra), dev))
+    xd = None if extra_drop is None else lw(extra_drop).reshape(-1, 1, 1)
+    out = []
+    for (shape, kn, gray), mine in zip(sites, names):
+        shape = tuple(shape)
+        got = {name: next(draws) for name in mine}
+        if "drop" in got:
+            rate = lw(fc.drop_rate if kn is None else kn.drop_rate)
+            if xd is not None:
+                rate = torch.clamp(rate + xd, max=10_000)
+            drop = got["drop"] < rate
+        else:
+            drop = torch.zeros((lanes, *shape), dtype=torch.bool, device=dev)
+        if "dup" in got:
+            coins = got["dup"] < lw(fc.dup_rate if kn is None else kn.dup_rate)[:, None]
+            dup1 = coins[:, 0]
+            dup2 = dup1 & coins[:, 1]
+            dup3 = dup2 & coins[:, 2]
+            dups = torch.stack([dup1, dup2, dup3], dim=1)
+        else:
+            dups = torch.zeros((lanes, MAX_COPIES - 1, *shape), dtype=torch.bool, device=dev)
+        alive = torch.cat([(~drop)[:, None], dups], dim=1)
+        if "delay" in got:
+            delay = got["delay"]
+        else:
+            delay = torch.zeros((lanes, MAX_COPIES, *shape), dtype=torch.int32, device=dev)
+        if gray is not None:
+            bound = lw(kn.delay_bound if kn is not None else delay_bound)[:, None]
+            delay = torch.minimum(delay + lw(gray)[:, None], bound).to(torch.int32)
+        out.append((alive, delay))
+    return out, list(draws)
 
 
 def delivery_mask(ar: NetBuffers, reach_pa, reach_ap) -> NetBuffers:
@@ -280,23 +344,23 @@ def delivery_mask(ar: NetBuffers, reach_pa, reach_ap) -> NetBuffers:
 
 
 def _slot_onehot(t: int, s: int, alive: torch.Tensor, delay: torch.Tensor) -> torch.Tensor:
-    """[MAX_COPIES, *edge] arrival slots -> [S, *edge] bool write mask."""
-    slots = torch.remainder(t + 1 + delay, s)
-    oh = torch.arange(s, dtype=torch.int32, device=slots.device)
-    oh = oh.reshape((s,) + (1,) * slots.ndim)
-    return ((slots[None] == oh) & alive[None]).any(dim=1)
+    """[..., MAX_COPIES, *edge] arrival slots -> [..., S, *edge] bool
+    write mask."""
+    slots = torch.remainder(t + 1 + delay, s).unsqueeze(-4)
+    oh = torch.arange(s, dtype=torch.int32, device=slots.device).reshape(s, 1, 1, 1)
+    return ((slots == oh) & alive.unsqueeze(-4)).any(dim=-3)
 
 
 def write_ballot(buf, t: int, alive, delay, value, send_mask):
     """Coalesce-max write of a ballot-valued message into its calendar;
     ``value``/``send_mask`` are per-edge."""
-    s = buf.shape[0]
-    mask = _slot_onehot(t, s, alive, delay) & send_mask[None]
+    s = buf.shape[-3]
+    mask = _slot_onehot(t, s, alive, delay) & send_mask.unsqueeze(-3)
     fill = torch.full_like(buf, bal.NONE)
-    return torch.maximum(buf, torch.where(mask, value[None].expand_as(buf), fill))
+    return torch.maximum(buf, torch.where(mask, value.unsqueeze(-3).expand_as(buf), fill))
 
 
 def write_flag(buf, t: int, alive, delay, send_mask):
     """Coalesce-or write of a presence-bit message into its calendar."""
-    s = buf.shape[0]
-    return buf | (_slot_onehot(t, s, alive, delay) & send_mask[None])
+    s = buf.shape[-3]
+    return buf | (_slot_onehot(t, s, alive, delay) & send_mask.unsqueeze(-3))

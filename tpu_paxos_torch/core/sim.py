@@ -17,13 +17,16 @@ How the port runs what JAX compiles:
   only on the rounds where JAX runs it.  Both are exact: a skipped
   block passes its inputs through unchanged.
 - ``lax.while_loop`` becomes a host loop with the same stop,
-  ``~done & t < round_budget``.
+  ``~done & t < round_budget`` (:func:`run_lanes`, a single run being
+  one lane).
 - ``dynamic_slice``/``dynamic_update_slice`` clamp their start as XLA
   does (:func:`_window_read`, :func:`_window_write`).
 - The multi-operand ``lax.sort`` becomes a stable ``torch.sort`` of the
   keys plus a gather; its keys are unique where the result is used.
-- Every PRNG draw of a round is made on the host in one batched
-  threefry pass (``utils/prng.py``) and moved to the device once.
+- Every PRNG draw of a round comes from one batched threefry pass
+  (``utils/prng.py``): the keys are derived on the host, the words
+  hashed on the engine's device, so only the keys and the round's
+  schedule rows cross to a card.
 - On a CUDA device the accept store and the ack fold run the
   hand-written kernels of ``core/simkern.py``; on the CPU their plain
   versions.  On both they update the acceptor arrays and the ack cube
@@ -36,13 +39,22 @@ How the port runs what JAX compiles:
   (``faults.compile_schedule``) and each round reads its rows at
   ``min(t, horizon)`` on the host; per-edge ``[A, A]`` fault tables
   (``cfg.faults.edges``) are matrix knobs sliced per send direction;
-  burst loss, gray inflation and the knob matrices shape the host-drawn
-  copy plans, and the pause, reachability and crash rows ride the
-  round's one host-to-device copy.
+  burst loss, gray inflation and the knob matrices shape the copy
+  plans, and the pause, reachability and crash rows ride the round's
+  one host-to-device copy of rows.
+- The runtime-schedule and runtime-knob builds take the schedule as a
+  ``fleet.schedule_table.ScheduleTable`` and the i.i.d. knobs as a
+  ``net.FaultKnobs`` per call, in the JAX engine's always-on masked
+  forms, for the fleet runner.
+- The round runs over a leading LANE axis (:func:`_lane_round`): a
+  fleet's ``L`` simulations in one round function, one hash pass and one
+  launch per kernel; a single run is one lane of it.  How each
+  ``lax.cond`` block stays exact per lane, and how a finished lane stays
+  as it was, is documented there and at :func:`run_lanes`.
 
 Not ported yet (each raises ``NotImplementedError`` naming itself):
-``admit_block``, and the sharded, runtime-knob, runtime-schedule,
-telemetry, geometry and runtime-protocol builds.
+``admit_block``, and the sharded, telemetry, geometry and
+runtime-protocol builds.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from tpu_paxos_torch.core import geom as geo
 from tpu_paxos_torch.core import net as netm
 from tpu_paxos_torch.core import simkern as sk
 from tpu_paxos_torch.core import values as val
+from tpu_paxos_torch.fleet import schedule_table as stm
 from tpu_paxos_torch.utils import device as devm
 from tpu_paxos_torch.utils import prng
 
@@ -160,31 +173,38 @@ class SimResult:
     expected_vids: np.ndarray  # union of workload vids (all proposers)
 
 
-def _init_state(cfg: SimConfig, pend, gate, tail, root, device) -> SimState:
+def _init_lanes(cfg: SimConfig, pend, gate, tail, roots, device) -> SimState:
+    """The initial state of ``L`` lanes, every leaf with a leading lane
+    axis: ``pend``/``gate`` ``[L, P, C+W]`` and ``tail`` ``[L, P]``
+    (numpy), ``roots`` ``[L, 2]`` lane keys."""
     a, i = cfg.n_nodes, cfg.n_instances
     p = len(cfg.proposers)
+    lanes = roots.shape[0]
     s = cfg.faults.max_delay + 2
     pc = cfg.protocol
-    delay0 = prng.randint(
-        prng.stream(root, prng.STREAM_PREPARE_DELAY, 0), (p,),
+    delay0 = prng.randint_lanes([(
+        prng.stream_keys(roots, prng.STREAM_PREPARE_DELAY, 0), (p,),
         pc.prepare_delay_min, pc.prepare_delay_max + 1,
-    ).to(device)
+    )])[0].to(device)
 
     def none(*sh):
-        return torch.full(sh, bal.NONE, dtype=_I32, device=device)
+        return torch.full((lanes, *sh), bal.NONE, dtype=_I32, device=device)
 
     def zeros(*sh, dtype=_I32):
-        return torch.zeros(sh, dtype=dtype, device=device)
+        return torch.zeros((lanes, *sh), dtype=dtype, device=device)
+
+    def rows(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
 
     return SimState(
-        t=torch.tensor(0, dtype=_I32, device=device),
+        t=zeros(),
         acc=AcceptorState(
             promised=zeros(a), max_seen=zeros(a),
             acc_ballot=none(a, i), acc_vid=none(a, i),
         ),
         learned=none(a, i),
         prop=ProposerState(
-            mode=torch.full((p,), DELAY, dtype=_I32, device=device),
+            mode=torch.full((lanes, p), DELAY, dtype=_I32, device=device),
             count=zeros(p),
             ballot=zeros(p),
             pmax_seen=zeros(p),
@@ -199,61 +219,92 @@ def _init_state(cfg: SimConfig, pend, gate, tail, root, device) -> SimState:
             acc_deadline=zeros(p),
             acc_retries=zeros(p),
             own_assign=none(p, i),
-            pend=torch.as_tensor(np.asarray(pend, np.int32)).to(device),
-            gate=torch.as_tensor(np.asarray(gate, np.int32)).to(device),
+            pend=rows(pend),
+            gate=rows(gate),
             head=zeros(p),
-            tail=torch.as_tensor(np.asarray(tail, np.int32)).to(device),
+            tail=rows(tail),
             commit_vid=none(p, i),
             commit_acked=zeros(p, a, i, dtype=torch.bool),
             commit_deadline=zeros(p),
             stall=zeros(p),
             commit_wait=zeros(p, dtype=torch.bool),
         ),
-        net=netm.init_buffers(s, p, a, device),
+        net=netm.init_buffers(s, p, a, device, lanes=lanes),
         met=Metrics(
             chosen_vid=none(i), chosen_round=none(i), chosen_ballot=none(i),
             msgs=zeros(7),
         ),
         crashed=zeros(a, dtype=torch.bool),
-        done=torch.tensor(False, device=device),
+        done=zeros(dtype=torch.bool),
         qsums=zeros(1 + a + 3 * p),
-        qhmax=torch.tensor(-1, dtype=_I32, device=device),
+        qhmax=torch.full((lanes,), -1, dtype=_I32, device=device),
     )
 
 
+def lanes_view(state):
+    """``state`` (or any tree of tensors) as one lane: every leaf gains a
+    leading lane axis of 1, as a view of the same storage."""
+    if isinstance(state, torch.Tensor):
+        return state[None]
+    return type(state)(*[lanes_view(x) for x in state])
+
+
+def lane_of(state, i: int):
+    """Lane ``i`` of a lane-stacked tree, as views."""
+    if isinstance(state, torch.Tensor):
+        return state[i]
+    return type(state)(*[lane_of(x, i) for x in state])
+
+
+def _freeze(old, new, keep: torch.Tensor):
+    """``new`` with the lanes where ``keep`` is false taken from ``old``
+    (a finished lane's carry stays as it was); leaves the round left as
+    they were are passed through."""
+    if isinstance(new, torch.Tensor):
+        if new is old:
+            return new
+        k = keep.reshape((-1,) + (1,) * (new.ndim - 1))
+        return torch.where(k, new, old)
+    return type(new)(*[_freeze(o, n, keep) for o, n in zip(old, new)])
+
+
 def _window_read(rows: torch.Tensor, starts: torch.Tensor, w: int) -> torch.Tensor:
-    """Per-row ``lax.dynamic_slice(row, (h,), (w,))``: the start is
-    clamped into ``[0, len - w]`` as XLA clamps it."""
-    st = starts.to(torch.int64).clamp(0, rows.shape[1] - w)
+    """Per-row ``lax.dynamic_slice(row, (h,), (w,))`` over the last axis
+    of ``rows`` (any leading axes, one start each): the start is clamped
+    into ``[0, len - w]`` as XLA clamps it."""
+    lead, n = rows.shape[:-1], rows.shape[-1]
+    st = starts.reshape(-1).to(torch.int64).clamp(0, n - w)
     pos = st[:, None] + torch.arange(w, device=rows.device)
-    return rows.gather(1, pos)
+    return rows.reshape(-1, n).gather(1, pos).reshape(*lead, w)
 
 
 def _window_write(rows: torch.Tensor, vals: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    """Per-row ``lax.dynamic_update_slice(row, vals, (h,))`` with XLA's
-    start clamp; returns a new tensor."""
-    w = vals.shape[1]
-    st = starts.to(torch.int64).clamp(0, rows.shape[1] - w)
+    """Per-row ``lax.dynamic_update_slice(row, vals, (h,))`` over the last
+    axis with XLA's start clamp; returns a new tensor."""
+    lead, n = rows.shape[:-1], rows.shape[-1]
+    w = vals.shape[-1]
+    st = starts.reshape(-1).to(torch.int64).clamp(0, n - w)
     pos = st[:, None] + torch.arange(w, device=rows.device)
-    return rows.scatter(1, pos, vals)
+    return rows.reshape(-1, n).scatter(1, pos, vals.reshape(-1, w)).reshape(*lead, n)
 
 
 def _gate_satisfied(g: torch.Tensor, chosen_mask: torch.Tensor) -> torch.Tensor:
-    """An entry is proposable when ungated or its gate vid is in the
-    chosen-membership bitmap; gates on out-of-workload vids never
-    satisfy."""
-    v_cap = chosen_mask.shape[0]
-    g_chosen = chosen_mask[g.clamp(0, v_cap - 1).long()] & (g != val.NONE) & (g < v_cap)
+    """An entry is proposable when ungated or its gate vid is in its
+    lane's chosen-membership bitmap (``chosen_mask [L, V]``, ``g [L,
+    ...]``); gates on out-of-workload vids never satisfy."""
+    lanes, v_cap = chosen_mask.shape
+    at = g.clamp(0, v_cap - 1).reshape(lanes, -1).long()
+    g_chosen = chosen_mask.gather(1, at).reshape(g.shape) & (g != val.NONE) & (g < v_cap)
     return (g == val.NONE) | g_chosen
 
 
 def _assignable_window(pend, gate, head, tail, chosen_mask, w):
     """First-fit view of the head window: which of the next W queue
     entries are live (and, with a bitmap, gate-satisfied).  Returns
-    (qvid [P, W], ok [P, W])."""
+    (qvid [L, P, W], ok [L, P, W])."""
     offs = torch.arange(w, dtype=_I32, device=pend.device)
     qvid = _window_read(pend, head, w)
-    live = ((head[:, None] + offs[None]) < tail[:, None]) & (qvid != val.NONE)
+    live = ((head[..., None] + offs) < tail[..., None]) & (qvid != val.NONE)
     if chosen_mask is None:
         return qvid, live
     g = _window_read(gate, head, w)
@@ -261,8 +312,13 @@ def _assignable_window(pend, gate, head, tail, chosen_mask, w):
 
 
 def _any(x: torch.Tensor) -> bool:
-    """A global predicate read to the host (one sync)."""
+    """A predicate over every lane read to the host (one sync)."""
     return bool(x.any())
+
+
+def _lane_any(x: torch.Tensor) -> torch.Tensor:
+    """``[L]``: whether each lane's slice of ``x`` has a true element."""
+    return x.reshape(x.shape[0], -1).any(dim=1)
 
 
 def _sum32(x: torch.Tensor, dim=None) -> torch.Tensor:
@@ -270,9 +326,14 @@ def _sum32(x: torch.Tensor, dim=None) -> torch.Tensor:
     return (x.sum() if dim is None else x.sum(dim=dim)).to(_I32)
 
 
+def _one_lane(table):
+    """One run's host table (a ScheduleTable or FaultKnobs) with a lane
+    axis of 1 on every field."""
+    return type(table)(*[np.asarray(x)[None] for x in table])
+
+
 _UNPORTED_FLAGS = (
-    "axis_name", "runtime_schedule", "runtime_knobs", "telemetry",
-    "window_rounds", "geometry", "runtime_protocol",
+    "axis_name", "telemetry", "window_rounds", "geometry", "runtime_protocol",
 )
 
 
@@ -282,15 +343,28 @@ def build_engine(
     vid_cap: int = 0,
     use_kernels: bool | None = None,
     device="cuda",
+    runtime_schedule: bool = False,
+    runtime_knobs: bool = False,
     **flags,
 ):
-    """Returns ``round_fn(root, state) -> state``, the unpadded,
-    unsharded round of the JAX engine with i.i.d. drop/dup/delay and
-    crash faults, per-edge fault tables, the correlated-fault schedule
-    (``delivery_cut`` included), gates (``vid_cap``) and the seeded
-    takeover wedge.
+    """Returns ``round_fn(root, state, tab=None, knobs=None) -> state``,
+    the unpadded, unsharded round of the JAX engine with i.i.d.
+    drop/dup/delay and crash faults, per-edge fault tables, the
+    correlated-fault schedule (``delivery_cut`` included), gates
+    (``vid_cap``) and the seeded takeover wedge.  ``round_fn.lanes`` is
+    the same round over a leading lane axis, which ``round_fn`` runs at
+    one lane (see :func:`_lane_round`).
     ``round_fn`` consumes its ``state``: the acceptor arrays and the ack
     cube are updated in place, on the CPU as on a card.
+
+    ``runtime_schedule=True`` takes the schedule per call as a
+    ``fleet.schedule_table.ScheduleTable`` (``cfg.faults.schedule`` must
+    be None) with every mask dimension live; ``runtime_knobs=True`` takes
+    the i.i.d. knobs per call as a ``net.FaultKnobs`` (``cfg.faults.edges``
+    must be None), draws every coin in its always-on masked form and
+    refreshes the crash-coupled caches every round; ``cfg.faults.max_delay``
+    then only sizes the ring.  Both are exact against the constant build
+    for the same schedule and knobs, as in the JAX engine.
 
     The accept store and the ack fold run the simkern CUDA kernels on a
     CUDA device and their plain versions on the CPU; ``use_kernels``
@@ -317,32 +391,43 @@ def build_engine(
     c = n_pend_cap
     w = cfg.assign_window
     fc = cfg.faults
+    if runtime_schedule and fc.schedule is not None:
+        raise ValueError(
+            "runtime_schedule engines take their schedule per call "
+            "(ScheduleTable); cfg.faults.schedule must be None"
+        )
+    if runtime_knobs and fc.edges is not None:
+        raise ValueError(
+            "runtime_knobs engines take their knobs per call (matrix "
+            "or scalar FaultKnobs); cfg.faults.edges must be None"
+        )
     quorum = cfg.quorum
     max_crash = (a - 1) // 2
     pk = geo.static_protocol(cfg.protocol, stall_patience=IDLE_RESTART_ROUNDS)
     wedge_no_takeover = seeded_wedge() == "takeover"
     # Correlated-fault schedule as per-round host tables; a dimension
-    # the schedule lacks is never read.
+    # the schedule lacks is never read.  A runtime table has them all.
     comp = fltm.compile_schedule(fc.schedule, a)
     horizon = comp.horizon if comp is not None else 0
     has = {
-        k: comp is not None and getattr(comp, f"has_{k}")
+        k: runtime_schedule or (comp is not None and getattr(comp, f"has_{k}"))
         for k in ("reach", "pause", "burst", "crash", "gray")
     }
     # Per-edge [A, A] fault tables: matrix knobs sliced once per send
     # direction (proposer->node rows pn, node->proposer columns pn).
     if fc.edges is not None:
         mknobs = netm.matrix_knobs(fc)
-        kn_pa = netm.edge_knobs(mknobs, cfg.proposers, range(a))
-        kn_ap = netm.edge_knobs(mknobs, range(a), cfg.proposers)
+        kn_pa0 = netm.edge_knobs(mknobs, cfg.proposers, range(a))
+        kn_ap0 = netm.edge_knobs(mknobs, range(a), cfg.proposers)
     else:
-        kn_pa = kn_ap = None
+        kn_pa0 = kn_ap0 = None
     # delivery_cut only acts where reachability masks exist.
     delivery_cut = bool(fc.delivery_cut) and has["reach"]
-    iid_crash = bool(fc.crash_rate)
-    # Scheduled crash points change `crashed` without an i.i.d. draw:
-    # the crash-coupled cached blocks then refresh every round too.
-    crash_faults = iid_crash or has["crash"]
+    draw_crash = runtime_knobs or bool(fc.crash_rate)
+    # Runtime knobs or schedules (and scheduled crash points) can change
+    # `crashed` without an i.i.d. draw: the crash-coupled cached blocks
+    # then refresh every round.
+    crash_faults = draw_crash or has["crash"]
     r_cap = min(w, i_cap)
     span = min(2 * r_cap, i_cap)
 
@@ -350,57 +435,95 @@ def build_engine(
     pn32 = pn.to(_I32)
     idx = torch.arange(i_cap, dtype=_I32, device=dev)
     offs_w = torch.arange(w, dtype=_I32, device=dev)
-    none_pi = torch.full((p, i_cap), val.NONE, dtype=_I32, device=dev)
     bcast_a = torch.ones((p, a), dtype=torch.bool, device=dev)
     # the seven send sites in message order: True = proposer->node [P, A]
     site_pa = [True, False, False, True, False, True, False]
     pn_np = np.asarray(cfg.proposers)
 
-    def draws(root, t: int):
-        """Every coin of round ``t``, drawn on the host in one batched
-        pass per kind, and the schedule's rows for round ``t``, moved to
-        the device in one copy: the seven copy plans, the restart
-        backoff, the crash coins, and the pause / reachability / crash
-        rows.  Returns ``(plans, rnd_delay, crash_u, rows)`` with
-        ``rows`` a dict of the rows the schedule has."""
-        tt = min(t, horizon)
+    def draws(roots, t: int, tab, knobs, running):
+        """Every coin of round ``t`` for every lane, hashed in one pass on
+        the engine's device from keys derived on the host, and the
+        schedule's rows for round ``t``, moved to the device in one copy:
+        the seven copy plans, the restart backoff, the crash coins
+        (``u < crash_rate``), the pause / reachability / crash rows, the
+        heal gate of a runtime table and the running-lane mask.  Returns
+        ``(plans, rnd_delay, crash_coin, rows)`` with ``rows`` a dict of
+        what this build has."""
+        lanes = roots.shape[0]
+        gray = xdrop = None
+        rows = {}
+        if runtime_schedule:
+            reach, paused, xdrop, gray = stm.masks_at(tab, t)
+            rows = {"pause": paused, "reach": reach,
+                    "crash": stm.crashes_at(tab, t), "heal": t >= tab.horizon}
+        elif comp is not None:
+            tt = min(t, horizon)
+            if has["gray"]:
+                gray = np.broadcast_to(comp.gray[tt], (lanes, a))
+            if has["burst"]:
+                xdrop = np.full((lanes,), comp.extra_drop[tt])
+            for name, table in (("pause", "paused"), ("reach", "reach"), ("crash", "crashed")):
+                if has[name]:
+                    row = getattr(comp, table)[tt]
+                    rows[name] = np.broadcast_to(row, (lanes, *row.shape))
+        if running is not None:
+            rows["run"] = running
         gray_pa = gray_ap = None
-        if has["gray"]:
-            g = comp.gray[tt].astype(np.int64)
-            gray_pa = g[pn_np][:, None] + g[None, :]  # [P, A] src + dst
-            gray_ap = g[:, None] + g[pn_np][None, :]  # [A, P]
-        keys = prng.split(prng.stream(root, prng.STREAM_NET_DROP, t), 8)
+        if gray is not None:
+            g = np.asarray(gray, np.int64)
+            gray_pa = g[:, pn_np][:, :, None] + g[:, None, :]  # [L, P, A] src + dst
+            gray_ap = g[:, :, None] + g[:, pn_np][:, None, :]  # [L, A, P]
+        if runtime_knobs:
+            kn_pa = netm.edge_knobs(knobs, pn_np, range(a))
+            kn_ap = netm.edge_knobs(knobs, range(a), pn_np)
+        else:
+            kn_pa, kn_ap = kn_pa0, kn_ap0
+        keys = prng.split_keys(prng.stream_keys(roots, prng.STREAM_NET_DROP, t), 8)
         sites = [
-            (key, (p, a), kn_pa, gray_pa) if pa else (key, (a, p), kn_ap, gray_ap)
-            for key, pa in zip(keys, site_pa)
+            ((p, a), kn_pa, gray_pa) if pa else ((a, p), kn_ap, gray_ap)
+            for pa in site_pa
         ]
-        plans = netm.copy_plans(
-            sites, fc, extra_drop=int(comp.extra_drop[tt]) if has["burst"] else None,
-            delay_bound=fc.max_delay,
-        )
         extra = [(
-            prng.stream(root, prng.STREAM_PREPARE_DELAY, t + 1), (p,),
+            prng.stream_keys(roots, prng.STREAM_PREPARE_DELAY, t + 1), (p,),
             pk.prepare_delay_min, pk.prepare_delay_max + 1,
         )]
-        if iid_crash:
-            extra.append((prng.stream(root, prng.STREAM_CRASH, t), (a,), 0, 1_000_000))
-        coins = prng.randint_many(extra)
-        rows = {
-            name: torch.from_numpy(getattr(comp, table)[tt].astype(np.int32))
-            for name, table in (("pause", "paused"), ("reach", "reach"), ("crash", "crashed"))
-            if has[name]
-        }
-        parts = [x for al, dl in plans for x in (al.to(_I32), dl)] + coins + list(rows.values())
-        flat = torch.cat([x.reshape(-1) for x in parts]).to(dev)
-        out = list(torch.split(flat, [x.numel() for x in parts]))
-        out = [o.reshape(x.shape) for o, x in zip(out, parts)]
-        plans_d = [(out[2 * k].bool(), out[2 * k + 1]) for k in range(len(plans))]
-        rest = out[2 * len(plans):]
-        crash_u = rest[1] if iid_crash else None
-        rows_d = dict(zip(rows, (x.bool() for x in rest[1 + iid_crash:])))
-        return plans_d, rest[0], crash_u, rows_d
+        if draw_crash:
+            extra.append((prng.stream_keys(roots, prng.STREAM_CRASH, t), (a,), 0, 1_000_000))
+        plans, coins = netm.lane_copy_plans(
+            keys[:, :7], sites, fc, extra_drop=xdrop, delay_bound=fc.max_delay,
+            extra=extra, device=dev,
+        )
+        crash_coin = None
+        if draw_crash:
+            rate = knobs.crash_rate if runtime_knobs else fc.crash_rate
+            rate = devm.to_device(torch.from_numpy(np.asarray(rate, np.int64).reshape(-1, 1)), dev)
+            crash_coin = coins[1] < rate
+        rows_d = {}
+        if rows:
+            parts = [np.asarray(x, np.int32).reshape(-1) for x in rows.values()]
+            flat = devm.to_device(torch.from_numpy(np.concatenate(parts)), dev)
+            for (name, x), part in zip(rows.items(), torch.split(flat, [len(q) for q in parts])):
+                rows_d[name] = part.reshape(np.shape(x)).bool()
+        return plans, coins[0], crash_coin, rows_d
 
-    def round_fn(root, st: SimState) -> SimState:
+    def lanes_fn(roots, st: SimState, t: int, tab=None, knobs=None, running=None) -> SimState:
+        """One round of ``L`` lanes: every leaf of ``st`` has a leading
+        lane axis, ``roots`` is ``[L, 2]`` (``prng.root_keys``), ``t`` the
+        round every running lane is at, ``tab``/``knobs`` the lane-stacked
+        schedule tables and knobs of a runtime build, and ``running`` an
+        ``[L]`` bool array (None: every lane runs).  A lane that is not
+        running comes back exactly as it was given, as a finished lane's
+        carry stays in a batched ``while_loop``."""
+        if runtime_schedule and tab is None:
+            raise TypeError(
+                "this engine was built with runtime_schedule=True; "
+                "round_fn needs a ScheduleTable argument"
+            )
+        if runtime_knobs and knobs is None:
+            raise TypeError(
+                "this engine was built with runtime_knobs=True; "
+                "round_fn needs a FaultKnobs argument"
+            )
         for name in ("pend", "gate"):
             width = getattr(st.prop, name).shape[-1]
             if width != c + w:
@@ -408,186 +531,254 @@ def build_engine(
                     f"{name} rows are {width} wide; expected {c} + "
                     f"assign_window {w} padding"
                 )
-        t = int(st.t)
-        s = st.net.prep_req.shape[0]
-        slot = t % s
-        ar = netm.NetBuffers(*[b[slot] for b in st.net])
-        net = netm.clear_slot(st.net, slot)
-        plans, rnd_delay, crash_u, rows = draws(root, t)
+        return _lane_round(ctx, roots, st, t, tab, knobs, running)
 
-        # I/O-alive mask: crashed or currently paused nodes neither
-        # send, receive nor act on timers this round; excusals stay on
-        # `crashed` alone (a paused node's obligations are deferred).
-        alive_a = ~st.crashed  # [A]
-        if "pause" in rows:
-            alive_a = alive_a & ~rows["pause"]
-        prop_alive = alive_a[pn]  # [P]
-        # Per-edge reachability cuts, ANDed into every send mask (and,
-        # with delivery_cut, into this round's arrivals).
-        reach = rows.get("reach")
-        cut_pa = reach[pn] if reach is not None else None  # [P, A]
-        cut_ap = reach[:, pn] if reach is not None else None  # [A, P]
-        if delivery_cut:
-            ar = netm.delivery_mask(ar, cut_pa, cut_ap)
+    def round_fn(root, st: SimState, tab=None, knobs=None) -> SimState:
+        """One round of one run: :func:`_lane_round` at one lane."""
+        if tab is not None:
+            tab = _one_lane(tab)
+        if knobs is not None:
+            knobs = _one_lane(knobs)
+        roots = np.asarray([root], np.uint64)
+        return lane_of(lanes_fn(roots, lanes_view(st), int(st.t), tab, knobs), 0)
 
-        # ---------------- acceptor side ----------------
-        acc = st.acc
-        learned = st.learned
+    def dormant(st: SimState, t: int, tab=None, knobs=None, running=None):
+        """``[L]`` bool on the device, or None where no lane qualifies:
+        the running lanes on which round ``t`` and every later round can
+        depend on nothing but the state.  Every proposer has crashed (so
+        no timer, send or decision acts), the calendars are empty (so
+        nothing arrives, whatever the slot), no crash can come (the
+        lane's crash rate is 0 or its crash room is spent) and the
+        schedule is past its horizon.  Where one such round changes
+        nothing, no later round does."""
+        lanes = st.t.shape[0]
+        healed = t >= (np.asarray(tab.horizon) if runtime_schedule else np.full(lanes, horizon))
+        if running is not None:
+            healed = healed & running
+        if not healed.any():
+            return None
+        out = st.crashed[:, pn].all(dim=1) & devm.to_device(torch.from_numpy(healed), dev)
+        for buf in st.net:
+            empty = ~buf if buf.dtype == torch.bool else buf == bal.NONE
+            out &= empty.reshape(lanes, -1).all(dim=1)
+        if draw_crash:
+            rate = knobs.crash_rate if runtime_knobs else fc.crash_rate
+            no_rate = torch.from_numpy(np.broadcast_to(np.asarray(rate) == 0, (lanes,)).copy())
+            out &= devm.to_device(no_rate, dev) | (_sum32(st.crashed, dim=1) >= max_crash)
+        return out
 
-        # PREPARE arrivals (crashed acceptors ignore everything).
-        preq = torch.where(alive_a[None, :], ar.prep_req, bal.NONE)  # [P, A]
-        grant = preq > acc.promised[None, :]  # strict >, ref :866
-        rej_prep = (preq != bal.NONE) & (preq < acc.promised[None, :])
-        max_seen = torch.maximum(acc.max_seen, preq.amax(dim=0))
-        promised = torch.maximum(
-            acc.promised, torch.where(grant, preq, bal.NONE).amax(dim=0)
-        )
-
-        # ACCEPT arrivals: batch content is the sending proposer's
-        # cur_batch, valid iff its ballot still equals the edge ballot.
-        apres = torch.where(alive_a[None, :], ar.acc_req, bal.NONE)  # [P, A]
-        abal = st.prop.ballot  # [P]
-        abat = st.prop.cur_batch  # [P, I]
-        has_acc = (
-            (apres != bal.NONE) & (apres == abal[:, None])
-            & (st.prop.mode == PREPARED)[:, None]
-        )
-        max_seen = torch.maximum(max_seen, apres.amax(dim=0))
-        elig = has_acc & (abal[:, None] >= promised[None, :])  # >=, ref :1366
-        rej_acc = has_acc & ~elig
-        any_acc_arr = _any(elig)
-        acc_ballot, acc_vid = acc.acc_ballot, acc.acc_vid
-        if any_acc_arr:
-            acc_ballot, acc_vid = sk.store_accepts(
-                acc_ballot, acc_vid, learned, abat, abal, elig
-            )
-
-        # COMMIT arrivals -> learner state (ref OnCommit).
-        cpres = ar.com_pres & alive_a[None, :]  # [P, A]
-        cbat = st.prop.commit_vid  # [P, I]
-        any_com_arr = _any(cpres)
-        if any_com_arr:
-            inc_v = torch.full_like(learned, _NEG)
-            for pi in range(p):
-                incp = cpres[pi][:, None] & (cbat[pi] != val.NONE)[None, :]
-                inc_v = torch.maximum(
-                    inc_v, torch.where(incp, cbat[pi][None, :], _NEG)
-                )
-            learned = torch.where(
-                (inc_v != _NEG) & (learned == val.NONE), inc_v, learned
-            )
-
-        acc = AcceptorState(promised, max_seen, acc_ballot, acc_vid)
-        return _proposer_round(
-            ctx, st, t, net, ar, plans, rnd_delay, crash_u, alive_a,
-            prop_alive, acc, learned, preq, grant, rej_prep, rej_acc,
-            abal, elig, cpres, any_com_arr, cut_pa, cut_ap, rows.get("crash"),
-        )
-
-    # The proposer half of the round is below; it shares the build's
-    # constants through this namespace.
+    # The round shares the build's constants through this namespace.
     ctx = types.SimpleNamespace(
         a=a, p=p, i_cap=i_cap, w=w, quorum=quorum,
         max_crash=max_crash, pk=pk, wedge=wedge_no_takeover,
-        crash_faults=crash_faults, iid_crash=iid_crash, horizon=horizon,
+        crash_faults=crash_faults, draw_crash=draw_crash, horizon=horizon,
+        runtime_schedule=runtime_schedule, delivery_cut=delivery_cut,
         r_cap=r_cap, span=span, pn=pn, pn32=pn32,
-        idx=idx, offs_w=offs_w, none_pi=none_pi, bcast_a=bcast_a,
-        vid_cap=vid_cap, crash_rate=fc.crash_rate,
+        idx=idx, offs_w=offs_w, bcast_a=bcast_a,
+        vid_cap=vid_cap, draws=draws, dev=dev,
     )
-
+    round_fn.lanes = lanes_fn
+    round_fn.dormant = dormant
     return round_fn
 
 
-def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign):
+def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running) -> SimState:
+    """The round over a leading lane axis ``L``.  The JAX engine's
+    ``lax.cond`` blocks are host branches here, as in a single run; under
+    ``jax.vmap`` each is a per-lane select of both branches, so the port
+    takes a block when any lane's predicate holds and leaves every lane
+    whose own predicate is false as the false branch would: each block
+    below is the identity on such a lane by its masks (stated at the
+    block), or selects per lane.  Where JAX picks a fast or a general
+    form by a predicate (``_assign``'s prefix test, ``_requeue``'s
+    contiguity and width tests) the fast form runs only if every lane's
+    predicate holds; the general form equals it wherever it does."""
+    a, p, pn = b.a, b.p, b.pn
+    lanes = st.t.shape[0]
+    s = st.net.prep_req.shape[1]
+    slot = t % s
+    ar = netm.NetBuffers(*[x[:, slot] for x in st.net])
+    net = netm.clear_slot(st.net, slot)
+    plans, rnd_delay, crash_coin, rows = b.draws(roots, t, tab, knobs, running)
+    run_d = rows.get("run")  # [L] bool, None when every lane runs
+
+    # I/O-alive mask: crashed or currently paused nodes neither
+    # send, receive nor act on timers this round; excusals stay on
+    # `crashed` alone (a paused node's obligations are deferred).
+    alive_a = ~st.crashed  # [L, A]
+    if "pause" in rows:
+        alive_a = alive_a & ~rows["pause"]
+    prop_alive = alive_a[:, pn]  # [L, P]
+    # Per-edge reachability cuts, ANDed into every send mask (and,
+    # with delivery_cut, into this round's arrivals).
+    reach = rows.get("reach")
+    cut_pa = reach[:, pn] if reach is not None else None  # [L, P, A]
+    cut_ap = reach[:, :, pn] if reach is not None else None  # [L, A, P]
+    if b.delivery_cut:
+        ar = netm.delivery_mask(ar, cut_pa, cut_ap)
+
+    # ---------------- acceptor side ----------------
+    acc = st.acc
+    learned = st.learned
+
+    # PREPARE arrivals (crashed acceptors ignore everything).
+    preq = torch.where(alive_a[:, None, :], ar.prep_req, bal.NONE)  # [L, P, A]
+    grant = preq > acc.promised[:, None, :]  # strict >, ref :866
+    rej_prep = (preq != bal.NONE) & (preq < acc.promised[:, None, :])
+    max_seen = torch.maximum(acc.max_seen, preq.amax(dim=1))
+    promised = torch.maximum(
+        acc.promised, torch.where(grant, preq, bal.NONE).amax(dim=1)
+    )
+
+    # ACCEPT arrivals: batch content is the sending proposer's
+    # cur_batch, valid iff its ballot still equals the edge ballot.
+    apres = torch.where(alive_a[:, None, :], ar.acc_req, bal.NONE)  # [L, P, A]
+    abal = st.prop.ballot  # [L, P]
+    abat = st.prop.cur_batch  # [L, P, I]
+    has_acc = (
+        (apres != bal.NONE) & (apres == abal[:, :, None])
+        & (st.prop.mode == PREPARED)[:, :, None]
+    )
+    max_seen = torch.maximum(max_seen, apres.amax(dim=1))
+    elig = has_acc & (abal[:, :, None] >= promised[:, None, :])  # >=, ref :1366
+    rej_acc = has_acc & ~elig
+    # the in-place store never touches a lane that is not running; on a
+    # lane with no eligible accept it stores nothing
+    elig_k = elig if run_d is None else elig & run_d[:, None, None]
+    any_acc_arr = _any(elig_k)
+    acc_ballot, acc_vid = acc.acc_ballot, acc.acc_vid
+    if any_acc_arr:
+        acc_ballot, acc_vid = sk.store_accepts(
+            acc_ballot, acc_vid, learned, abat, abal, elig_k
+        )
+
+    # COMMIT arrivals -> learner state (ref OnCommit); the identity on a
+    # lane with no arrival (every increment is masked).
+    cpres = ar.com_pres & alive_a[:, None, :]  # [L, P, A]
+    cbat = st.prop.commit_vid  # [L, P, I]
+    any_com_arr = _any(cpres)
+    if any_com_arr:
+        inc_v = torch.full_like(learned, _NEG)
+        for pi in range(p):
+            incp = cpres[:, pi, :, None] & (cbat[:, pi] != val.NONE)[:, None, :]
+            inc_v = torch.maximum(
+                inc_v, torch.where(incp, cbat[:, pi, None, :], _NEG)
+            )
+        learned = torch.where(
+            (inc_v != _NEG) & (learned == val.NONE), inc_v, learned
+        )
+
+    acc = AcceptorState(promised, max_seen, acc_ballot, acc_vid)
+    new = _proposer_round(
+        b, st, t, net, ar, plans, rnd_delay, crash_coin, alive_a,
+        prop_alive, acc, learned, preq, grant, rej_prep, rej_acc,
+        abal, elig, cpres, any_com_arr, cut_pa, cut_ap, rows, run_d,
+    )
+    if run_d is not None:
+        new = _freeze(st, new, run_d)
+    return new
+
+
+def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign, lane_pred):
     """New-value assignment for every PREPARED proposer: gate-ready
     queue entries (first-fit) onto the lowest free instances of the
-    open tail (ref unproposed_instance_ids_.Next).  Returns
-    (cur_batch, own_assign, pend, head, k)."""
+    open tail (ref unproposed_instance_ids_.Next).  ``lane_pred [L]`` is
+    the block's predicate per lane; a lane where it is false takes
+    nothing and keeps its queue and head.  Returns (cur_batch,
+    own_assign, pend, head, k)."""
     p, w, i_cap, idx = b.p, b.w, b.i_cap, b.idx
     own_assign, pend, head = pr.own_assign, pr.pend, pr.head
+    lanes = head.shape[0]
     if b.vid_cap:
-        # chosen-vid membership bitmap for the gate test; invalid
-        # indices land in a spill slot that is cut off
+        # chosen-vid membership bitmap per lane for the gate test;
+        # invalid indices land in a spill slot that is cut off
         cv = st.met.chosen_vid
         slot = torch.where((cv >= 0) & (cv < b.vid_cap), cv, b.vid_cap).long()
-        chosen_mask = torch.zeros(b.vid_cap + 1, dtype=torch.bool, device=cv.device)
-        chosen_mask[slot] = True
+        chosen_mask = torch.zeros((lanes, b.vid_cap + 1), dtype=torch.bool, device=cv.device)
+        chosen_mask.scatter_(1, slot, torch.ones_like(slot, dtype=torch.bool))
         g = _window_read(pr.gate, head, w)
-        ok = live & _gate_satisfied(g, chosen_mask[: b.vid_cap])
+        ok = live & _gate_satisfied(g, chosen_mask[:, : b.vid_cap])
     else:
         ok = live
     activity = (
-        (learned[b.pn] != val.NONE) | (cur_batch != val.NONE)
+        (learned[:, b.pn] != val.NONE) | (cur_batch != val.NONE)
         | (own_assign != val.NONE)
     )
     # Free instances are the contiguous suffix above the activity
     # high-water mark, so ranks are closed-form.
-    hi2 = torch.where(activity, idx[None], -1).amax(dim=1)
+    hi2 = torch.where(activity, idx, -1).amax(dim=2)  # [L, P]
     hi2l = torch.clamp(hi2, min=-1)
-    free = idx[None] > hi2l[:, None]
-    free_rank = idx[None] - hi2l[:, None] - 1
+    free = idx > hi2l[..., None]
+    free_rank = idx - hi2l[..., None] - 1
     n_free = (i_cap - 1) - hi2l
-    ok_rank = torch.cumsum(ok.to(_I32), dim=1, dtype=_I32) - 1
-    k = torch.minimum(_sum32(ok, dim=1), n_free)
-    k = torch.where(can_assign, k, 0)
-    take_q = ok & (ok_rank < k[:, None])
-    takev = free & (free_rank < k[:, None])
+    ok_rank = torch.cumsum(ok.to(_I32), dim=2, dtype=_I32) - 1
+    k = torch.minimum(_sum32(ok, dim=2), n_free)
+    k = torch.where(can_assign & lane_pred[:, None], k, 0)
+    take_q = ok & (ok_rank < k[..., None])
+    takev = free & (free_rank < k[..., None])
     start = torch.clamp(hi2l + 1, 0, i_cap)
     if _any(k > 0):
-        is_prefix = bool((take_q == (b.offs_w[None] < k[:, None])).all())
+        # the O(W) rank scatter equals the prefix read wherever the
+        # taken entries are a prefix, so one lane off the prefix sends
+        # every lane through it
+        is_prefix = bool((take_q == (b.offs_w < k[..., None])).all())
         if is_prefix:
             by_rank = torch.where(take_q, qvid, val.NONE)
         else:
-            # O(W) rank scatter; untaken slots go to a spill column
+            # untaken slots go to a spill column
             rank_pos = torch.where(take_q, ok_rank, w).long()
-            by_rank = torch.full((p, w + 1), val.NONE, dtype=_I32, device=qvid.device)
-            by_rank.scatter_(1, rank_pos, qvid)
-            by_rank = by_rank[:, :w]
+            by_rank = torch.full((lanes, p, w + 1), val.NONE, dtype=_I32, device=qvid.device)
+            by_rank.scatter_(2, rank_pos, qvid)
+            by_rank = by_rank[..., :w]
         # place the ranked vids at the contiguous free window starting
         # at `start` (in [0, i_cap], so nothing clamps)
-        rel = idx[None] - start[:, None]
+        rel = idx - start[..., None]
         inside = (rel >= 0) & (rel < w)
         newv = torch.where(
-            inside, by_rank.gather(1, rel.clamp(0, w - 1).long()), val.NONE
+            inside, by_rank.gather(2, rel.clamp(0, w - 1).long()), val.NONE
         )
-    else:
-        newv = b.none_pi
-    cur_batch = torch.where(takev, newv, cur_batch)
-    own_assign = torch.where(takev, newv, own_assign)
+        cur_batch = torch.where(takev, newv, cur_batch)
+        own_assign = torch.where(takev, newv, own_assign)
     # consume taken entries in place (a masked window write-back), then
     # advance head over the leading consumed run
     new_win = torch.where(take_q, val.NONE, qvid)
     pend = _window_write(pend, new_win, head)
     lead_dead = (
-        (head[:, None] + b.offs_w[None]) < pr.tail[:, None]
+        (head[..., None] + b.offs_w) < pr.tail[..., None]
     ) & (new_win == val.NONE)
-    head = head + torch.cumprod(lead_dead.to(_I32), dim=1).sum(dim=1).to(_I32)
+    adv = torch.cumprod(lead_dead.to(_I32), dim=2).sum(dim=2).to(_I32)
+    head = head + torch.where(lane_pred[:, None], adv, 0)
     return cur_batch, own_assign, pend, head, k
 
 
-def _requeue(b, pend, own_assign, ptail, conflict):
+def _requeue(b, pend, own_assign, ptail, conflict, lane_pred):
     """Conflict re-proposal: append up to ``r_cap`` conflicted own
-    values per proposer, in instance order, at the queue tail.
-    Returns (pend, nreq, own_assign)."""
+    values per proposer, in instance order, at the queue tail.  A lane
+    whose ``lane_pred`` is false keeps its queue.  Returns (pend, nreq,
+    own_assign)."""
     p, i_cap, r_cap, span, idx = b.p, b.i_cap, b.r_cap, b.span, b.idx
-    idxb = idx[None].expand(p, i_cap)
-    has_c = conflict.any(dim=1)
-    ncf = _sum32(conflict, dim=1)
-    cmin = torch.where(conflict, idxb, _I32_MAX).amin(dim=1)
-    cmax = torch.where(conflict, idxb, -1).amax(dim=1)
+    lanes = conflict.shape[0]
+    idxb = idx.expand(lanes, p, i_cap)
+    has_c = conflict.any(dim=2)
+    ncf = _sum32(conflict, dim=2)
+    cmin = torch.where(conflict, idxb, _I32_MAX).amin(dim=2)
+    cmax = torch.where(conflict, idxb, -1).amax(dim=2)
     nreq = torch.clamp(ncf, max=r_cap)
+    # Each form below gives the first nreq conflicted values in instance
+    # order; the padded slice and the windowed sort only where every
+    # lane's conflicts fit them.
     contig = bool((~has_c | (ncf == cmax - cmin + 1)).all())
     if contig:
         # fully-conflicted contiguous runs: a padded slice at cmin
         startc = torch.where(has_c, cmin, 0)
         rowpad = torch.cat(
-            [own_assign, torch.full((p, r_cap), val.NONE, dtype=_I32, device=own_assign.device)],
-            dim=1,
+            [own_assign, torch.full((lanes, p, r_cap), val.NONE, dtype=_I32, device=own_assign.device)],
+            dim=2,
         )
         block = _window_read(rowpad, startc, r_cap)
-        take_req = conflict & (idxb < (cmin + nreq)[:, None])
+        take_req = conflict & (idxb < (cmin + nreq)[..., None])
     else:
-        req_rank = torch.cumsum(conflict.to(_I32), dim=1, dtype=_I32) - 1
+        req_rank = torch.cumsum(conflict.to(_I32), dim=2, dtype=_I32) - 1
         take_req = conflict & (req_rank < r_cap)
         narrow = bool((~has_c | (cmax - cmin < span)).all())
         if narrow:
@@ -595,71 +786,77 @@ def _requeue(b, pend, own_assign, ptail, conflict):
             win_conf = _window_read(conflict, startn, span)
             win_vids = _window_read(own_assign, startn, span)
             keys = torch.where(
-                win_conf, torch.arange(span, dtype=_I32, device=idx.device)[None], span
+                win_conf, torch.arange(span, dtype=_I32, device=idx.device), span
             )
         else:
             keys = torch.where(conflict, idxb, i_cap)
             win_vids = own_assign
         # conflict keys are unique and sort ahead of the sentinel, so
         # the first nreq positions equal JAX's unstable sort
-        order = torch.sort(keys, dim=1, stable=True).indices
-        block = win_vids.gather(1, order)[:, :r_cap]
+        order = torch.sort(keys, dim=2, stable=True).indices
+        block = win_vids.gather(2, order)[..., :r_cap]
     ar_r = torch.arange(r_cap, dtype=_I32, device=idx.device)
-    req_block = torch.where(ar_r[None] < nreq[:, None], block, val.NONE)
+    req_block = torch.where(ar_r < nreq[..., None], block, val.NONE)
+    req_block = torch.where(lane_pred[:, None, None], req_block, _window_read(pend, ptail, r_cap))
     pend = _window_write(pend, req_block, ptail)
     own_assign = torch.where(take_req, val.NONE, own_assign)
     return pend, nreq, own_assign
 
 
 def _proposer_round(
-    b, st, t, net, ar, plans, rnd_delay, crash_u, alive_a, prop_alive,
+    b, st, t, net, ar, plans, rnd_delay, crash_coin, alive_a, prop_alive,
     acc, learned, preq, grant, rej_prep, rej_acc, abal, elig, cpres,
-    any_com_arr, cut_pa, cut_ap, crash_t,
+    any_com_arr, cut_pa, cut_ap, rows, run_d,
 ):
     """The proposer half of the round, the network writes, crash
-    injection and quiescence (``tpu_paxos/core/sim.py:1022-2039``).
-    ``cut_pa``/``cut_ap`` are the round's reachability masks and
-    ``crash_t`` its cumulative scheduled crashes (None without them)."""
+    injection and quiescence (``tpu_paxos/core/sim.py:1022-2039``), over
+    the lane axis.  ``cut_pa``/``cut_ap`` are the round's reachability
+    masks (None without them) and ``rows`` its schedule rows."""
     a, p, pn, pk, quorum = b.a, b.p, b.pn, b.pk, b.quorum
+    lanes = st.t.shape[0]
     pr = st.prop
     # A->P arrivals are masked on both ends.
-    rx_p = alive_a[:, None] & prop_alive[None, :]  # [A, P]
+    rx_p = alive_a[:, :, None] & prop_alive[:, None, :]  # [L, A, P]
     # REJECT arrivals only update max-ballot-seen (ref OnReject).
     rejs = torch.where(rx_p, ar.rej, bal.NONE)
-    pmax_seen = torch.maximum(pr.pmax_seen, rejs.amax(dim=0))
+    pmax_seen = torch.maximum(pr.pmax_seen, rejs.amax(dim=1))
 
     # PREPARE_REPLY arrivals: promises + adoption merge.
-    pecho = torch.where(rx_p, ar.prep_echo, bal.NONE)  # [A, P]
-    match = (pecho == pr.ballot[None, :]) & (pr.mode[None, :] == PREPARING)
-    promises2 = pr.promises | match.T  # [P, A]
+    pecho = torch.where(rx_p, ar.prep_echo, bal.NONE)  # [L, A, P]
+    match = (pecho == pr.ballot[:, None, :]) & (pr.mode[:, None, :] == PREPARING)
+    match_pa = match.transpose(1, 2)  # [L, P, A]
+    promises2 = pr.promises | match_pa
     adopted_b, adopted_v = pr.adopted_b, pr.adopted_v
-    if _any(match):
+    any_match = _any(match)
+    if any_match:
         # accepted-state snapshot at delivery, committed values at
-        # COMMITTED_BALLOT (ref FilterAcceptedValues)
+        # COMMITTED_BALLOT (ref FilterAcceptedValues); a lane with no
+        # reply takes nothing
         is_l = learned != val.NONE
         snap_b = torch.where(is_l, COMMITTED_BALLOT, acc.acc_ballot)
         snap_v = torch.where(is_l, learned, acc.acc_vid)
-        rep_mask = match.T[:, :, None]  # [P, A, 1]
-        best_b = torch.where(rep_mask, snap_b[None], bal.NONE).amax(dim=1)
+        rep_mask = match_pa[..., None]  # [L, P, A, 1]
+        best_b = torch.where(rep_mask, snap_b[:, None], bal.NONE).amax(dim=2)
         best_v = torch.where(
-            rep_mask & (snap_b[None] == best_b[:, None, :]), snap_v[None], _NEG
-        ).amax(dim=1)
+            rep_mask & (snap_b[:, None] == best_b[:, :, None, :]), snap_v[:, None], _NEG
+        ).amax(dim=2)
         take = (best_b != bal.NONE) & (best_b > adopted_b)
         adopted_b = torch.where(take, best_b, adopted_b)
         adopted_v = torch.where(take, best_v, adopted_v)
 
-    # Phase-1 quorum -> PREPARED; build the accept batch skeleton.
-    n_prom = promises2.sum(dim=1)
+    # Phase-1 quorum -> PREPARED; build the accept batch skeleton
+    # (masked per proposer by now_prepared).
+    n_prom = promises2.sum(dim=2)
     now_prepared = (pr.mode == PREPARING) & (n_prom >= quorum) & prop_alive
     any_p1 = _any(now_prepared)
     cur_batch, acks = pr.cur_batch, pr.acks
     if any_p1:
         idx = b.idx
-        committed_p = learned[pn] != val.NONE  # [P, I]
+        committed_p = learned[:, pn] != val.NONE  # [L, P, I]
         use_adopt = ~committed_p & (adopted_b != bal.NONE)
         covered0 = committed_p | use_adopt
-        hi_cov = torch.where(covered0, idx[None], -1).amax(dim=1)
-        below = idx[None] <= hi_cov[:, None]
+        hi_cov = torch.where(covered0, idx, -1).amax(dim=2)
+        below = idx <= hi_cov[..., None]
         noop_fill = below & ~covered0
         use_own = ~below & (pr.own_assign != val.NONE)
         batch0 = torch.where(
@@ -672,9 +869,9 @@ def _proposer_round(
             ),
         )
         batch0 = torch.where(committed_p, val.NONE, batch0)
-        cur_batch = torch.where(now_prepared[:, None], batch0, cur_batch)
+        cur_batch = torch.where(now_prepared[..., None], batch0, cur_batch)
         acks = torch.where(
-            now_prepared[:, None, None], torch.zeros((), dtype=torch.int8, device=acks.device), acks
+            now_prepared[..., None, None], torch.zeros((), dtype=torch.int8, device=acks.device), acks
         )
     mode = torch.where(now_prepared, PREPARED, pr.mode)
     acc_retries = torch.where(now_prepared, pk.accept_retry_count, pr.acc_retries)
@@ -685,72 +882,84 @@ def _proposer_round(
     # New-value assignment (only on rounds with a live window entry).
     can_assign = (mode == PREPARED) & prop_alive
     qvid, live = _assignable_window(pr.pend, pr.gate, pr.head, pr.tail, None, b.w)
-    any_window = _any(live & can_assign[:, None])
+    win_l = _lane_any(live & can_assign[..., None])
+    any_window = _any(win_l)
     own_assign, pend, head = pr.own_assign, pr.pend, pr.head
-    k = torch.zeros((p,), dtype=_I32, device=mode.device)
+    k = torch.zeros((lanes, p), dtype=_I32, device=mode.device)
     if any_window:
         cur_batch, own_assign, pend, head, k = _assign(
-            b, pr, st, learned, cur_batch, live, qvid, can_assign
+            b, pr, st, learned, cur_batch, live, qvid, can_assign, win_l
         )
-    added = k > 0  # [P] -> (re)send accepts
+    added = k > 0  # [L, P] -> (re)send accepts
 
     # ACCEPT_REPLY arrivals: per-instance acks derived at delivery.
-    aecho = torch.where(rx_p, ar.acc_echo, bal.NONE)  # [A, P]
-    amatch = (aecho == pr.ballot[None, :]) & (mode[None, :] == PREPARED)
-    any_echo = _any(amatch)
+    aecho = torch.where(rx_p, ar.acc_echo, bal.NONE)  # [L, A, P]
+    amatch = (aecho == pr.ballot[:, None, :]) & (mode[:, None, :] == PREPARED)
+    if run_d is not None:
+        amatch = amatch & run_d[:, None, None]  # the fold never touches a finished lane
+    echo_l = _lane_any(amatch)
+    any_echo = _any(echo_l)
     commit_vid = pr.commit_vid
     mvid, mround, mballot = st.met.chosen_vid, st.met.chosen_round, st.met.chosen_ballot
     newly = None
     if any_echo:
         acks, n_ack = sk.accum_acks(
             acks, cur_batch, acc.acc_ballot, acc.acc_vid, learned, pr.ballot,
-            amatch.T.contiguous(),
+            amatch.transpose(1, 2).contiguous(),
         )
+        # a lane with no echo decides nothing this round
         inst_chosen = (cur_batch != val.NONE) & (n_ack >= quorum)
-        newly = inst_chosen & (commit_vid == val.NONE) & prop_alive[:, None]
+        newly = (
+            inst_chosen & (commit_vid == val.NONE) & prop_alive[..., None]
+            & echo_l[:, None, None]
+        )
         if b.wedge:
             # seeded-wedge build: an already-chosen instance is never
             # re-committed
-            newly = newly & (mvid == val.NONE)[None]
+            newly = newly & (mvid == val.NONE)[:, None]
         commit_vid = torch.where(newly, cur_batch, commit_vid)
-        any_new = newly.any(dim=0) & (mvid == val.NONE)
-        new_v = torch.where(newly, cur_batch, _NEG).amax(dim=0)
-        new_b = torch.where(newly, pr.ballot[:, None], _NEG).amax(dim=0)
+        any_new = newly.any(dim=1) & (mvid == val.NONE)  # [L, I]
+        new_v = torch.where(newly, cur_batch, _NEG).amax(dim=1)
+        new_b = torch.where(newly, pr.ballot[..., None], _NEG).amax(dim=1)
         mvid = torch.where(any_new, new_v, mvid)
         mround = torch.where(any_new, t, mround)
         mballot = torch.where(any_new, new_b, mballot)
     met = st.met._replace(chosen_vid=mvid, chosen_round=mround, chosen_ballot=mballot)
 
     # COMMIT_REPLY arrivals: presence; per-instance ack by learned match.
-    crep = ar.com_rep & rx_p  # [A, P]
+    crep = ar.com_rep & rx_p  # [L, A, P]
     commit_acked, commit_wait = pr.commit_acked, pr.commit_wait
-    if b.crash_faults or _any(crep):
+    crep_l = None if b.crash_faults else _lane_any(crep)
+    if b.crash_faults or _any(crep_l):
         commit_acked = commit_acked | (
-            crep.T[:, :, None]
-            & (commit_vid != val.NONE)[:, None, :]
-            & (learned[None] == commit_vid[:, None, :])
+            crep.transpose(1, 2)[..., None]
+            & (commit_vid != val.NONE)[:, :, None, :]
+            & (learned[:, None] == commit_vid[:, :, None, :])
         )
-        commit_wait = (
+        fresh = (
             (commit_vid != val.NONE)
-            & ~(commit_acked | st.crashed[None, :, None]).all(dim=1)
-        ).any(dim=1)  # [P]
+            & ~(commit_acked | st.crashed[:, None, :, None]).all(dim=2)
+        ).any(dim=2)  # [L, P]
+        # a lane without a reply keeps its cached flag
+        commit_wait = fresh if crep_l is None else torch.where(crep_l[:, None], fresh, commit_wait)
 
-    # Commit TAKEOVER on stall-threshold rounds (see the JAX module).
+    # Commit TAKEOVER on stall-threshold rounds (see the JAX module);
+    # masked per proposer.
     take_commit = (pr.mode == PREPARED) & (pr.stall >= pk.stall_patience) & prop_alive
     if b.wedge:
         take_commit = torch.zeros_like(take_commit)
     if _any(take_commit):
-        learned_pn = learned[pn]
+        learned_pn = learned[:, pn]
         taken = (
-            take_commit[:, None] & (learned_pn != val.NONE) & (commit_vid == val.NONE)
+            take_commit[..., None] & (learned_pn != val.NONE) & (commit_vid == val.NONE)
         )
         commit_vid = torch.where(taken, learned_pn, commit_vid)
-        commit_wait = commit_wait | taken.any(dim=1)
+        commit_wait = commit_wait | taken.any(dim=2)
     # A fresh decision is by construction not fully acked yet.
     if newly is not None:
-        any_newly = newly.any(dim=1)
+        any_newly = newly.any(dim=2)
     else:
-        any_newly = torch.zeros((p,), dtype=torch.bool, device=mode.device)
+        any_newly = torch.zeros((lanes, p), dtype=torch.bool, device=mode.device)
     commit_wait = commit_wait | any_newly
     resend_c = (t >= pr.commit_deadline) & commit_wait
     send_commit = (any_newly | resend_c | (take_commit & commit_wait)) & prop_alive
@@ -759,17 +968,18 @@ def _proposer_round(
     )
 
     # Conflict re-proposal + own-value completion (ref OnCommit).
-    learned_p = learned[pn]
+    learned_p = learned[:, pn]
     own_has2 = own_assign != val.NONE
     conflict = own_has2 & (learned_p != val.NONE) & (learned_p != own_assign)
     own_done = own_has2 & (learned_p == own_assign)
     any_own_done = _any(own_done)
     if any_own_done:
         own_assign = torch.where(own_done, val.NONE, own_assign)
-    any_conflict = _any(conflict)
-    nreq = torch.zeros((p,), dtype=_I32, device=mode.device)
+    conf_l = _lane_any(conflict)
+    any_conflict = _any(conf_l)
+    nreq = torch.zeros((lanes, p), dtype=_I32, device=mode.device)
     if any_conflict:
-        pend, nreq, own_assign = _requeue(b, pend, own_assign, pr.tail, conflict)
+        pend, nreq, own_assign = _requeue(b, pend, own_assign, pr.tail, conflict, conf_l)
     gate = pr.gate
     tail = pr.tail + nreq
 
@@ -785,9 +995,9 @@ def _proposer_round(
     if _any(ddl_hit):
         outstanding = (
             (cur_batch != val.NONE) & (commit_vid == val.NONE)
-            & (learned[pn] == val.NONE)
+            & (learned[:, pn] == val.NONE)
         )
-        adl = ddl_hit & outstanding.any(dim=1)
+        adl = ddl_hit & outstanding.any(dim=2)
     else:
         adl = ddl_hit
     resend_acc = adl & (acc_retries > 1)
@@ -797,7 +1007,7 @@ def _proposer_round(
     do_restart = restart_p | acc_fail | idle_restart
     delay_until = torch.where(do_restart, t + 1 + rnd_delay, pr.delay_until)
     mode = torch.where(do_restart, DELAY, mode)
-    promises2 = promises2 & ~do_restart[:, None]
+    promises2 = promises2 & ~do_restart[..., None]
 
     # DELAY -> send prepare with a ballot bumped past everything seen.
     start_prep = (mode == DELAY) & (t >= delay_until) & prop_alive
@@ -811,106 +1021,111 @@ def _proposer_round(
     prep_deadline = torch.where(
         start_prep, t + 1 + pk.prepare_retry_timeout, prep_deadline
     )
-    promises2 = promises2 & ~start_prep[:, None]
+    promises2 = promises2 & ~start_prep[..., None]
     any_reset = _any(do_restart | start_prep)
     if any_reset:
-        both = (do_restart | start_prep)[:, None]
+        both = (do_restart | start_prep)[..., None]
         adopted_b = torch.where(both, bal.NONE, adopted_b)
         adopted_v = torch.where(both, val.NONE, adopted_v)
-        cur_batch = torch.where(do_restart[:, None], val.NONE, cur_batch)
+        cur_batch = torch.where(do_restart[..., None], val.NONE, cur_batch)
         acks = torch.where(
-            do_restart[:, None, None], torch.zeros((), dtype=torch.int8, device=acks.device), acks
+            do_restart[..., None, None], torch.zeros((), dtype=torch.int8, device=acks.device), acks
         )
 
     send_prep = start_prep | resend_prep
     want_acc_send = now_prepared | added | resend_acc
     if _any(want_acc_send):
-        send_accept = want_acc_send & (cur_batch != val.NONE).any(dim=1)
+        send_accept = want_acc_send & (cur_batch != val.NONE).any(dim=2)
     else:
         send_accept = want_acc_send
 
     # ---------------- network writes ----------------
     # Every send mask passes through the reachability cut; the message
     # counters below stay pre-fault.
-    def cpa(m):  # [P, A] proposer->node send mask through the cuts
+    def cpa(m):  # [L, P, A] proposer->node send mask through the cuts
         return m if cut_pa is None else m & cut_pa
 
-    def cap(m):  # [A, P] node->proposer send mask through the cuts
+    def cap(m):  # [L, A, P] node->proposer send mask through the cuts
         return m if cut_ap is None else m & cut_ap
 
     bcast_a = b.bcast_a
     (al0, dl0), (al1, dl1), (al2, dl2), (al3, dl3), (al4, dl4), (al5, dl5), (al6, dl6) = plans
-    send_rep = grant.T  # [A, P]
-    send_rej = (rej_prep | rej_acc).T
-    send_arep = elig.T  # [A, P] reply whenever ballot >= promised
-    send_crep = cpres.T  # [A, P]
+    send_rep = grant.transpose(1, 2)  # [L, A, P]
+    send_rej = (rej_prep | rej_acc).transpose(1, 2)
+    send_arep = elig.transpose(1, 2)  # [L, A, P] reply whenever ballot >= promised
+    send_crep = cpres.transpose(1, 2)  # [L, A, P]
     net = netm.NetBuffers(
         prep_req=netm.write_ballot(
-            net.prep_req, t, al0, dl0, ballot[:, None], cpa(send_prep[:, None] & bcast_a)
+            net.prep_req, t, al0, dl0, ballot[..., None], cpa(send_prep[..., None] & bcast_a)
         ),
-        prep_echo=netm.write_ballot(net.prep_echo, t, al1, dl1, preq.T, cap(send_rep)),
+        prep_echo=netm.write_ballot(net.prep_echo, t, al1, dl1, preq.transpose(1, 2), cap(send_rep)),
         rej=netm.write_ballot(
-            net.rej, t, al2, dl2, acc.max_seen[:, None].expand(a, p), cap(send_rej)
+            net.rej, t, al2, dl2, acc.max_seen[..., None].expand(lanes, a, p), cap(send_rej)
         ),
         acc_req=netm.write_ballot(
-            net.acc_req, t, al3, dl3, ballot[:, None], cpa(send_accept[:, None] & bcast_a)
+            net.acc_req, t, al3, dl3, ballot[..., None], cpa(send_accept[..., None] & bcast_a)
         ),
         acc_echo=netm.write_ballot(
-            net.acc_echo, t, al4, dl4, abal[None, :].expand(a, p), cap(send_arep)
+            net.acc_echo, t, al4, dl4, abal[:, None, :].expand(lanes, a, p), cap(send_arep)
         ),
         com_pres=netm.write_flag(
-            net.com_pres, t, al5, dl5, cpa(send_commit[:, None] & bcast_a)
+            net.com_pres, t, al5, dl5, cpa(send_commit[..., None] & bcast_a)
         ),
         com_rep=netm.write_flag(net.com_rep, t, al6, dl6, cap(send_crep)),
     )
     msgs = met.msgs + torch.stack([
-        send_prep.sum() * a, send_rep.sum(), send_rej.sum(),
-        send_accept.sum() * a, send_arep.sum(), send_commit.sum() * a,
-        send_crep.sum(),
-    ]).to(_I32)
+        send_prep.sum(dim=1) * a, send_rep.sum(dim=(1, 2)), send_rej.sum(dim=(1, 2)),
+        send_accept.sum(dim=1) * a, send_arep.sum(dim=(1, 2)), send_commit.sum(dim=1) * a,
+        send_crep.sum(dim=(1, 2)),
+    ], dim=1).to(_I32)
     met = met._replace(msgs=msgs)
 
     # ---------------- crash injection ----------------
     crashed = st.crashed
-    if crash_t is not None:
+    if "crash" in rows:
         # scheduled crash points apply before the i.i.d. draw, so its
         # minority-cap room accounts for them
-        crashed = crashed | crash_t
-    if b.iid_crash:
-        want = (crash_u < b.crash_rate) & ~crashed
-        room = b.max_crash - _sum32(crashed)
-        allow = torch.cumsum(want.to(_I32), dim=0, dtype=_I32) <= room
+        crashed = crashed | rows["crash"]
+    if b.draw_crash:
+        want = crash_coin & ~crashed
+        room = b.max_crash - _sum32(crashed, dim=1)
+        allow = torch.cumsum(want.to(_I32), dim=1, dtype=_I32) <= room[:, None]
         crashed = crashed | (want & allow)
 
     # ---------------- quiescence ----------------
-    palive2 = (~crashed)[pn]
+    # The cached counts are recomputed on a round where any lane's may
+    # have changed: on the others they equal the cache.
+    palive2 = (~crashed)[:, pn]
     q_change = (
         any_com_arr or any_echo or any_p1 or any_window or any_reset
         or any_own_done or any_conflict or t == 0
     )
     if b.crash_faults or q_change:
-        inflight = (cur_batch != val.NONE) & (met.chosen_vid[None] == val.NONE)
+        inflight = (cur_batch != val.NONE) & (met.chosen_vid[:, None] == val.NONE)
         sums = torch.cat([
-            _sum32(met.chosen_vid != val.NONE)[None],
-            _sum32(learned != val.NONE, dim=1),  # [A]
-            _sum32(inflight, dim=1),  # [P]
-            (head != tail).to(_I32),  # [P]
-            _sum32(own_assign != val.NONE, dim=1),  # [P]
-        ])
-        hmax = torch.where(met.chosen_vid != val.NONE, b.idx, -1).amax()
+            _sum32(met.chosen_vid != val.NONE, dim=1)[:, None],
+            _sum32(learned != val.NONE, dim=2),  # [L, A]
+            _sum32(inflight, dim=2),  # [L, P]
+            (head != tail).to(_I32),  # [L, P]
+            _sum32(own_assign != val.NONE, dim=2),  # [L, P]
+        ], dim=1)
+        hmax = torch.where(met.chosen_vid != val.NONE, b.idx, -1).amax(dim=1)
     else:
         sums, hmax = st.qsums, st.qhmax
-    n_chosen = sums[0]
-    n_learned = sums[1:1 + a]
-    inflight_n = sums[1 + a:1 + a + p]
-    q_pending = sums[1 + a + p:1 + a + 2 * p]
-    own_n = sums[1 + a + 2 * p:1 + a + 3 * p]
-    q_empty = ~(palive2 & (q_pending > 0)).any()
-    own_none = ~(palive2 & (own_n > 0)).any()
+    n_chosen = sums[:, 0]
+    n_learned = sums[:, 1:1 + a]
+    inflight_n = sums[:, 1 + a:1 + a + p]
+    q_pending = sums[:, 1 + a + p:1 + a + 2 * p]
+    own_n = sums[:, 1 + a + 2 * p:1 + a + 3 * p]
+    q_empty = ~(palive2 & (q_pending > 0)).any(dim=1)
+    own_none = ~(palive2 & (own_n > 0)).any(dim=1)
     contiguous = n_chosen == hmax + 1
-    learned_ok = ((n_learned == hmax + 1) | crashed).all()
+    learned_ok = ((n_learned == hmax[:, None] + 1) | crashed).all(dim=1)
     done = q_empty & own_none & contiguous & learned_ok & (t > 0)
-    if b.horizon:
+    if b.runtime_schedule:
+        # heal-then-converge with each lane's own horizon
+        done = done & rows["heal"]
+    elif b.horizon:
         # heal-then-converge: never quiescent before the last heal
         done = done & (t >= b.horizon)
     unresolved = ~(contiguous & learned_ok)
@@ -918,7 +1133,7 @@ def _proposer_round(
         (mode == PREPARED) & (inflight_n == 0) & ~commit_wait
         & (q_pending == 0) & (own_n == 0) & palive2
     )
-    stall = torch.where(idle_now & unresolved & ~done, pr.stall + 1, 0)
+    stall = torch.where(idle_now & (unresolved & ~done)[:, None], pr.stall + 1, 0)
 
     return SimState(
         t=st.t + 1,
@@ -1021,18 +1236,88 @@ def gates_vid_cap(workload, gates) -> int:
 def init_state(cfg: SimConfig, pend, gate, tail, root, device="cuda") -> SimState:
     """Initial state on ``device`` (queue arrays as numpy or tensors)."""
     dev = devm.resolve(device)
-    to_np = lambda x: x.cpu().numpy() if torch.is_tensor(x) else x  # noqa: E731
-    return _init_state(cfg, to_np(pend), to_np(gate), to_np(tail), root, dev)
+
+    def lane(x):
+        return (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x))[None]
+
+    roots = np.asarray([root], np.uint64)
+    return lane_of(_init_lanes(cfg, lane(pend), lane(gate), lane(tail), roots, dev), 0)
 
 
-def run_loop(cfg: SimConfig, round_fn, root, state: SimState) -> SimState:
-    """The whole-run driver: ``while ~done and t < round_budget``, the
-    exact stop of the JAX engine's ``lax.while_loop``.  Consumes
-    ``state`` (see :func:`build_engine`)."""
-    budget = cfg.round_budget
-    while not bool(state.done) and int(state.t) < budget:
-        state = round_fn(root, state)
-    return state
+def init_lanes(cfg: SimConfig, pend, gate, tail, roots, device="cuda") -> SimState:
+    """Initial states of ``L`` lanes on ``device``, stacked on a leading
+    lane axis: ``pend``/``gate`` ``[L, P, C+W]``, ``tail`` ``[L, P]``
+    (numpy) and ``roots`` ``[L, 2]`` (``prng.root_keys``)."""
+    return _init_lanes(cfg, pend, gate, tail, roots, devm.resolve(device))
+
+
+def _unchanged(old, new, lanes: int) -> torch.Tensor:
+    """``[L]``: lanes on which every leaf of ``new`` but the round
+    counter equals ``old``'s."""
+    changed = torch.zeros((lanes,), dtype=torch.bool, device=new.t.device)
+    for name in SimState._fields:
+        if name == "t":
+            continue
+        a, b = getattr(old, name), getattr(new, name)
+        for x, y in zip(
+            (a,) if isinstance(a, torch.Tensor) else a,
+            (b,) if isinstance(b, torch.Tensor) else b,
+        ):
+            if x is not y:
+                changed |= (x != y).reshape(lanes, -1).any(dim=1)
+    return ~changed
+
+
+def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None):
+    """The whole-run loop of ``L`` lanes (a batched ``while_loop``):
+    lane ``l`` runs while ``~done[l] & t[l] < budgets[l]``, and a lane
+    that stops keeps its state while the others run on.  Every running
+    lane is at the same round, the host's count.  ``round_fn`` comes
+    from :func:`build_engine`; ``state`` is consumed.
+
+    A lane that reaches a fixed point of the round (``round_fn.dormant``
+    says no later round depends on ``t`` there, and one round changed
+    nothing) would only count rounds up to its budget: it is parked and
+    its counter set to the budget at the end, as the JAX loop leaves it.
+    Returns the final states and the number of round calls."""
+    budgets = np.asarray(budgets, np.int64)
+    lanes = budgets.shape[0]
+    parked = np.zeros((lanes,), bool)
+    t = calls = None
+    prev = check = None
+    while True:
+        # one read a round: each lane's done flag and round, and which
+        # lanes the last round left at a fixed point
+        reads = [state.done.to(_I32), state.t]
+        if check is not None:
+            reads.append((check & _unchanged(prev, state, lanes)).to(_I32))
+        host = torch.stack(reads).cpu().numpy()
+        done, t_l = host[0].astype(bool), host[1]
+        if check is not None:
+            parked |= host[2].astype(bool)
+        prev = check = None
+        running = ~done & (t_l < budgets) & ~parked
+        if not running.any():
+            break
+        if t is None:  # a state handed over mid-run starts where it is
+            t, calls = int(t_l[running][0]), 0
+        if (t_l[running] != t).any():
+            raise AssertionError(f"running lanes are at rounds {t_l[running]}, not {t}")
+        check = round_fn.dormant(state, t, tab, knobs, running)
+        if check is not None:
+            prev = state
+        state = round_fn.lanes(
+            roots, state, t, tab, knobs, None if running.all() else running
+        )
+        t += 1
+        calls += 1
+    if parked.any():
+        dev = state.t.device
+        state = state._replace(t=torch.where(
+            torch.from_numpy(parked).to(dev),
+            torch.from_numpy(budgets.astype(np.int32)).to(dev), state.t,
+        ))
+    return state, calls or 0
 
 
 def run_state(
@@ -1054,7 +1339,9 @@ def run_state(
         else:
             vid_cap = 0
     round_fn = build_engine(cfg, queue_cap, vid_cap=vid_cap, device=state.learned.device)
-    return to_result(run_loop(cfg, round_fn, root, state), expected_vids)
+    roots = np.asarray([root], np.uint64)
+    final, _ = run_lanes(round_fn, roots, lanes_view(state), [cfg.round_budget])
+    return to_result(lane_of(final, 0), expected_vids)
 
 
 def to_result(final: SimState, expected_vids: np.ndarray) -> SimResult:

@@ -74,9 +74,30 @@
 // - A scalar path (groups of one instance, byte-wide acks) takes
 //   I % 4 != 0 and rows that are not 16-byte aligned; any I works, the
 //   tail is bounds-checked.
+// - ballot [P] int32 and amatch [P, A] bool are read straight from the
+//   caller's tensors, as in the store: one launch per call.
 // No shared memory, no TMA, no tensor cores in either kernel: nothing is
 // reused across threads, the loads are already 16 bytes wide and all in
 // flight together, and the work is a few integer compares per word.
+//
+// Lanes.  A fleet runs nL independent simulations in one round, every
+// operand stacked on a leading lane axis ([nL, A, I], [nL, P], ...), and
+// each kernel covers all of them in one launch.  Where a lane has fewer
+// groups than a block has threads, thread t of the whole grid takes group
+// t % groups of lane t / groups, so (lane, group) pairs spread over every
+// block: a fleet lane of 56 instances is 14 groups, and one block per
+// lane would leave most of its threads idle.  Lanes of more groups each
+// take a row of the y-grid (blockIdx.y is the lane).  A single lane (the
+// single run) is offset by nothing: timed in turns, the lane offsets
+// alone (held in registers, 12 more in the store) cost the main path's
+// short store launches 2-4 us each (PERF.md).  Offsets are
+// 64-bit; a lane's rows start A * I or P * I elements after the previous
+// lane's, so with I % 4 == 0 and aligned bases every lane takes the
+// vector path, and otherwise every lane takes the scalar one.  A lane
+// that must not change (a finished one) comes with elig or amatch all
+// false: the store then writes nothing there and the fold changes no
+// ack (it still writes the lane's n_ack).  At one lane the launch is
+// the single run's.
 //
 // Plain C interface (built with nvcc -shared, loaded with ctypes): each
 // launcher enqueues on the caller's stream, never synchronizes, and
@@ -172,6 +193,31 @@ struct Group {
   }
 };
 
+// How a launch maps threads to lanes.  kOne: a single lane, the grid
+// covers its groups and nothing is offset (the single run's launch, with
+// the one-run kernel's registers).  kRows: blockIdx.y is the lane and the x-grid covers
+// its groups.  kFlat: thread t of the whole grid takes group t % groups
+// of lane t / groups, so lanes of a few groups share blocks.
+enum LaneMode { kOne = 0, kRows = 1, kFlat = 2 };
+
+// This thread's lane and the first instance of its group, or false if
+// it has none.  Groups never straddle a lane: no partial group.
+template <int kMode>
+__device__ __forceinline__ bool lane_group(unsigned groups, unsigned threads, unsigned& lane,
+                                           long long& i, int width) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (kMode == kFlat) {
+    if (t >= threads) return false;
+    lane = t / groups;
+    i = (long long)(t - lane * groups) * width;
+  } else {
+    if (t >= groups) return false;
+    lane = kMode == kRows ? blockIdx.y : 0;
+    i = (long long)t * width;
+  }
+  return true;
+}
+
 // One acceptor row's store for a group: folds proposer p's candidate
 // (ballot bal, batches bt, eligible el) into the best ballot and batch
 // per lane.  learned != NONE never stores, so the plain version's
@@ -197,21 +243,33 @@ __device__ __forceinline__ unsigned storing_lanes(const int32_t (&bb)[L]) {
   return m;
 }
 
-// acc_ballot/acc_vid [A, I] (in place), learned [A, I], abat [P, I], all
-// int32; abal [P] int32, elig [P, A] bool bytes, row-major.
-// kA = kP = 0 takes A and P at run time.
-template <int kA, int kP, bool kVec>
+// acc_ballot/acc_vid [nL, A, I] (in place), learned [nL, A, I], abat
+// [nL, P, I], all int32; abal [nL, P] int32, elig [nL, P, A] bool bytes,
+// row-major, nL lanes.  Thread t takes group t % groups of lane
+// t / groups.  kA = kP = 0 takes A and P at run time.
+template <int kA, int kP, bool kVec, int kMode>
 __global__ void __launch_bounds__(kThreads)
     store_accepts_kernel(int32_t* __restrict__ acc_ballot, int32_t* __restrict__ acc_vid,
                          const int32_t* __restrict__ learned,
                          const int32_t* __restrict__ abat,
                          const int32_t* __restrict__ abal,
                          const uint8_t* __restrict__ elig, int A_rt, int P_rt,
-                         long long I) {
+                         long long I, unsigned groups, unsigned threads) {
   using G = Group<kVec>;
   constexpr int L = G::L;
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
-  if (i >= I) return;  // the vector path has I % 4 == 0: no partial group
+  unsigned lane;
+  long long i;
+  if (!lane_group<kMode>(groups, threads, lane, i, L)) return;
+  if constexpr (kMode != kOne) {
+    const int A = kA > 0 ? kA : A_rt;
+    const int P = kP > 0 ? kP : P_rt;
+    acc_ballot += (long long)lane * A * I;
+    acc_vid += (long long)lane * A * I;
+    learned += (long long)lane * A * I;
+    abat += (long long)lane * P * I;
+    abal += (long long)lane * P;
+    elig += (long long)lane * P * A;
+  }
 
   if constexpr (kA > 0) {
     constexpr int A = kA;
@@ -341,23 +399,38 @@ __device__ __forceinline__ void add_acks(int32_t (&n)[L], uint32_t w) {
   for (int j = 0; j < L; ++j) n[j] += (int8_t)(uint8_t)(w >> (8 * j));
 }
 
-// scal = [ballot[P], amatch[P * A]] (int32 0/1, [P, A] row-major).
-// acks [P, A, I] int8 0/1 (in place), n_ack [P, I] int32 (written),
-// cur_batch [P, I], acc_ballot/acc_vid/learned [A, I], all int32.
-// kA = kP = 0 takes A and P at run time.
-template <int kA, int kP, bool kVec>
+// acks [nL, P, A, I] int8 0/1 (in place), n_ack [nL, P, I] int32
+// (written), cur_batch [nL, P, I], acc_ballot/acc_vid/learned [nL, A, I],
+// all int32; ballot [nL, P] int32, amatch [nL, P, A] bool bytes,
+// row-major, nL lanes.  Thread t takes group t % groups of lane
+// t / groups.  kA = kP = 0 takes A and P at run time.
+template <int kA, int kP, bool kVec, int kMode>
 __global__ void __launch_bounds__(kThreads)
     accum_acks_kernel(int8_t* __restrict__ acks, int32_t* __restrict__ n_ack,
                       const int32_t* __restrict__ cur_batch,
                       const int32_t* __restrict__ acc_ballot,
                       const int32_t* __restrict__ acc_vid,
                       const int32_t* __restrict__ learned,
-                      const int32_t* __restrict__ scal, int A_rt, int P_rt,
-                      long long I) {
+                      const int32_t* __restrict__ ballots,
+                      const uint8_t* __restrict__ amatch, int A_rt, int P_rt,
+                      long long I, unsigned groups, unsigned threads) {
   using G = Group<kVec>;
   constexpr int L = G::L;
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
-  if (i >= I) return;  // the vector path has I % 4 == 0: no partial group
+  unsigned lane;
+  long long i;
+  if (!lane_group<kMode>(groups, threads, lane, i, L)) return;
+  if constexpr (kMode != kOne) {
+    const int A = kA > 0 ? kA : A_rt;
+    const int P = kP > 0 ? kP : P_rt;
+    acks += (long long)lane * P * A * I;
+    n_ack += (long long)lane * P * I;
+    cur_batch += (long long)lane * P * I;
+    acc_ballot += (long long)lane * A * I;
+    acc_vid += (long long)lane * A * I;
+    learned += (long long)lane * A * I;
+    ballots += (long long)lane * P;
+    amatch += (long long)lane * P * A;
+  }
 
   if constexpr (kA > 0) {
     constexpr int A = kA;
@@ -378,13 +451,13 @@ __global__ void __launch_bounds__(kThreads)
     unsigned need = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      ballot[p] = __ldg(scal + p);
+      ballot[p] = __ldg(ballots + p);
       bool live = false;
 #pragma unroll
       for (int j = 0; j < L; ++j) live |= cb[p][j] != kNone;
 #pragma unroll
       for (int a = 0; a < A; ++a) {
-        am[p][a] = __ldg(scal + P + p * A + a) != 0;
+        am[p][a] = __ldg(amatch + p * A + a) != 0;
         if (live && am[p][a]) need |= 1u << a;
       }
     }
@@ -426,12 +499,12 @@ __global__ void __launch_bounds__(kThreads)
       bool live = false;
 #pragma unroll
       for (int j = 0; j < L; ++j) live |= cb[j] != kNone;
-      const int32_t ballot = __ldg(scal + p);
+      const int32_t ballot = __ldg(ballots + p);
       int32_t n[L] = {};
       for (int a = 0; a < A; ++a) {
         const long long c = ((long long)p * A + a) * I;
         uint32_t w = G::load_acks(acks + c, i);
-        if (live && __ldg(scal + P + p * A + a) != 0) {
+        if (live && __ldg(amatch + p * A + a) != 0) {
           int32_t ab[L], av[L], lr[L];
           G::load(acc_ballot + a * I, i, ab);
           G::load(acc_vid + a * I, i, av);
@@ -453,65 +526,94 @@ bool aligned(const void* p, uintptr_t bytes) {
   return ((uintptr_t)p & (bytes - 1)) == 0;
 }
 
-template <int kA, int kP>
-void launch_store(bool vec, void* acc_ballot, void* acc_vid, const void* learned,
-                  const void* abat, const void* abal, const void* elig, int A, int P,
-                  long long I, cudaStream_t s) {
-  const long long groups = vec ? I / 4 : I;
-  const unsigned blocks = (unsigned)((groups + kThreads - 1) / kThreads);
-  auto kernel = vec ? store_accepts_kernel<kA, kP, true> : store_accepts_kernel<kA, kP, false>;
-  kernel<<<blocks, kThreads, 0, s>>>(
-      (int32_t*)acc_ballot, (int32_t*)acc_vid, (const int32_t*)learned,
-      (const int32_t*)abat, (const int32_t*)abal, (const uint8_t*)elig, A, P, I);
+// The launch shape for nL lanes of `groups` groups (LaneMode), or a zero
+// grid where the lanes do not fit one.
+struct LaneGrid {
+  int mode;
+  dim3 grid;
+  unsigned threads;  // the flat grid's (lane, group) count
+};
+
+LaneGrid lane_grid(int nL, unsigned groups) {
+  if (nL == 1) return {kOne, dim3((groups + kThreads - 1) / kThreads), groups};
+  if (groups < (unsigned)kThreads) {
+    const long long threads = (long long)groups * nL;
+    if (threads > 0x7fffffffLL) return {kFlat, dim3(0), 0};
+    return {kFlat, dim3((unsigned)((threads + kThreads - 1) / kThreads)), (unsigned)threads};
+  }
+  if (nL > 65535) return {kRows, dim3(0), 0};
+  return {kRows, dim3((groups + kThreads - 1) / kThreads, (unsigned)nL), 0};
 }
 
-template <int kA, int kP>
-void launch_acks(bool vec, void* acks, void* n_ack, const void* cur_batch,
-                 const void* acc_ballot, const void* acc_vid, const void* learned,
-                 const void* scal, int A, int P, long long I, cudaStream_t s) {
-  const long long groups = vec ? I / 4 : I;
-  const unsigned blocks = (unsigned)((groups + kThreads - 1) / kThreads);
-  auto kernel = vec ? accum_acks_kernel<kA, kP, true> : accum_acks_kernel<kA, kP, false>;
-  kernel<<<blocks, kThreads, 0, s>>>(
+template <int kA, int kP, bool kVec>
+void launch_store(void* acc_ballot, void* acc_vid, const void* learned, const void* abat,
+                  const void* abal, const void* elig, int A, int P, long long I,
+                  unsigned groups, const LaneGrid& g, cudaStream_t s) {
+  auto kernel = g.mode == kOne    ? store_accepts_kernel<kA, kP, kVec, kOne>
+                : g.mode == kRows ? store_accepts_kernel<kA, kP, kVec, kRows>
+                                  : store_accepts_kernel<kA, kP, kVec, kFlat>;
+  kernel<<<g.grid, kThreads, 0, s>>>(
+      (int32_t*)acc_ballot, (int32_t*)acc_vid, (const int32_t*)learned,
+      (const int32_t*)abat, (const int32_t*)abal, (const uint8_t*)elig, A, P, I, groups,
+      g.threads);
+}
+
+template <int kA, int kP, bool kVec>
+void launch_acks(void* acks, void* n_ack, const void* cur_batch, const void* acc_ballot,
+                 const void* acc_vid, const void* learned, const void* ballot,
+                 const void* amatch, int A, int P, long long I, unsigned groups,
+                 const LaneGrid& g, cudaStream_t s) {
+  auto kernel = g.mode == kOne    ? accum_acks_kernel<kA, kP, kVec, kOne>
+                : g.mode == kRows ? accum_acks_kernel<kA, kP, kVec, kRows>
+                                  : accum_acks_kernel<kA, kP, kVec, kFlat>;
+  kernel<<<g.grid, kThreads, 0, s>>>(
       (int8_t*)acks, (int32_t*)n_ack, (const int32_t*)cur_batch,
-      (const int32_t*)acc_ballot, (const int32_t*)acc_vid,
-      (const int32_t*)learned, (const int32_t*)scal, A, P, I);
+      (const int32_t*)acc_ballot, (const int32_t*)acc_vid, (const int32_t*)learned,
+      (const int32_t*)ballot, (const uint8_t*)amatch, A, P, I, groups, g.threads);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every lane's rows are 16-byte aligned when the bases are and I % 4 == 0
+// (a lane starts A * I or P * I elements after the previous one).
 int simkern_store_accepts(void* acc_ballot, void* acc_vid, const void* learned,
                           const void* abat, const void* abal, const void* elig,
-                          int A, int P, long long I, void* stream) {
-  if (I > 0 && A > 0 && P > 0) {
-    // every row 16-byte aligned when I % 4 == 0
+                          int nL, int A, int P, long long I, void* stream) {
+  if (nL > 0 && I > 0 && A > 0 && P > 0) {
     const bool vec = (I & 3) == 0 && aligned(acc_ballot, 16) && aligned(acc_vid, 16) &&
                      aligned(learned, 16) && aligned(abat, 16);
+    const long long groups = vec ? I / 4 : I;
+    if (groups > 0xffffffffLL) return (int)cudaErrorInvalidValue;
+    const LaneGrid g = lane_grid(nL, (unsigned)groups);
+    if (g.grid.x == 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (A == 5 && P == 2)
-      launch_store<5, 2>(vec, acc_ballot, acc_vid, learned, abat, abal, elig, A, P, I, s);
-    else
-      launch_store<0, 0>(vec, acc_ballot, acc_vid, learned, abat, abal, elig, A, P, I, s);
+    auto launch = A == 5 && P == 2 ? (vec ? launch_store<5, 2, true> : launch_store<5, 2, false>)
+                                   : (vec ? launch_store<0, 0, true> : launch_store<0, 0, false>);
+    launch(acc_ballot, acc_vid, learned, abat, abal, elig, A, P, I, (unsigned)groups, g, s);
   }
   return (int)cudaGetLastError();
 }
 
 int simkern_accum_acks(void* acks, void* n_ack, const void* cur_batch,
                        const void* acc_ballot, const void* acc_vid,
-                       const void* learned, const void* scal, int A, int P,
-                       long long I, void* stream) {
-  if (I > 0 && P > 0) {
+                       const void* learned, const void* ballot, const void* amatch,
+                       int nL, int A, int P, long long I, void* stream) {
+  if (nL > 0 && I > 0 && P > 0) {
     // every row 16-byte aligned (4 for the int8 cube) when I % 4 == 0
     const bool vec = (I & 3) == 0 && aligned(acks, 4) && aligned(n_ack, 16) &&
                      aligned(cur_batch, 16) && aligned(acc_ballot, 16) &&
                      aligned(acc_vid, 16) && aligned(learned, 16);
+    const long long groups = vec ? I / 4 : I;
+    if (groups > 0xffffffffLL) return (int)cudaErrorInvalidValue;
+    const LaneGrid g = lane_grid(nL, (unsigned)groups);
+    if (g.grid.x == 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (A == 5 && P == 2)
-      launch_acks<5, 2>(vec, acks, n_ack, cur_batch, acc_ballot, acc_vid, learned, scal, A, P, I, s);
-    else
-      launch_acks<0, 0>(vec, acks, n_ack, cur_batch, acc_ballot, acc_vid, learned, scal, A, P, I, s);
+    auto launch = A == 5 && P == 2 ? (vec ? launch_acks<5, 2, true> : launch_acks<5, 2, false>)
+                                   : (vec ? launch_acks<0, 0, true> : launch_acks<0, 0, false>);
+    launch(acks, n_ack, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch, A, P, I,
+           (unsigned)groups, g, s);
   }
   return (int)cudaGetLastError();
 }

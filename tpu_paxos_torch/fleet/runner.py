@@ -1,0 +1,421 @@
+"""Device-batched fleet runner: many (seed x schedule x knob-mix) lanes
+of the general engine in one round loop, judged on the device (port of
+``tpu_paxos/fleet/runner.py``, the bound-free runner).
+
+JAX ``vmap``s the engine's whole-run ``while_loop`` over a lane axis.
+The port runs ONE round function over an explicit leading lane axis
+(``core/sim.build_engine(...).lanes``): every lane's coins of a round are
+drawn in one hash pass, every lane's schedule rows computed at once, and
+the two ``simkern`` kernels cover every lane in one launch each, so the
+host's per-round cost is paid once for ``L`` lanes.  A lane stops at its
+own ``~done & t < max_rounds + horizon`` and keeps its state while the
+others run on (``core/sim.run_lanes``).  The per-lane invariant subset
+(``fleet/verdict.py``) is reduced on the device, and only the ``[L]``
+verdict vectors move to the host.
+
+Lane for lane the fleet equals single ``core/sim.run`` executions of the
+same (cfg, schedule, knobs, seed): ``FleetReport.lane_cfg(i)`` is that
+config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from tpu_paxos_torch.config import EdgeFaultConfig, FaultConfig, SimConfig
+from tpu_paxos_torch.core import net as netm
+from tpu_paxos_torch.core import sim as simm
+from tpu_paxos_torch.core import values as val
+from tpu_paxos_torch.fleet import schedule_table as stm
+from tpu_paxos_torch.fleet import verdict as vdt
+from tpu_paxos_torch.utils import device as devm
+from tpu_paxos_torch.utils import prng
+
+#: Default episode capacity of a runner: every lane's schedule must fit
+#: (the stress mixes peak at 4; the search grammar samples at most this).
+MAX_EPISODES = 8
+
+
+def default_lane_count(backend: str | None = None) -> int:
+    """Lanes per dispatch by backend: a card runs hundreds of small lanes
+    per pass over its memory; the CPU keeps a few."""
+    backend = backend or ("cuda" if torch.cuda.is_available() else "cpu")
+    if backend == "tpu":
+        return 256
+    if backend in ("cuda", "gpu"):
+        return 128
+    return 8
+
+
+def _pad_geometry_workload(workload, gates, bound_p: int):
+    """Workload/gate rows padded with EMPTY rows to the envelope's
+    proposer bound; a workload naming more proposers than the bound is
+    rejected by name."""
+    workload = [np.asarray(w, np.int32) for w in workload]
+    if len(workload) > bound_p:
+        raise ValueError(
+            f"workload names {len(workload)} proposers; the envelope "
+            f"geometry bound is {bound_p} proposers"
+        )
+    pad = bound_p - len(workload)
+    wl = workload + [np.zeros((0,), np.int32)] * pad
+    g = None
+    if gates is not None:
+        g = list(gates) + [np.zeros((0,), np.int32)] * pad
+    return wl, g
+
+
+@dataclasses.dataclass
+class FleetReport:
+    """One dispatch's outcome.  ``final`` stays on the device; only the
+    ``[L]`` verdict vectors came to the host.  ``lane_result`` moves one
+    lane's state when it is asked for."""
+
+    cfg: SimConfig
+    n_lanes: int
+    seeds: list[int]
+    schedules: list
+    verdict: vdt.LaneVerdict  # host numpy, [lanes] per field
+    final: simm.SimState  # device, lane-leading
+    expected: np.ndarray  # the runner's template expected-vid set
+    seconds: float
+    #: per-lane i.i.d. FaultConfig (schedule-free): the knob mix each
+    #: lane ran, the source ``lane_cfg`` bakes back in
+    fault_cfgs: list = dataclasses.field(default_factory=list)
+    #: per-lane expected-vid arrays
+    expected_lanes: list = dataclasses.field(default_factory=list)
+    #: round-loop iterations of the dispatch (the slowest lane's rounds)
+    iterations: int = 0
+
+    @property
+    def lanes_per_sec(self) -> float:
+        return self.n_lanes / max(self.seconds, 1e-9)
+
+    @property
+    def failing(self) -> list[int]:
+        return [i for i in range(self.n_lanes) if not bool(self.verdict.ok[i])]
+
+    def lane_result(self, i: int) -> simm.SimResult:
+        """Move ONE lane's final state to the host as the single-run
+        result type."""
+        exp = self.expected_lanes[i] if self.expected_lanes else self.expected
+        return simm.to_result(simm.lane_of(self.final, i), exp)
+
+    def lane_cfg(self, i: int) -> SimConfig:
+        """The single-run config this lane equals: the base cfg with the
+        lane's seed, i.i.d. knobs and schedule baked back in."""
+        fc = self.fault_cfgs[i] if self.fault_cfgs else self.cfg.faults
+        return dataclasses.replace(
+            self.cfg,
+            seed=self.seeds[i],
+            faults=dataclasses.replace(fc, schedule=self.schedules[i]),
+        )
+
+
+class FleetRunner:
+    """Fleet front end for one envelope: the lane-batched round function
+    of the runtime-schedule, runtime-knob build and its workload
+    template.  ``run()`` is called per generation / per mix with fresh
+    seeds, schedules, knob mixes and workload tables.
+
+    ``cfg.faults`` plays two roles: its ``max_delay`` is the envelope's
+    RING BOUND (every lane's ``max_delay`` must stay <= it), and its
+    i.i.d. knobs are the default per-lane knob mix when
+    ``run(knobs=None)``.  ``cfg.faults.schedule`` must be None:
+    schedules are per-lane runtime tables."""
+
+    def __init__(
+        self,
+        cfg: SimConfig,
+        workload: list[np.ndarray],
+        gates: list[np.ndarray] | None = None,
+        mesh=None,
+        max_episodes: int = MAX_EPISODES,
+        telemetry: bool = False,
+        geometry=None,
+        device="cuda",
+    ):
+        for name, given in (("telemetry", telemetry), ("geometry", geometry is not None),
+                            ("mesh", mesh is not None)):
+            if given:
+                raise NotImplementedError(f"FleetRunner {name}= is not ported yet")
+        if cfg.faults.schedule is not None:
+            raise ValueError(
+                "fleet base cfg must not bake a schedule; schedules "
+                "are per-lane runtime tables"
+            )
+        self.device = devm.resolve(device)
+        self.cfg = cfg
+        self.workload = [np.asarray(w, np.int32) for w in workload]
+        self.gates = gates
+        self.max_episodes = max_episodes
+        self.delay_bound = cfg.faults.max_delay
+        #: set by fleet/envelope.runner_for: a cache-shared runner's
+        #: template queues and base knobs are whatever caller warmed
+        #: the cache, so run() REQUIRES explicit workloads= and knobs=
+        self.explicit_inputs_only = False
+        self.expected, self.owner = vdt.expected_owners(cfg, self.workload)
+        #: bitmap bound of the verdict's chosen-membership bitmap: the
+        #: envelope's vid space; every lane's vids must fall below it
+        self.vid_bound = (
+            int(self.expected.max()) + 1 if self.expected.size else 1
+        )
+        #: width of the per-lane expected/owner tables; lanes with fewer
+        #: distinct vids pad with -1 (vacuously covered)
+        self.v_cap = max(len(self.expected), 1)
+        pend, gate, tail, c = simm.prepare_queues(cfg, self.workload, gates)
+        self._tmpl = (pend, gate, tail)
+        self.queue_cap = c
+        self._gate_vid_cap = simm.gates_vid_cap(self.workload, gates)
+        self._round = simm.build_engine(
+            cfg, c, vid_cap=self._gate_vid_cap, device=self.device,
+            runtime_schedule=True, runtime_knobs=True,
+        )
+
+    def _pad_vtab(self, exp: np.ndarray, own: np.ndarray):
+        """A lane's expected/owner arrays padded to the envelope's table
+        width (-1 expected = vacuous slot; its owner stays in node
+        range)."""
+        pe = np.full((self.v_cap,), -1, np.int32)
+        po = np.zeros((self.v_cap,), np.int32)
+        pe[: len(exp)] = exp
+        po[: len(own)] = own
+        return pe, po
+
+    def _queues(self, n_lanes: int, workloads):
+        """Stacked per-lane (pend, gate, tail, expected, owner) plus the
+        per-lane expected-vid list.  Per-lane workloads must match the
+        template's SHAPES (same per-proposer lengths, same queue
+        capacity) and fit the envelope's vid space."""
+        def stack(arrays):
+            first = arrays[0]
+            if all(a is first for a in arrays):
+                return np.broadcast_to(first, (n_lanes,) + first.shape)
+            return np.stack(arrays)
+
+        if workloads is None:
+            exp_t, own_t = self._pad_vtab(self.expected, self.owner)
+            pend, gate, tail = self._tmpl
+            return (
+                stack([pend]), stack([gate]), stack([tail]),
+                stack([exp_t]), stack([own_t]),
+                [self.expected] * n_lanes,
+            )
+        workloads = list(workloads)
+        if len(workloads) != n_lanes:
+            raise ValueError("one (workload, gates) pair per lane required")
+        lanes, cache = [], {}
+        for wl_lane, g_lane in workloads:
+            key = (id(wl_lane), id(g_lane))
+            if key not in cache:
+                cache[key] = self._lane_tables(wl_lane, g_lane)
+            lanes.append(cache[key])
+        return (
+            stack([ln[0] for ln in lanes]), stack([ln[1] for ln in lanes]),
+            stack([ln[2] for ln in lanes]), stack([ln[3] for ln in lanes]),
+            stack([ln[4] for ln in lanes]), [ln[5] for ln in lanes],
+        )
+
+    def _lane_tables(self, wl_lane, g_lane):
+        """Validate one lane's (workload, gates) against the envelope and
+        return its (pend, gate, tail, expected, owner, exp)."""
+        exp, own = vdt.expected_owners(self.cfg, wl_lane)
+        if exp.size and int(exp.max()) >= self.vid_bound:
+            raise ValueError(
+                f"per-lane workload vid {int(exp.max())} exceeds "
+                f"the envelope's vid bound {self.vid_bound}; build "
+                "the runner with a template covering the vid space"
+            )
+        if len(exp) > self.v_cap:
+            raise ValueError(
+                f"per-lane workload has {len(exp)} distinct vids; "
+                f"the envelope's verdict table holds {self.v_cap}"
+            )
+        if g_lane is not None and self._gate_vid_cap == 0 and any(
+            len(g) and (np.asarray(g) != int(val.NONE)).any()
+            for g in g_lane
+        ):
+            raise ValueError(
+                "per-lane gates need a gate-bearing template: the "
+                "engine compiles gate logic in only when the "
+                "template has gates"
+            )
+        p, g, t, c = simm.prepare_queues(self.cfg, wl_lane, g_lane)
+        if c != self.queue_cap or p.shape != self._tmpl[0].shape:
+            raise ValueError(
+                "per-lane workload shapes must match the template "
+                f"(capacity {c} vs {self.queue_cap})"
+            )
+        pe, po = self._pad_vtab(exp, own)
+        return p, g, t, pe, po, exp
+
+    def _knob_arrays(self, n_lanes: int, knobs):
+        """Lane-stacked ``FaultKnobs`` plus the per-lane (schedule-free)
+        FaultConfig list, the ``lane_cfg`` source.  ``knobs[i]`` may be a
+        FaultConfig (edge matrices welcome) or a host FaultKnobs (scalar
+        or matrix form); None defaults every lane to the base cfg's
+        i.i.d. knobs.  Every lane NORMALIZES to matrix form
+        (``net.matrix_knobs``: scalar knobs become a uniform ``[A, A]``
+        matrix, which draws exactly what the scalar knob draws)."""
+        if knobs is None:
+            knobs = [self.cfg.faults] * n_lanes
+        knobs = list(knobs)
+        if len(knobs) != n_lanes:
+            raise ValueError("one knob set per lane required")
+        a = self.cfg.n_nodes
+        fcs = []
+        for k in knobs:
+            if isinstance(k, netm.FaultKnobs):
+                # routes through FaultConfig validation (rate ranges,
+                # min <= max, per edge for matrix-form knobs)
+                if np.ndim(k.drop_rate) >= 2:
+                    k = FaultConfig(
+                        max_delay=int(np.max(k.max_delay)),
+                        crash_rate=int(k.crash_rate),
+                        edges=EdgeFaultConfig(
+                            drop_rate=k.drop_rate,
+                            dup_rate=k.dup_rate,
+                            min_delay=k.min_delay,
+                            max_delay=k.max_delay,
+                        ),
+                    )
+                else:
+                    k = FaultConfig(
+                        drop_rate=int(k.drop_rate),
+                        dup_rate=int(k.dup_rate),
+                        min_delay=int(k.min_delay),
+                        max_delay=int(k.max_delay),
+                        crash_rate=int(k.crash_rate),
+                    )
+            if not isinstance(k, FaultConfig):
+                raise TypeError(
+                    f"per-lane knobs must be FaultConfig or FaultKnobs, "
+                    f"got {type(k).__name__}"
+                )
+            if k.schedule is not None:
+                raise ValueError(
+                    "per-lane knobs must not carry a schedule; "
+                    "schedules are per-lane runtime tables"
+                )
+            if k.max_delay > self.delay_bound:
+                raise ValueError(
+                    f"lane max_delay {k.max_delay} exceeds the "
+                    f"envelope's ring bound {self.delay_bound} "
+                    "(cfg.faults.max_delay)"
+                )
+            if k.delivery_cut != self.cfg.faults.delivery_cut:
+                raise ValueError(
+                    "delivery_cut is a compile-time engine flag: every "
+                    f"lane must match the runner's build "
+                    f"({self.cfg.faults.delivery_cut}); build a "
+                    "separate runner for the other semantics"
+                )
+            fcs.append(k)
+        mats = [netm.matrix_knobs(fc, a) for fc in fcs]
+        stacked = netm.FaultKnobs(
+            drop_rate=np.stack([m.drop_rate for m in mats]),
+            dup_rate=np.stack([m.dup_rate for m in mats]),
+            min_delay=np.stack([m.min_delay for m in mats]),
+            max_delay=np.stack([m.max_delay for m in mats]),
+            crash_rate=np.asarray([fc.crash_rate for fc in fcs], np.int32),
+            # the gray clamp is each lane's OWN declared bound (what
+            # lane_cfg() replays single-run), never the envelope ring
+            delay_bound=np.asarray([fc.max_delay for fc in fcs], np.int32),
+        )
+        return stacked, fcs
+
+    def run(
+        self,
+        seeds,
+        schedules,
+        workloads=None,
+        knobs=None,
+        regions=None,
+        geometry=None,
+        protocol=None,
+    ) -> FleetReport:
+        """One fleet dispatch: ``seeds[i]``, ``schedules[i]``
+        (FaultSchedule or None) and ``knobs[i]`` (FaultConfig /
+        FaultKnobs, or None for the base cfg's mix) drive lane ``i``;
+        ``workloads`` optionally carries per-lane ``(workload, gates)``
+        pairs (template-shaped; vid sets free within the envelope's vid
+        bound).  Returns once the verdict vectors are on the host; the
+        per-lane states stay on the device.
+
+        Runners from the envelope cache (``fleet/envelope.runner_for``)
+        REJECT ``workloads=None`` / ``knobs=None``: the cached template's
+        queue order and base knobs belong to whichever caller warmed the
+        cache."""
+        if regions is not None:
+            raise NotImplementedError("FleetRunner.run regions= is not ported yet")
+        if self.explicit_inputs_only and (workloads is None or knobs is None):
+            raise ValueError(
+                "this runner came from the envelope cache "
+                "(fleet/envelope.runner_for): pass explicit workloads= "
+                "and knobs= — its template queues and base knob mix "
+                "are cache-normalized, not yours"
+            )
+        if geometry is not None or protocol is not None:
+            raise ValueError(
+                "geometry=/protocol= are geometry-padded dispatch "
+                "inputs; build the runner with a GeometryEnvelope "
+                "(FleetRunner(geometry=...))"
+            )
+        seeds = [int(s) for s in seeds]
+        schedules = list(schedules)
+        n_lanes = len(seeds)
+        if len(schedules) != n_lanes:
+            raise ValueError("one schedule per lane required")
+        tabs = stm.encode_batch(schedules, self.cfg.n_nodes, self.max_episodes)
+        kn, fault_cfgs = self._knob_arrays(n_lanes, knobs)
+        # a gray episode on a lane whose declared bound is 0 would clamp
+        # to a no-op: rejected by name, never silently excluded
+        for i, (fc_i, s_i) in enumerate(zip(fault_cfgs, schedules)):
+            if (
+                fc_i.max_delay == 0
+                and s_i is not None
+                and any(e.kind == "gray" for e in s_i.episodes)
+            ):
+                raise ValueError(
+                    f"lane {i}: gray episodes need a nonzero lane "
+                    "max_delay (the delay-inflation clamp is the "
+                    "lane's own declared bound; at 0 every gray "
+                    "episode is a no-op)"
+                )
+        roots = prng.root_keys(seeds)
+        pend, gate, tail, exp, own, exp_list = self._queues(n_lanes, workloads)
+        budgets = self.cfg.max_rounds + tabs.horizon.astype(np.int64)
+        dev = self.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        states = simm.init_lanes(self.cfg, pend, gate, tail, roots, device=dev)
+        final, iters = simm.run_lanes(self._round, roots, states, budgets, tabs, kn)
+        v = vdt.lane_verdict(
+            self.cfg, final,
+            torch.from_numpy(np.ascontiguousarray(exp)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(own)).to(dev),
+            self.vid_bound,
+        )
+        host = torch.stack([x.to(torch.int32) for x in v]).cpu().numpy()
+        verdict = vdt.LaneVerdict(
+            *(host[k].astype(bool) for k in range(4)), host[4], host[5]
+        )
+        seconds = time.perf_counter() - t0  # the verdict's copy is the sync
+        return FleetReport(
+            cfg=self.cfg,
+            n_lanes=n_lanes,
+            seeds=seeds,
+            schedules=schedules,
+            verdict=verdict,
+            final=final,
+            expected=self.expected,
+            seconds=seconds,
+            fault_cfgs=fault_cfgs,
+            expected_lanes=exp_list,
+            iterations=iters,
+        )

@@ -6,8 +6,10 @@ path), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
 state)``), become the port's trees on a device and back.  Both packages'
 trees have the same field names, nesting, shapes and dtypes, so a run
 can be handed over mid-flight and resumed in either package round for
-round.  The port reads fields by name and imports nothing of the JAX
-package.
+round.  A fleet's lane-stacked states (JAX's ``vmap`` output, the port's
+lane axis) convert the same way: every leaf keeps its leading lane axis,
+and ``core/sim.lane_of`` takes one lane.  The port reads fields by name
+and imports nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -20,3 +20,13 @@ def resolve(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``.  To a card it goes through pinned
+    memory without waiting: a copy from pageable memory would wait for
+    the stream, and a round makes many small ones."""
+    device = torch.device(device)
+    if device.type != "cuda" or x.device.type != "cpu":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)

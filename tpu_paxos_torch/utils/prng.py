@@ -8,14 +8,14 @@ function of (seed, tag, round).  The port reproduces those bits
 exactly, which is what lets a decision log match the reference byte
 for byte.
 
-Keys are ``(k1, k2)`` tuples of Python ints in ``[0, 2**32)``: every
-key operation the engine needs (seed, ``fold_in``, ``split``) acts on
-one key, and Python ints make those cheap and device-free.  Bit draws
-are torch ``int64`` tensors on the CPU holding uint32 words, masked
-with ``& 0xFFFFFFFF`` after every op that can overflow (torch's
-``uint32`` has too few ops to rely on).  The one hash,
-:func:`_threefry2x32`, is written with operators only, so the same code
-runs on Python ints and on int64 tensors.
+A key is a ``(k1, k2)`` tuple of Python ints in ``[0, 2**32)``, or, for
+the lanes of a fleet, a numpy uint64 array ``[..., 2]`` (one key per
+lane); key operations (seed, ``fold_in``, ``split``) run on the host.
+Bit draws are torch ``int64`` tensors holding uint32 words, masked with
+``& 0xFFFFFFFF`` after every op that can overflow (torch's ``uint32``
+has too few ops to rely on), hashed on the device that uses them.  The
+one hash, :func:`_threefry2x32`, is written with operators only, so the
+same code runs on Python ints, numpy arrays and int64 tensors.
 
 Followed from ``jax/_src/prng.py`` (``threefry_2x32``,
 ``_threefry_split_foldlike``, ``threefry_fold_in``,
@@ -26,7 +26,10 @@ unsigned arithmetic).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from tpu_paxos_torch.utils import device as devm
 
 # Stable stream tags (fold_in indices), as in the JAX package.
 STREAM_PREPARE_DELAY = 0
@@ -85,27 +88,12 @@ def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
     return [_threefry2x32(key[0], key[1], 0, j) for j in range(num)]
 
 
-def _bits_many(keys: list[tuple[int, int]], sizes: list[int]) -> torch.Tensor:
-    """32-bit draws for several keys in one hash pass: request r gives
-    ``sizes[r]`` words hashed from counts 0..n-1 under ``keys[r]``
-    (partitionable bits: ``bits1 ^ bits2``), concatenated."""
-    n = torch.tensor(sizes, dtype=torch.int64)
-    total = int(n.sum())
-    k1 = torch.repeat_interleave(torch.tensor([k[0] for k in keys], dtype=torch.int64), n)
-    k2 = torch.repeat_interleave(torch.tensor([k[1] for k in keys], dtype=torch.int64), n)
-    starts = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
-    counts = torch.arange(total, dtype=torch.int64) - starts
-    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    return b1 ^ b2
-
-
 def random_bits(key: tuple[int, int], shape: tuple[int, ...]) -> torch.Tensor:
     """uint32 words (in int64) of the given shape, as
     ``jax.random.bits(key, shape, uint32)``."""
-    size = 1
-    for d in shape:
-        size *= int(d)
-    return _bits_many([key], [size]).reshape(shape)
+    size = int(np.prod(shape, dtype=np.int64))
+    keys = np.asarray([key], np.uint64)
+    return _bits_many_arr(keys, np.asarray([size], np.int64), torch.device("cpu")).reshape(shape)
 
 
 def _mulmod32(a, b):
@@ -131,34 +119,112 @@ def _span_offset(hi_bits, lo_bits, lo, hi):
 
 
 def randint_many(requests) -> list[torch.Tensor]:
-    """Several ``jax.random.randint(key, shape, lo, hi)`` draws (int32)
-    from ONE batched hash pass.  ``requests`` is a list of
-    ``(key, shape, lo, hi)``; ``lo``/``hi`` are ints or int tensors
-    broadcastable to ``shape``.  Each draw is bit-identical to its own
-    ``jax.random.randint`` call: it splits its key in two and combines
-    a high and a low 32-bit draw exactly as ``_randint`` does."""
-    keys, sizes, shapes = [], [], []
-    for key, shape, _, _ in requests:
-        shape = tuple(int(d) for d in shape)
-        size = 1
-        for d in shape:
-            size *= d
-        k_hi, k_lo = split(key, 2)
-        keys += [k_hi, k_lo]
-        sizes += [size, size]
-        shapes.append(shape)
-    bits = torch.split(_bits_many(keys, sizes), sizes) if keys else []
-    out = []
-    for r, (_, _, lo, hi) in enumerate(requests):
-        shape = shapes[r]
-        out.append(
-            _span_offset(
-                bits[2 * r].reshape(shape), bits[2 * r + 1].reshape(shape), lo, hi
-            ).reshape(shape)
-        )
-    return out
+    """Several ``jax.random.randint(key, shape, lo, hi)`` draws (int32,
+    on the CPU) from ONE batched hash pass: :func:`randint_lanes` with
+    one lane.  ``requests`` is a list of ``(key, shape, lo, hi)``;
+    ``lo``/``hi`` are ints or int tensors broadcastable to ``shape``."""
+    out = randint_lanes([
+        (np.asarray([key], np.uint64), shape, lo, hi) for key, shape, lo, hi in requests
+    ])
+    return [x[0] for x in out]
 
 
 def randint(key: tuple[int, int], shape, lo, hi) -> torch.Tensor:
     """``jax.random.randint(key, shape, lo, hi)`` with int32 output."""
     return randint_many([(key, shape, lo, hi)])[0]
+
+
+# ------------------------------------------------------------ lane keys
+#
+# A round draws every lane's coins together: keys are then numpy uint64
+# arrays of shape [..., 2] (k1, k2 in the last axis), one key per lane,
+# and the same operator-only hash runs on them; the words themselves are
+# hashed on the device that uses them.
+
+
+def root_keys(seeds) -> np.ndarray:
+    """:func:`root_key` of every seed: ``[L, 2]`` uint64."""
+    return np.asarray([root_key(s) for s in seeds], np.uint64).reshape(-1, 2)
+
+
+def fold_in_keys(keys: np.ndarray, data: int) -> np.ndarray:
+    """:func:`fold_in` of every key in ``[..., 2]``."""
+    zero = np.zeros(keys.shape[:-1], np.uint64)
+    x1, x2 = _threefry2x32(keys[..., 0], keys[..., 1], zero, zero + (int(data) & _M))
+    return np.stack([x1, x2], axis=-1)
+
+
+def stream_keys(keys: np.ndarray, tag: int, round_idx: int) -> np.ndarray:
+    """:func:`stream` of every key in ``[..., 2]``."""
+    return fold_in_keys(fold_in_keys(keys, tag), round_idx)
+
+
+def split_keys(keys: np.ndarray, num: int = 2) -> np.ndarray:
+    """:func:`split` of every key in ``[..., 2]``: ``[..., num, 2]``."""
+    k1 = keys[..., 0, None]
+    k2 = keys[..., 1, None]
+    j = np.arange(num, dtype=np.uint64)
+    x1, x2 = _threefry2x32(k1, k2, np.zeros_like(j), j)
+    return np.stack(np.broadcast_arrays(x1, x2), axis=-1)
+
+
+def randint_lanes(requests, device=None) -> list[torch.Tensor]:
+    """Several per-lane ``jax.random.randint`` draws from ONE hash pass
+    on ``device`` (the CPU by default).  Each request is ``(keys [L, 2],
+    shape, lo, hi)`` with the same ``L``: lane ``l`` draws
+    ``randint(keys[l], shape, lo, hi)``, bit-identical to its own call;
+    ``lo``/``hi`` are ints or int tensors broadcastable to ``[L,
+    *shape]``.  Returns one ``[L, *shape]`` int32 tensor per request."""
+    if not requests:
+        return []
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    lanes = requests[0][0].shape[0]
+    shapes, sizes = [], []
+    for keys, shape, _, _ in requests:
+        if keys.shape[0] != lanes:
+            raise ValueError("every request of one pass has the same lanes")
+        shape = tuple(int(d) for d in shape)
+        shapes.append(shape)
+        sizes.append(int(np.prod(shape, dtype=np.int64)))
+    # every request's hi and lo key per lane: [R, L, 2 (hi, lo), 2]
+    subs = split_keys(np.stack([r[0] for r in requests]), 2)
+    per_key = np.repeat(np.asarray(sizes, np.int64), 2 * lanes)
+    bits = _bits_many_arr(subs.reshape(-1, 2), per_key, dev)
+    hi_b, lo_b, lo_v, hi_v, pos = [], [], [], [], 0
+    for shape, size, (_, _, lo, hi) in zip(shapes, sizes, requests):
+        b = bits[pos:pos + lanes * 2 * size].view(lanes, 2, size)
+        pos += lanes * 2 * size
+        hi_b.append(b[:, 0].reshape(-1))
+        lo_b.append(b[:, 1].reshape(-1))
+        for v, out in ((lo, lo_v), (hi, hi_v)):
+            v = torch.as_tensor(v, dtype=torch.int64)
+            if v.device != dev:
+                v = devm.to_device(v, dev)
+            out.append(v.expand(lanes, *shape).reshape(-1))
+    vals = _span_offset(torch.cat(hi_b), torch.cat(lo_b), torch.cat(lo_v), torch.cat(hi_v))
+    return [
+        v.view(lanes, *shape)
+        for v, shape in zip(torch.split(vals, [lanes * n for n in sizes]), shapes)
+    ]
+
+
+def _bits_many_arr(keys: np.ndarray, sizes: np.ndarray, device) -> torch.Tensor:
+    """:func:`_bits_many` with the keys as a ``[K, 2]`` uint64 array and
+    ``sizes`` a ``[K]`` int64 array, hashed on ``device``: only the keys
+    and sizes cross to a card, which expands them itself."""
+    total = int(sizes.sum())
+    k = keys.astype(np.int64)
+    if device.type == "cpu":
+        k1 = torch.from_numpy(np.repeat(k[:, 0], sizes))
+        k2 = torch.from_numpy(np.repeat(k[:, 1], sizes))
+        starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+        counts = torch.from_numpy(np.arange(total, dtype=np.int64) - starts)
+    else:
+        kd = devm.to_device(torch.from_numpy(k), device)
+        n = devm.to_device(torch.from_numpy(sizes), device)
+        k1 = torch.repeat_interleave(kd[:, 0], n, output_size=total)
+        k2 = torch.repeat_interleave(kd[:, 1], n, output_size=total)
+        starts = torch.repeat_interleave(torch.cumsum(n, 0) - n, n, output_size=total)
+        counts = torch.arange(total, dtype=torch.int64, device=device) - starts
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+    return b1 ^ b2
