@@ -77,6 +77,33 @@ Phases (any failure exits non-zero; nothing is caught):
    must equal the single ``sim.run(lane_cfg(1))`` on the card.  Every
    kernel launch is held against its plain version on its lane-stacked
    operands, timed and its needed bytes counted.
+11. Failure triage on the card, each step against the JAX goldens
+   (``stress_quick``, ``triage_wedge``, ``triage_full``):
+   a. ``python -m tpu_paxos_torch.harness.stress --seeds 1 --triage-dir
+      DIR`` (``make stress-quick``'s host-loop sweep over the 10 mixes,
+      at the golden's one seed a mix) as a subprocess; its summary, less
+      ``seconds``, must equal JAX's.
+   b. Under ``TPU_PAXOS_SEEDED_WEDGE=takeover`` the pause-crash sweep
+      (2 seeds) must find what JAX's finds (nothing); then the two small
+      triage cases (``culprit``, the three-episode ``decision_round_max``
+      case, and ``takeover``, a real seeded wedge, armed) are shrunk on
+      the card with the batched evaluator (8-lane dispatches), with the
+      counts zeroed before and read after: the final case, violation,
+      moves and eval count must equal JAX's, both kernels must launch on
+      8-lane operands, the written artifact must equal JAX's byte for
+      byte (file sha256), and ``python -m tpu_paxos_torch repro <a>
+      --json`` must exit 0 with stdout equal to JAX's (sha256).  Prints
+      the shrink's wall, evals, dispatches and ms a round.  The culprit
+      shrink is then run again with every 8-lane kernel launch held
+      against its plain version on its own operands, timed and its
+      needed bytes counted.
+   c. Full width: ``bench_sim_partition_flap`` (2**23 instances) with
+      ``decision_round_max`` one below its last decision, shrunk with
+      ``shrink_case(max_evals=3, batch=False)`` (one-lane runtime runs at
+      2**23), then ``save_artifact`` and a CLI ``repro``: the final case,
+      violation, moves, evals, the artifact's decision-log sha256 and
+      rounds, the file's and the CLI stdout's sha256 and ``match`` must
+      equal JAX's.  Prints the peak device memory.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -87,11 +114,13 @@ result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -104,6 +133,7 @@ SNAP_REPS = 9  # launches timed on each main-path snapshot
 FLEET_WIDE = 2048  # lanes of the timing-only fleet dispatch
 FLEET_SINGLES = 8  # lanes of it re-run as single runs
 FULL_REPS = 3  # launches timed on each full-width runtime-lane snapshot
+TRIAGE_REPS = 3  # launches timed on each 8-lane shrink-dispatch snapshot
 L2_FLUSH_BYTES = 1 << 30
 I_FW, WINDOWS, FW_REPS = 1 << 27, 16, 10  # the fast path's headline shape
 DEV = "cuda"
@@ -604,26 +634,33 @@ def _rebuild_faults(cfgm, flt, d: dict):
     return cfgm.FaultConfig(**d)
 
 
+def _golden_cfg(bc: dict):
+    """A golden's bench-shaped config, its faults (schedule and edge
+    tables included) rebuilt from plain JSON."""
+    from tpu_paxos_torch import config as cfgm
+    from tpu_paxos_torch.core import faults as flt
+
+    return cfgm.SimConfig(
+        n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
+        proposers=tuple(bc["proposers"]), seed=bc["seed"],
+        assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
+        faults=_rebuild_faults(cfgm, flt, bc["faults"]),
+    )
+
+
 def run_scheduled(sk, goldens, key: str) -> dict:
     """Phase 8: one bench-size general-engine run under a stress mix."""
     import hashlib
 
     import numpy as np
 
-    from tpu_paxos_torch import config as cfgm
-    from tpu_paxos_torch.core import faults as flt
     from tpu_paxos_torch.core import sim
     from tpu_paxos_torch.harness import validate
     from tpu_paxos_torch.replay.decision_log import decision_log, sha256
 
     gold = goldens[key]
     bc = gold["config"]
-    cfg = cfgm.SimConfig(
-        n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
-        proposers=tuple(bc["proposers"]), seed=bc["seed"],
-        assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
-        faults=_rebuild_faults(cfgm, flt, bc["faults"]),
-    )
+    cfg = _golden_cfg(bc)
     torch.cuda.synchronize()
     sk.reset_counts()
     t0 = time.perf_counter()
@@ -650,13 +687,13 @@ def run_scheduled(sk, goldens, key: str) -> dict:
 
 
 @contextlib.contextmanager
-def check_launches(sk, reps: int, stats: dict):
-    """Every simkern launch in the block is first held against its plain
-    version on a snapshot of its operands, timed on it (``reps``
-    launches from restored operands and a cold L2) and its needed bytes
-    counted; then the real launch goes ahead.  ``stats[name]`` gathers
-    the launches, their lane counts, times, needed bytes and the largest
-    error."""
+def check_launches(sk, reps: int, stats: dict, lanes: int | None = None):
+    """Every simkern launch in the block (of ``lanes`` lanes, when given)
+    is first held against its plain version on a snapshot of its
+    operands, timed on it (``reps`` launches from restored operands and a
+    cold L2) and its needed bytes counted; then the real launch goes
+    ahead.  ``stats[name]`` gathers the launches, their lane counts,
+    times, needed bytes and the largest error."""
     plains = {
         "store_accepts": (sk.store_accepts_plain, (0, 1)),
         "accum_acks": (sk.accum_acks_plain, (0,)),
@@ -666,6 +703,8 @@ def check_launches(sk, reps: int, stats: dict):
         plain, in_place = plains[name]
 
         def launch(*ops):
+            if lanes is not None and int(ops[0].shape[0]) != lanes:
+                return kern(*ops)
             snap = [t.clone() for t in ops]
             want = plain(*snap)
             got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(snap)])
@@ -909,6 +948,262 @@ def run_runtime_full(sk, goldens) -> dict:
     return _summarize_checked("runtime lanes at full width (2 mixes)", stats)
 
 
+def _port_env(here: str, extra: dict | None = None) -> dict:
+    env = dict(os.environ, **(extra or {}))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def _file_sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@contextlib.contextmanager
+def _armed(env: dict):
+    """``env`` set within the block, the envelope cache cleared on the
+    way in and out (the seeded-wedge flag is part of its key)."""
+    from tpu_paxos_torch.fleet import envelope
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    envelope.clear_cache()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        envelope.clear_cache()
+
+
+@contextlib.contextmanager
+def dispatch_log():
+    """(lanes, round calls, seconds) of every fleet dispatch in the block."""
+    from tpu_paxos_torch.fleet import runner as frun
+
+    seen = []
+    real = frun.FleetRunner.run
+
+    def run(self, *a, **kw):
+        rep = real(self, *a, **kw)
+        seen.append((rep.n_lanes, rep.iterations, rep.seconds))
+        return rep
+
+    frun.FleetRunner.run = run
+    try:
+        yield seen
+    finally:
+        frun.FleetRunner.run = real
+
+
+class _Moves:
+    """A logger keeping the shrinker's accepted moves."""
+
+    def __init__(self):
+        self.moves = []
+
+    def info(self, fmt, *args):
+        self.moves.append(fmt % args)
+
+
+def _repro_cli(here: str, path: str, env: dict):
+    """``python -m tpu_paxos_torch repro <basename> --json`` in the
+    artifact's directory, as the JAX golden's replay was run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_paxos_torch", "repro", os.path.basename(path), "--json",
+         "--device", DEV],
+        cwd=os.path.dirname(path), env=_port_env(here, env), capture_output=True,
+        text=True, timeout=600,
+    )
+    return proc, time.perf_counter() - t0
+
+
+def run_stress_quick(goldens, here: str, card: str) -> dict:
+    """Phase 11a: ``make stress-quick``'s sweep on the card, as a
+    subprocess, at the golden's seed count."""
+    gold = goldens["stress_quick"]["summary"]
+    seeds = gold["seeds_per_mix"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_paxos_torch.harness.stress", "--seeds",
+             str(seeds), "--triage-dir", tmp, "--device", DEV],
+            cwd=here, env=_port_env(here), capture_output=True, text=True, timeout=900,
+        )
+        wall = time.perf_counter() - t0
+        left = sorted(os.listdir(tmp))
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    less = {k: v for k, v in summary.items() if k != "seconds"}
+    print(f"stress-quick (python -m tpu_paxos_torch.harness.stress --seeds {seeds}): "
+          f"rc={proc.returncode} wall_s={wall:.3f} sweep_seconds={summary.get('seconds')} "
+          f"summary={json.dumps(less, sort_keys=True)} artifacts={left} | {card}")
+    if proc.returncode != 0 or less != gold:
+        print(proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("stress-quick disagrees with its JAX golden")
+    return {"wall_s": wall, "sweep_s": summary.get("seconds")}
+
+
+def _case_from_spec(shr, spec):
+    import numpy as np
+
+    return shr.ReproCase(
+        cfg=shr._cfg_from_dict(spec["cfg"]),
+        workload=[np.asarray(w, np.int32) for w in spec["workload"]],
+        gates=None if spec["gates"] is None else [np.asarray(g, np.int32) for g in spec["gates"]],
+        chains=[np.asarray(c, np.int32) for c in spec["chains"]],
+        extra_checks=dict(spec["extra_checks"]),
+    )
+
+
+def _shrink_on_card(sk, shr, case, max_evals: int, batch: bool):
+    """One timed ``shrink_case`` on the card, with the counts zeroed just
+    before and read just after, every launch's lane count and every fleet
+    dispatch recorded."""
+    moves, stats = _Moves(), {}
+    torch.cuda.synchronize()
+    sk.reset_counts()
+    with lane_counts(sk) as shapes, dispatch_log() as disp:
+        t0 = time.perf_counter()
+        small, viol = shr.shrink_case(case, max_evals=max_evals, logger=moves, batch=batch,
+                                      stats=stats, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {
+        "small": small, "violation": viol, "moves": moves.moves, "evals": stats["evals"],
+        "wall_s": wall, "dispatches": disp, "lanes": {k: sorted(set(v)) for k, v in shapes.items()},
+        "launches": dict(sk.LAUNCHES),
+    }
+
+
+def _hold_shrink(shr, got: dict, gold: dict, label: str) -> None:
+    want = (gold["final_cfg"], gold["violation"], gold["moves"], gold["evals"])
+    if (shr._cfg_to_dict(got["small"].cfg), got["violation"], got["moves"], got["evals"]) != want:
+        raise SystemExit(f"{label}: the shrink disagrees with its JAX golden "
+                         f"({got['violation']!r}, {got['moves']}, {got['evals']} evals)")
+
+
+def _print_shrink(label: str, got: dict, card: str) -> None:
+    disp = got["dispatches"]
+    rounds = sum(d[1] for d in disp)
+    secs = sum(d[2] for d in disp)
+    by_lanes = {}
+    for n, _, _ in disp:
+        by_lanes[n] = by_lanes.get(n, 0) + 1
+    print(f"{label} shrink on the card: wall_s={got['wall_s']:.3f} evals={got['evals']} "
+          f"dispatches={json.dumps(by_lanes, sort_keys=True)} (lanes: count) round_calls={rounds} "
+          f"dispatch_s={secs:.3f} ms_per_round={secs / max(rounds, 1) * 1e3:.3f} "
+          f"launches={json.dumps(got['launches'], sort_keys=True)} "
+          f"launch_lanes={json.dumps(got['lanes'], sort_keys=True)} moves={got['moves']} "
+          f"violation={got['violation']!r} | {card}")
+
+
+def _replay(here: str, shr, got: dict, gold: dict, tmp: str, env: dict, label: str) -> dict:
+    """Phases 11b-c: save the shrunk case, compare the file with JAX's and
+    replay it through the CLI."""
+    path = os.path.join(tmp, gold["artifact"])
+    t0 = time.perf_counter()
+    art = shr.save_artifact(path, got["small"], got["violation"], device=DEV)
+    save_s = time.perf_counter() - t0
+    sha = _file_sha256(path)
+    proc, cli_s = _repro_cli(here, path, env)
+    out_sha = hashlib.sha256(proc.stdout.encode()).hexdigest()
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
+    print(f"{label} artifact {gold['artifact']}: save_s={save_s:.3f} file_sha256={sha} "
+          f"decision_log_sha256={art['decision_log_sha256']} rounds={art['rounds']}; "
+          f"repro rc={proc.returncode} match={verdict.get('match')} cli_s={cli_s:.3f} "
+          f"stdout_sha256={out_sha}")
+    if (sha, art["decision_log_sha256"], art["rounds"]) != (
+        gold["artifact_sha256"], gold["decision_log_sha256"], gold["rounds"]
+    ):
+        raise SystemExit(f"{label}: the artifact differs from JAX's")
+    if proc.returncode != 0 or not verdict.get("match") or out_sha != gold["repro_stdout_sha256"]:
+        print(proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"{label}: the CLI replay disagrees with JAX's")
+    os.remove(path)
+    return {"save_s": save_s, "cli_s": cli_s}
+
+
+def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
+    """Phase 11b: the sweep under the seeded wedge, then both small cases
+    found, shrunk with 8-lane dispatches, saved and replayed."""
+    from tpu_paxos_torch.harness import shrink as shr
+    from tpu_paxos_torch.harness import stress
+
+    gold = goldens["triage_wedge"]
+    sw = gold["sweep"]
+    mix = [m for m in stress.MIXES if m[0] == sw["mix"]]
+    with _armed({"TPU_PAXOS_SEEDED_WEDGE": sw["wedge"]}), tempfile.TemporaryDirectory() as tmp:
+        s = stress.sweep(n_seeds=sw["n_seeds"], mixes=mix, verbose=False, triage_dir=tmp,
+                         device=DEV)
+    less = {k: v for k, v in s.items() if k != "seconds"}
+    print(f"triage sweep ({sw['mix']} x {sw['n_seeds']} seeds, TPU_PAXOS_SEEDED_WEDGE="
+          f"{sw['wedge']}): seconds={s['seconds']} summary={json.dumps(less, sort_keys=True)}")
+    if less != sw["summary"]:
+        raise SystemExit("the seeded-wedge sweep disagrees with its JAX golden")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, spec in sorted(gold["cases"].items()):
+            label = f"triage [{name}]"
+            case = _case_from_spec(shr, spec)
+            with _armed(spec["env"]):
+                got = _shrink_on_card(sk, shr, case, spec["max_evals"], True)
+                _print_shrink(label, got, card)
+                _hold_shrink(shr, got, spec, label)
+                if min(got["launches"].values()) < 1 or any(
+                    shr.SHRINK_BATCH_LANES not in v for v in got["lanes"].values()
+                ):
+                    raise SystemExit(f"{label}: a simkern kernel did not launch on "
+                                     f"{shr.SHRINK_BATCH_LANES}-lane operands")
+                out[name] = dict(_replay(here, shr, got, spec, tmp, spec["env"], label),
+                                 wall_s=got["wall_s"], launches=got["launches"],
+                                 dispatches=got["dispatches"], evals=got["evals"])
+                if name != "culprit":
+                    continue
+                stats = {}
+                with check_launches(sk, TRIAGE_REPS, stats, lanes=shr.SHRINK_BATCH_LANES):
+                    again = shr.shrink_case(case, max_evals=spec["max_evals"], device=DEV)
+                if shr._cfg_to_dict(again[0].cfg) != spec["final_cfg"]:
+                    raise SystemExit(f"{label}: the checked shrink disagrees with its golden")
+                out["checked"] = _summarize_checked(
+                    f"{label} {shr.SHRINK_BATCH_LANES}-lane shrink operands", stats)
+    return out
+
+
+def run_triage_full(sk, goldens, here: str, card: str) -> dict:
+    """Phase 11c: the shrink, artifact and replay at bench_sim's width."""
+    import numpy as np
+
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.harness import shrink as shr
+
+    gold = goldens["triage_full"]
+    cfg = _golden_cfg(gold["config"])
+    wl = sim.default_workload(cfg)
+    case = shr.ReproCase(cfg=cfg, workload=wl, gates=None,
+                         chains=[np.zeros(0, np.int32)] * len(wl),
+                         extra_checks=dict(gold["extra_checks"]))
+    label = f"triage [full, I={cfg.n_instances}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _armed({}):
+        got = _shrink_on_card(sk, shr, case, gold["max_evals"], gold["batch"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _print_shrink(label, got, card)
+        print(f"{label} peak device memory {peak_gb:.2f} GB (one-lane runtime runs)")
+        _hold_shrink(shr, got, gold, label)
+        if min(got["launches"].values()) < 1:
+            raise SystemExit(f"{label}: a simkern kernel was never launched")
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = _replay(here, shr, got, gold, tmp, {}, label)
+    torch.cuda.empty_cache()
+    return dict(rec, wall_s=got["wall_s"], launches=got["launches"], peak_gb=peak_gb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -947,6 +1242,11 @@ def main() -> int:
         run_scheduled(sk, goldens, key)
     fleet = run_fleet(sk, goldens, card)
     full = run_runtime_full(sk, goldens)
+    t11 = time.perf_counter()
+    run_stress_quick(goldens, here, card)
+    wedge = run_triage_wedge(sk, goldens, here, card)
+    run_triage_full(sk, goldens, here, card)
+    print(f"phase 11 (triage) took {time.perf_counter() - t11:.1f} s")
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -976,6 +1276,10 @@ def main() -> int:
             "fleet_full_launches": full[name]["launches"],
             "fleet_full_ms": full[name]["ms"],
             "fleet_full_bound_ms": full[name]["bound_ms"],
+            "triage_lanes": wedge["checked"][name]["lanes"][0],
+            "triage_launches": wedge["culprit"]["launches"][key],
+            "triage_ms": wedge["checked"][name]["ms"],
+            "triage_bound_ms": wedge["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

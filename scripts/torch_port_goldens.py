@@ -25,7 +25,29 @@ writes) what each must reproduce:
   96)`` from ``default_rng(1)``, under the headline knob cycle (seeds
   0-127) and the delay-spread cycle (seeds 50000-50127); per lane the
   six verdict fields and the decision-log sha256 (stride: the runner's
-  vid bound).
+  vid bound);
+- ``stress_quick``: the summary (less ``seconds``) of ``python -m
+  tpu_paxos.harness.stress --seeds 1 --triage-dir DIR``: ``make
+  stress-quick``'s host-loop sweep over the 10 mixes at one seed a mix
+  (the Makefile runs two; one keeps the card's triage phase near 200 s);
+- ``triage_wedge``: failure triage at the stress workload's size.  Under
+  ``TPU_PAXOS_SEEDED_WEDGE=takeover`` the sweep ``stress.sweep(n_seeds=2,
+  mixes=[pause-crash], triage_dir=DIR)`` finds no failing seed, so its
+  summary is held and two cases are shrunk instead: ``culprit``, the
+  three-episode ``decision_round_max`` case of
+  ``tests/test_shrink.py::test_shrinker_isolates_culprit_episode``, and
+  ``takeover``, a real seeded wedge (the model checker's quick-scope
+  scenario 220: a partition of node 0 and a crash of node 1 at round 8,
+  with the wedge armed).  Each holds its input case, the shrink's final
+  config, violation, accepted moves and eval count, and the sha256 of
+  the artifact file and of the ``repro --json`` stdout; the artifacts
+  themselves are written beside the goldens file
+  (``repro_culprit.json``, ``repro_takeover.json``);
+- ``triage_full``: ``bench_sim_partition_flap`` (2**23 instances) with
+  ``decision_round_max`` one round below its last decision, shrunk with
+  ``shrink_case(max_evals=3, batch=False)``: the final config, the
+  violation, the artifact's ``decision_log_sha256`` and ``rounds``, and
+  the sha256 of the artifact file and of the ``repro --json`` stdout.
 
 The general-engine entries hold the round count, ``done``, the chosen
 count and the decision-log sha256 (with the config, faults included, as
@@ -37,6 +59,10 @@ Usage (from the repo root)::
 
     JAX_PLATFORMS=cpu python scripts/torch_port_goldens.py \
         [--write tpu_paxos_torch/data/goldens.json] [--instances N]
+
+``--triage-only [ENTRY ...]`` recomputes only the triage entries (all
+three, or those named) of an existing ``--write`` file; ``triage_wedge``
+rewrites the two artifacts beside it.
 
 ``--instances`` shrinks the bench run (for a quick self-check); the
 committed file holds the full 2**23 run.
@@ -208,7 +234,263 @@ def fleet_goldens(n_lanes: int = FLEET_LANES) -> dict:
     return out
 
 
-def compute(n_instances: int = 1 << 23) -> dict:
+STRESS_QUICK_SEEDS = 1
+TRIAGE_SWEEP = {"n_seeds": 2, "mix": "pause-crash", "wedge": "takeover"}
+TRIAGE_FULL_KEY = "bench_sim_partition_flap"
+TRIAGE_FULL_EVALS = 3
+
+
+def _summary_less_seconds(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k != "seconds"}
+
+
+def stress_quick_golden() -> dict:
+    from tpu_paxos.harness import stress
+
+    s = stress.sweep(n_seeds=STRESS_QUICK_SEEDS, verbose=False)
+    return {
+        "cli": f"python -m tpu_paxos.harness.stress --seeds {STRESS_QUICK_SEEDS} --triage-dir DIR",
+        "summary": _summary_less_seconds(s),
+    }
+
+
+def triage_inputs() -> dict:
+    """The two small triage cases, as artifact-shaped JSON (the port
+    rebuilds them with its own ``shrink._cfg_from_dict``)."""
+    import numpy as np
+
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.core import faults as flt
+    from tpu_paxos.harness import shrink as shr
+    from tpu_paxos.harness import stress
+
+    culprit = cfgm.SimConfig(
+        n_nodes=5, n_instances=64, proposers=(0, 1), seed=7, max_rounds=4000,
+        faults=cfgm.FaultConfig(
+            drop_rate=300, dup_rate=500, max_delay=2,
+            schedule=flt.FaultSchedule((
+                flt.partition(5, 45, (0, 1), (2, 3, 4)),
+                flt.pause(50, 60, 3),
+                flt.burst(2, 8, 1500),
+            )),
+        ),
+    )
+    wl, gates, chains = stress._workload(2, np.random.default_rng(0), n_ids=4, n_free=4)
+    takeover = cfgm.SimConfig(
+        n_nodes=5, n_instances=2 * sum(len(w) for w in wl), proposers=(0, 1),
+        seed=0, max_rounds=600,
+        faults=cfgm.FaultConfig(schedule=flt.FaultSchedule((
+            flt.partition(4, 18, (0,)),
+            flt.crash(8, 1),
+        ))),
+    )
+    return {
+        "culprit": {
+            "source": "tests/test_shrink.py::test_shrinker_isolates_culprit_episode",
+            "env": {},
+            "max_evals": 40,
+            "cfg": shr._cfg_to_dict(culprit),
+            "workload": [list(range(100, 110)), list(range(200, 210))],
+            "gates": None,
+            "chains": [[], []],
+            "extra_checks": {"decision_round_max": 40},
+        },
+        "takeover": {
+            "source": "analysis/mc_scope.json quick scope, scenario 220, "
+                      "TPU_PAXOS_SEEDED_WEDGE=takeover",
+            "env": {"TPU_PAXOS_SEEDED_WEDGE": "takeover"},
+            "max_evals": 200,
+            "cfg": shr._cfg_to_dict(takeover),
+            "workload": [w.tolist() for w in wl],
+            "gates": [g.tolist() for g in gates],
+            "chains": [c.tolist() for c in chains],
+            "extra_checks": {},
+        },
+    }
+
+
+class _Moves:
+    """A logger that keeps the shrinker's accepted moves."""
+
+    def __init__(self):
+        self.moves = []
+
+    def info(self, fmt, *args):
+        self.moves.append(fmt % args)
+
+
+def _file_sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def repro_stdout(artifact: str, env_extra: dict) -> str:
+    """Stdout of ``python -m tpu_paxos repro <basename> --json`` run in
+    the artifact's directory (the summary names the path as given)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **env_extra)
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_paxos", "repro", os.path.basename(artifact), "--json"],
+        cwd=os.path.dirname(os.path.abspath(artifact)), env=env,
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"JAX repro of {artifact} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _shrink_golden(case, out_dir: str, name: str, env: dict, max_evals: int,
+                   batch: bool = True) -> dict:
+    from tpu_paxos.harness import shrink as shr
+
+    logger, stats = _Moves(), {}
+    small, viol = shr.shrink_case(case, max_evals=max_evals, logger=logger, batch=batch,
+                                  stats=stats)
+    path = os.path.join(out_dir, f"repro_{name}.json")
+    art = shr.save_artifact(path, small, viol)
+    out = repro_stdout(path, env)
+    return {
+        "final_cfg": shr._cfg_to_dict(small.cfg),
+        "violation": viol,
+        "moves": logger.moves,
+        "evals": stats["evals"],
+        "artifact": os.path.basename(path),
+        "artifact_sha256": _file_sha256(path),
+        "decision_log_sha256": art["decision_log_sha256"],
+        "rounds": art["rounds"],
+        "repro_stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
+        "repro_match": json.loads(out.splitlines()[-1])["match"],
+    }
+
+
+def _with_env(env: dict):
+    import contextlib
+
+    from tpu_paxos.fleet import envelope as env_cache
+
+    @contextlib.contextmanager
+    def scope():
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        env_cache.clear_cache()
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            env_cache.clear_cache()
+    return scope()
+
+
+def triage_wedge_golden(out_dir: str) -> dict:
+    """The sweep under the seeded wedge, then both small cases shrunk,
+    saved into ``out_dir`` and replayed through the JAX CLI."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_paxos.harness import shrink as shr
+    from tpu_paxos.harness import stress
+
+    mix = [m for m in stress.MIXES if m[0] == TRIAGE_SWEEP["mix"]]
+    with _with_env({"TPU_PAXOS_SEEDED_WEDGE": TRIAGE_SWEEP["wedge"]}):
+        with tempfile.TemporaryDirectory() as tmp:
+            s = stress.sweep(n_seeds=TRIAGE_SWEEP["n_seeds"], mixes=mix, verbose=False,
+                             triage_dir=tmp)
+    cases = {}
+    for name, spec in sorted(triage_inputs().items()):
+        case = shr.ReproCase(
+            cfg=shr._cfg_from_dict(spec["cfg"]),
+            workload=[np.asarray(w, np.int32) for w in spec["workload"]],
+            gates=None if spec["gates"] is None else [np.asarray(g, np.int32) for g in spec["gates"]],
+            chains=[np.asarray(c, np.int32) for c in spec["chains"]],
+            extra_checks=dict(spec["extra_checks"]),
+        )
+        with _with_env(spec["env"]):
+            cases[name] = dict(spec, **_shrink_golden(case, out_dir, name, spec["env"],
+                                                       spec["max_evals"]))
+    return {
+        "sweep": dict(TRIAGE_SWEEP, summary=_summary_less_seconds(s)),
+        "case_taken": "the sweep finds no failing seed, so the shrunk cases are "
+                      "'culprit' and 'takeover'",
+        "cases": cases,
+    }
+
+
+def triage_full_golden(bench_sched: dict) -> dict:
+    """``bench_sim_partition_flap`` with a decision-round bound one below
+    its last decision, shrunk at full width with a 3-eval budget."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.core import faults as flt
+    from tpu_paxos.core import sim
+    from tpu_paxos.harness import shrink as shr
+
+    bc = bench_sched["config"]
+    f = dict(bc["faults"])
+    f["schedule"] = flt.FaultSchedule.from_dict(f["schedule"])
+    cfg = cfgm.SimConfig(
+        n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
+        proposers=tuple(bc["proposers"]), seed=bc["seed"],
+        assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
+        faults=cfgm.FaultConfig(**f),
+    )
+    wl = sim.default_workload(cfg)
+    res = sim.run(cfg, wl)
+    last = int(res.chosen_round[res.chosen_vid != -1].max())
+    case = shr.ReproCase(cfg=cfg, workload=wl, gates=None,
+                         chains=[np.zeros(0, np.int32)] * len(wl),
+                         extra_checks={"decision_round_max": last - 1})
+    # The candidates are judged by JAX's sim.run (shrink's run_case), not
+    # its runtime-knob fleet runner: the JAX package pins the two equal
+    # decision log for decision log, and the fleet runner's always-on
+    # masked round takes too long at 2**23 on a CPU.
+    saved = shr._runtime_candidate_eval
+    shr._runtime_candidate_eval = lambda case: None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = _shrink_golden(case, tmp, "full", {}, TRIAGE_FULL_EVALS, batch=False)
+    finally:
+        shr._runtime_candidate_eval = saved
+    return dict(out, source=TRIAGE_FULL_KEY, config=bc, last_decision_round=last,
+                extra_checks=case.extra_checks, max_evals=TRIAGE_FULL_EVALS, batch=False,
+                workload="sim.default_workload(cfg)", jax_evaluator="run_case (sim.run)")
+
+
+def triage_goldens(out: dict, out_dir: str, parts=("stress_quick", "triage_wedge",
+                                                     "triage_full")) -> dict:
+    make = {
+        "stress_quick": stress_quick_golden,
+        "triage_wedge": lambda: triage_wedge_golden(out_dir),
+        "triage_full": lambda: triage_full_golden(out[TRIAGE_FULL_KEY]),
+    }
+    return {k: make[k]() for k in parts}
+
+
+def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
+    """Every entry; the triage artifacts go to ``out_dir`` (a temporary
+    directory when None)."""
+    import tempfile
+
+    out = compute_runs(n_instances)
+    if out_dir is not None:
+        out.update(triage_goldens(out, out_dir))
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(triage_goldens(out, tmp))
+    return out
+
+
+def compute_runs(n_instances: int = 1 << 23) -> dict:
     from tpu_paxos import config as cfgm
     from tpu_paxos.harness import reference_runner as refr
     from tpu_paxos.harness import stress
@@ -256,13 +538,22 @@ def main(argv=None) -> int:
     ap.add_argument("--instances", type=int, default=1 << 23)
     ap.add_argument("--fleet-only", action="store_true",
                     help="recompute only the fleet entry of the --write file")
+    ap.add_argument("--triage-only", nargs="*", default=None,
+                    choices=("stress_quick", "triage_wedge", "triage_full"),
+                    help="recompute only the triage entries (all three, or those "
+                    "named) of the --write file")
     args = ap.parse_args(argv)
-    if args.fleet_only:
+    out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
+    if args.fleet_only or args.triage_only is not None:
         with open(args.write) as f:
             out = json.load(f)
-        out["fleet"] = fleet_goldens()
+        if args.fleet_only:
+            out["fleet"] = fleet_goldens()
+        if args.triage_only is not None:
+            out.update(triage_goldens(out, out_dir, tuple(args.triage_only) or (
+                "stress_quick", "triage_wedge", "triage_full")))
     else:
-        out = compute(args.instances)
+        out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"
     if args.write:
         with open(args.write, "w") as f:

@@ -100,11 +100,34 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
     (["4", "4", "10", "--engine=fast", "--mesh", "2"], "--engine=fast"),
     (["4", "4", "10", "--engine=member"], "--engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
-    (["repro", "artifact.json"], "'repro'"),
+    (["trace", "artifact.json"], "'trace'"),
+    (["fleet", "--lanes", "2"], "'fleet'"),
+    (["serve", "--values", "8"], "'serve'"),
+    (["evolve"], "'evolve'"),
+    (["mc", "--scope", "quick"], "'mc'"),
 ])
 def test_unported_cli_surfaces_exit_2(argv, what, capsys):
     assert tcli.main(argv + ["--device", "cpu"]) == 2
     assert f"{what} is not ported yet" in capsys.readouterr().err
+
+
+def test_repro_is_ported(tmp_path, capsys):
+    """``repro`` is no longer a refused subcommand: a missing artifact is
+    the schema surface's exit 2 (a JSON summary naming the problem), not
+    'not ported'."""
+    path = str(tmp_path / "missing.json")
+    assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == 2
+    out = capsys.readouterr()
+    assert "not ported" not in out.err
+    assert "unreadable artifact" in json.loads(out.out)["schema_error"]["problem"]
+
+
+@pytest.mark.parametrize("flag", ["--fleet", "--sharded"])
+def test_stress_cli_unported_sweeps_exit_2(flag, capsys):
+    from tpu_paxos_torch.harness import stress
+
+    assert stress.main(["--seeds", "1", flag, "--device", "cpu"]) == 2
+    assert f"{flag} is not ported yet" in capsys.readouterr().err
 
 
 _BLOCKED_IMPORT_PROBE = """
@@ -137,9 +160,26 @@ fleet = envelope.runner_for(config.SimConfig(n_nodes=3, n_instances=16, proposer
                             [[100, 101], [200]], device="cpu")
 rep = fleet.run([0, 1], [sched, None], workloads=[([[100, 101], [200]], None)] * 2,
                 knobs=[config.FaultConfig(max_delay=1), config.FaultConfig(drop_rate=500)])
+import contextlib, io, os, tempfile
+from tpu_paxos_torch import __main__ as cli
+from tpu_paxos_torch.analysis import artifact_schema, chunking
+from tpu_paxos_torch.harness import shrink, stress
+case = shrink.ReproCase(
+    cfg=config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1), faults=config.FaultConfig(
+        max_delay=1, schedule=faults.FaultSchedule((faults.partition(2, 9, (0,), (1, 2)),)))),
+    workload=[[100, 101], [200]], gates=None, chains=[[], []],
+    extra_checks={"decision_round_max": 3})
+small, viol = shrink.shrink_case(case, max_evals=6, device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "a.json")
+    shrink.save_artifact(path, small, viol, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["repro", path, "--device", "cpu"])
+summary = stress.sweep(n_seeds=1, mixes=stress.MIXES[:1], verbose=False, device="cpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
-      and bool(rep.verdict.ok.all()))
+      and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
+      and chunking.chunk_pad([1], 2) == [([1, 1], 1)])
 print(len(mods), bool(ok), loaded)
 """
 
@@ -148,7 +188,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 30  # every module of the package was imported, fleet/ too
+    assert int(n_mods) >= 34  # every module of the package was imported, analysis/ too
     assert done == "True"
     assert loaded.strip() == "[]"
 

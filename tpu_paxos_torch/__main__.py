@@ -10,16 +10,31 @@ Output, byte for byte as the JAX CLI prints it: for the general engine
 the decision log in the reference grammar on stdout, then one invariant
 verdict line; for the fast path the verdict line alone.  Exit code 0
 iff every invariant holds; 2 for what the port does not run yet
-(``--engine=member``, ``--mesh``, subcommands).
+(``--engine=member``, ``--mesh``, every subcommand but ``repro``).
+
+``python -m tpu_paxos_torch repro <artifact> [--json] [--device
+{cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
+decision log, then the JSON summary or verdict line; exit 0 iff the
+recorded violation recurs with an equal decision-log sha256, 1 if not,
+2 for a malformed artifact (a JSON summary naming the field) and for
+artifacts of engines the port does not run yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
-_SUBCOMMANDS = ("repro", "trace", "serve", "fleet", "evolve", "mc", "lint", "audit")
+_SUBCOMMANDS = ("trace", "serve", "fleet", "evolve", "mc", "lint", "audit")
+
+#: Artifact engines whose replay is not ported yet, and what replays them.
+_UNPORTED_ENGINES = {
+    "sharded": "the instance-sharded engine",
+    "serve": "the serve admission controller",
+    "mc-control": "the controller model checker",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -191,8 +206,74 @@ def run_fast(args) -> int:
     return 0 if ok and n_chosen == n else 1
 
 
+def run_repro(argv) -> int:
+    """``python -m tpu_paxos_torch repro <artifact>``: re-execute a
+    repro artifact and verify it reproduces (identical violation, equal
+    decision-log sha256)."""
+    ap = argparse.ArgumentParser(
+        prog="python -m tpu_paxos_torch repro",
+        description="replay a stress-triage repro artifact",
+    )
+    ap.add_argument("artifact", help="path to a repro .json "
+                    "(written by the stress sweep's --triage-dir)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--json", action="store_true",
+                    help="emit a JSON summary instead of the verdict line")
+    ap.add_argument("--log-level", type=str, default="INFO")
+    args = ap.parse_args(argv)
+    # replay surface: log stamps carry no wall clock
+    os.environ.setdefault("TPU_PAXOS_DETERMINISTIC", "1")
+    from tpu_paxos_torch.utils import log as logm
+
+    logger = logm.get_logger("repro", logm.parse_level(args.log_level))
+    # Peek the engine before loading: artifacts of engines the port does
+    # not run yet exit 2 by name.  Unreadable or malformed files fall
+    # through to load_artifact's field-named schema error.
+    try:
+        with open(args.artifact) as f:
+            hdr = json.load(f)
+        engine = hdr.get("engine", "sim") if isinstance(hdr, dict) else "sim"
+    except (OSError, ValueError):
+        engine = "sim"
+    if isinstance(engine, str) and engine in _UNPORTED_ENGINES:
+        print(f"tpu_paxos_torch: repro of engine '{engine}' artifacts "
+              f"({_UNPORTED_ENGINES[engine]}) is not ported yet", file=sys.stderr)
+        return 2
+    from tpu_paxos_torch.analysis.artifact_schema import ArtifactSchemaError
+    from tpu_paxos_torch.harness import shrink as shr
+
+    try:
+        rep = shr.reproduce(args.artifact, device=args.device)
+    except ArtifactSchemaError as e:
+        # malformed artifact: fail before the engine does, naming the
+        # offending field
+        logger.error("%s", e)
+        _emit(args, {
+            "engine": "repro", "ok": False,
+            "schema_error": {"field": e.field, "problem": e.problem},
+        })
+        return 2
+    sys.stdout.write(rep.pop("decision_log"))
+    if rep["match"]:
+        logger.info(
+            "reproduced: %s (decision log sha256 %s)",
+            rep["violation"], rep["decision_log_sha256"][:16],
+        )
+    else:
+        logger.error(
+            "did NOT reproduce: violation %r vs recorded %r, log sha %s "
+            "vs recorded %s",
+            rep["violation"], rep["recorded_violation"],
+            rep["decision_log_sha256"][:16], rep["recorded_sha256"][:16],
+        )
+    _emit(args, {"engine": "repro", "ok": rep["match"], **rep})
+    return 0 if rep["match"] else 1
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "repro":
+        return run_repro(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2

@@ -1,15 +1,50 @@
-"""The stress sweep's workload and fault mixes (port of the data of
-``tpu_paxos/harness/stress.py``): the per-proposer gated workload the
-fleet runs, and the episode and WAN mixes of 5-node clusters.  The sweep
-itself (``sweep_fleet``) waits for the flight recorder."""
+"""Randomized stress sweep (port of ``tpu_paxos/harness/stress.py``):
+many seeds x fault mixes through the general engine, every run judged by
+the full crash-aware invariant suite.
+
+Each sweep samples seeds against a grid of fault mixes (crashes, in-order
+gate chains, and correlated-fault episode schedules: partition flaps,
+one-way cuts, node pauses, loss bursts) and asserts agreement,
+exactly-once, executed-identical, in-order clients and quiescence on
+every run.  The same (mix, seed) gives the same run as the JAX sweep.
+
+Failure triage: with ``--triage-dir`` (or ``triage_dir=``), a failing
+seed is handed to ``harness/shrink.py``: its fault schedule is greedily
+shrunk to a minimal still-failing case and written as a JSON repro
+artifact that ``python -m tpu_paxos_torch repro <artifact>`` re-executes
+byte for byte.
+
+The host loop builds the round function once per mix (a seed changes
+only the PRNG root) and drives each seed as one lane of it
+(``core/sim.run_lanes``).  The fleet sweep (``sweep_fleet``) waits for
+the flight recorder, and the sharded sweep for the sharded engine.
+
+CLI: ``python -m tpu_paxos_torch.harness.stress [--seeds N]
+[--base-seed S] [--triage-dir D] [--device {cuda,cpu}]`` prints one JSON
+summary line and exits non-zero on any violation; ``--fleet`` and
+``--sharded`` exit 2 (not ported yet).
+"""
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import sys
+import time
+import zlib
+
 import numpy as np
 
+from tpu_paxos_torch.config import FaultConfig, SimConfig
 from tpu_paxos_torch.core import faults as flt
+from tpu_paxos_torch.core import sim as simm
 from tpu_paxos_torch.core import values as val
 from tpu_paxos_torch.core import wan as wanm
+from tpu_paxos_torch.harness import shrink as shr
+from tpu_paxos_torch.harness import validate
+from tpu_paxos_torch.utils import log as logm
+from tpu_paxos_torch.utils import prng
 
 # Correlated-fault schedules for the episode mixes (5-node clusters).
 SCHED_PARTITION_FLAP = flt.FaultSchedule((
@@ -143,3 +178,146 @@ def _workload(
         gates.append(g)
         chains.append(chain)
     return workload, gates, chains
+
+
+# Crash-aware invariant suite, shared with the shrinker so a shrunk
+# repro artifact is judged by exactly the sweep's rules.  Kept as a
+# module-level name: tests monkeypatch it to inject failures.
+_validate_run = shr.validate_run
+
+
+def _check_run(r, cfg: SimConfig, workload, chains) -> None:
+    """Quiescence (excused only when every proposer crashed) + the
+    crash-aware suite; mirrors shrink.check_run through the patchable
+    ``_validate_run`` seam."""
+    all_props_crashed = all(r.crashed[node] for node in cfg.proposers)
+    if not r.done and not all_props_crashed:
+        raise validate.InvariantViolation(
+            f"no quiescence in {r.rounds} rounds"
+        )
+    _validate_run(r, cfg, workload, chains)
+
+
+def sweep(
+    n_seeds: int = 8,
+    base_seed: int = 0,
+    verbose: bool = True,
+    triage_dir: str | None = None,
+    mixes=None,
+    device="cuda",
+) -> dict:
+    """Every (mix, seed) of the grid on ``device``; returns the JSON
+    summary (``failures`` lists each failing seed, with its artifact
+    when ``triage_dir`` is set)."""
+    logger = logm.get_logger(
+        "stress", logm.parse_level("INFO" if verbose else "WARN")
+    )
+    runs, failures = 0, []
+    t0 = time.perf_counter()
+    for label, fkw, n_nodes, n_prop in (MIXES if mixes is None else mixes):
+        round_fn = None  # built once per mix; seeds share shapes
+        for s in range(n_seeds):
+            seed = base_seed + s
+            rng = np.random.default_rng(
+                seed * 7919 + zlib.crc32(label.encode()) % 1000
+            )
+            workload, gates, chains = _workload(n_prop, rng)
+            cfg = SimConfig(
+                n_nodes=n_nodes,
+                n_instances=2 * sum(len(w) for w in workload),
+                proposers=tuple(range(n_prop)),
+                seed=seed,
+                max_rounds=20_000,
+                faults=FaultConfig(**fkw),
+            )
+            pend, gate, tail, c = simm.prepare_queues(cfg, workload, gates)
+            if round_fn is None:
+                round_fn = simm.build_engine(
+                    cfg, c, vid_cap=simm.gates_vid_cap(workload, gates),
+                    device=device,
+                )
+            root = prng.root_key(cfg.seed)
+            state = simm.init_state(cfg, pend, gate, tail, root, device=device)
+            final, _ = simm.run_lanes(
+                round_fn, np.asarray([root], np.uint64), simm.lanes_view(state),
+                [cfg.round_budget],
+            )
+            r = simm.to_result(
+                simm.lane_of(final, 0), np.unique(np.concatenate(workload))
+            )
+            runs += 1
+            try:
+                _check_run(r, cfg, workload, chains)
+            except validate.InvariantViolation as e:
+                failure = {"mix": label, "seed": seed, "error": str(e)[:300]}
+                logger.error("FAIL mix=%s seed=%d: %s", label, seed, e)
+                if triage_dir:
+                    # shrink the failing case to a minimal schedule and
+                    # pin it as a one-command repro artifact
+                    os.makedirs(triage_dir, exist_ok=True)
+                    path = os.path.join(
+                        triage_dir, f"repro_{label}_{seed}.json"
+                    )
+                    try:
+                        case = shr.ReproCase(
+                            cfg=cfg, workload=workload, gates=gates,
+                            chains=chains,
+                        )
+                        art = shr.triage(
+                            case, path, logger=logger, device=device
+                        )
+                        failure["artifact"] = path
+                        failure["shrink_seconds"] = art.get("shrink_seconds")
+                        logger.error("repro artifact written to %s", path)
+                    except Exception as te:  # triage must never mask a failure
+                        failure["triage_error"] = str(te)[:300]
+                failures.append(failure)
+        logger.info(
+            "mix %-14s: %d seeds done (cumulative %d runs, %d failures)",
+            label, n_seeds, runs, len(failures),
+        )
+    n_mixes = len(MIXES if mixes is None else mixes)
+    return {
+        "metric": "stress_sweep",
+        "runs": runs,
+        "mixes": n_mixes,
+        "seeds_per_mix": n_seeds,
+        "failures": failures,
+        "ok": not failures,
+        "seconds": round(time.perf_counter() - t0, 1),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, default=8, help="seeds per mix")
+    ap.add_argument("--base-seed", type=int, default=0)
+    ap.add_argument(
+        "--triage-dir",
+        type=str,
+        default="",
+        help="on any failing seed, shrink the fault schedule to a "
+        "minimal failing case and write a repro artifact here "
+        "(replay with `python -m tpu_paxos_torch repro <artifact>`)",
+    )
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--fleet", action="store_true",
+                    help="the fleet sweep (not ported yet)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the sharded sweep (not ported yet)")
+    args = ap.parse_args(argv)
+    for flag in ("fleet", "sharded"):
+        if getattr(args, flag):
+            print(f"tpu_paxos_torch.harness.stress: --{flag} is not ported yet",
+                  file=sys.stderr)
+            return 2
+    summary = sweep(
+        args.seeds, args.base_seed, triage_dir=args.triage_dir or None,
+        device=args.device,
+    )
+    print(json.dumps(summary))
+    return 0 if summary["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
