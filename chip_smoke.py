@@ -104,6 +104,32 @@ Phases (any failure exits non-zero; nothing is caught):
       violation, moves, evals, the artifact's decision-log sha256 and
       rounds, the file's and the CLI stdout's sha256 and ``match`` must
       equal JAX's.  Prints the peak device memory.
+12. The flight recorder on the card, against the JAX goldens
+   (``telemetry``), with phase 12's own seconds:
+   a. ``sim.run_with_telemetry`` (``window_rounds`` 16) at full width on
+      ``bench_sim``, ``bench_sim_partition_flap`` and ``bench_sim_wan3``
+      (the last with the WAN3 region map and names), each with the
+      counts zeroed before and read after: the decision-log sha256 must
+      equal the plain golden and ``summary_to_dict(summary, windows)``
+      JAX's, key for key, and both simkern kernels must launch; on
+      ``bench_sim`` every launch is held against its plain version on its
+      own operands.
+   b. ``bench_sim``'s round loop alone, plain and armed in turns (plain,
+      armed, armed, plain): ms and host syncs a round; the syncs a round
+      must be equal.
+   c. The fleet's headline cycle at 128 lanes (phase 9's configuration),
+      plain and armed (``FleetRunner(telemetry=True)``, ``run(regions=)``
+      cycling the WAN3 map, the WAN5 map and None) in turns: every armed
+      lane's ``lane_telemetry(i)`` (sha256 of its sorted compact JSON)
+      and decision-log sha256 must equal the goldens, both kernels
+      launch on 128-lane operands, and the syncs a round must be equal;
+      prints lanes/s, ms and syncs a round of each.
+   d. ``python -m tpu_paxos_torch trace <basename> --stdout`` in three
+      subprocesses at once, in each artifact's directory, on the two committed
+      artifacts (``tpu_paxos_torch/data/repro_{culprit,takeover}.json``,
+      the latter with the seeded wedge armed) and on 11c's 2**23
+      artifact: each stdout's sha256 must equal JAX's and the artifact's
+      bytes stay unchanged.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -1102,9 +1128,10 @@ def _print_shrink(label: str, got: dict, card: str) -> None:
           f"violation={got['violation']!r} | {card}")
 
 
-def _replay(here: str, shr, got: dict, gold: dict, tmp: str, env: dict, label: str) -> dict:
+def _replay(here: str, shr, got: dict, gold: dict, tmp: str, env: dict, label: str,
+            keep: bool = False) -> dict:
     """Phases 11b-c: save the shrunk case, compare the file with JAX's and
-    replay it through the CLI."""
+    replay it through the CLI; ``keep`` leaves the file for phase 12."""
     path = os.path.join(tmp, gold["artifact"])
     t0 = time.perf_counter()
     art = shr.save_artifact(path, got["small"], got["violation"], device=DEV)
@@ -1124,8 +1151,9 @@ def _replay(here: str, shr, got: dict, gold: dict, tmp: str, env: dict, label: s
     if proc.returncode != 0 or not verdict.get("match") or out_sha != gold["repro_stdout_sha256"]:
         print(proc.stderr[-3000:], file=sys.stderr)
         raise SystemExit(f"{label}: the CLI replay disagrees with JAX's")
-    os.remove(path)
-    return {"save_s": save_s, "cli_s": cli_s}
+    if not keep:
+        os.remove(path)
+    return {"save_s": save_s, "cli_s": cli_s, "path": path}
 
 
 def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
@@ -1174,8 +1202,9 @@ def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
     return out
 
 
-def run_triage_full(sk, goldens, here: str, card: str) -> dict:
-    """Phase 11c: the shrink, artifact and replay at bench_sim's width."""
+def run_triage_full(sk, goldens, here: str, card: str, keep_dir: str) -> dict:
+    """Phase 11c: the shrink, artifact and replay at bench_sim's width;
+    the artifact stays in ``keep_dir`` for phase 12's trace."""
     import numpy as np
 
     from tpu_paxos_torch.core import sim
@@ -1198,11 +1227,235 @@ def run_triage_full(sk, goldens, here: str, card: str) -> dict:
         _hold_shrink(shr, got, gold, label)
         if min(got["launches"].values()) < 1:
             raise SystemExit(f"{label}: a simkern kernel was never launched")
-        with tempfile.TemporaryDirectory() as tmp:
-            rec = _replay(here, shr, got, gold, tmp, {}, label)
+        rec = _replay(here, shr, got, gold, keep_dir, {}, label, keep=True)
     torch.cuda.empty_cache()
     return dict(rec, wall_s=got["wall_s"], launches=got["launches"], peak_gb=peak_gb)
 
+
+def _dict_diff(got: dict, want: dict) -> str:
+    """The keys where two summary dicts differ, with both values."""
+    keys = sorted(set(got) | set(want))
+    return "; ".join(f"{k}: port {got.get(k)!r} JAX {want.get(k)!r}"
+                     for k in keys if got.get(k) != want.get(k))[:4000]
+
+
+def _telemetry_sha(d: dict) -> str:
+    return hashlib.sha256(json.dumps(d, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
+
+
+def _same_syncs(turns, what: str) -> None:
+    """The fewest syncs a round of the armed turns must equal the plain
+    turns': a first use of the pinned-memory pool in a turn can add one
+    sync to its count, which is no host read of a round."""
+    least = {armed: min(r["syncs_per_round"] for r in turns if r["armed"] == armed)
+             for armed in (False, True)}
+    if least[True] != least[False]:
+        raise SystemExit(f"{what} makes other host syncs a round than the plain one: {least}")
+
+
+def _loop_run(cfg, armed: bool, window_rounds: int) -> dict:
+    """One full-width run's round loop alone, plain or armed: wall
+    seconds, round calls and host syncs (set-up and results excluded)."""
+    import numpy as np
+
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.telemetry import recorder as telem
+
+    wl = sim.default_workload(cfg)
+    pend, gate, tail, c = sim.prepare_queues(cfg, wl)
+    root = sim.prng.root_key(cfg.seed)
+    state = sim.lanes_view(sim.init_state(cfg, pend, gate, tail, root, device=DEV))
+    rf = sim.build_engine(cfg, c, device=DEV, telemetry=armed,
+                          window_rounds=window_rounds if armed else 0)
+    kw = {}
+    if armed:
+        kw["tele"] = (
+            telem.init_telemetry(cfg.n_instances, len(cfg.proposers), cfg.n_nodes, device=DEV),
+            telem.init_windows(cfg.n_nodes, device=DEV),
+        )
+    roots = np.asarray([root], np.uint64)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = count_syncs(lambda: out.setdefault(
+        "r", sim.run_lanes(rf, roots, state, [cfg.round_budget], **kw)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = out.pop("r")[-1]
+    return {"wall_s": wall, "calls": calls, "syncs": syncs, "ms_per_round": wall / calls * 1e3,
+            "syncs_per_round": syncs / calls}
+
+
+def run_telemetry_single(sk, goldens, card: str) -> dict:
+    """Phases 12a-b: the armed engine at full width."""
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.replay.decision_log import decision_log, sha256
+    from tpu_paxos_torch.telemetry import recorder as telem
+
+    tg = goldens["telemetry"]
+    ww = tg["window_rounds"]
+    out = {"launches": {}}
+    # bench_sim runs twice: counted, then with every launch held against
+    # its plain version (whose comparison launches must not count)
+    jobs = [(key, False) for key in sorted(tg["runs"])] + [("bench_sim", True)]
+    for key, checked in jobs:
+        run = tg["runs"][key]
+        gold = goldens[key]
+        cfg = _golden_cfg(gold["config"])
+        stats = {}
+        check = check_launches(sk, FULL_REPS, stats) if checked else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        sk.reset_counts()
+        t0 = time.perf_counter()
+        with check:
+            res, summ, wsum = sim.run_with_telemetry(
+                cfg, window_rounds=ww, region_map=run["region_map"], device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        d = telem.summary_to_dict(summ, wsum, ww, tuple(run["region_names"]))
+        sha = sha256(decision_log(res.chosen_vid, res.chosen_ballot, gold["stride"], cfg.n_instances))
+        same = d == run["summary"]
+        what = "kernel checks included" if checked else \
+            f"launches={json.dumps(launches, sort_keys=True)}"
+        print(f"armed {key} (run_with_telemetry, I={cfg.n_instances}, window_rounds {ww}): "
+              f"rounds={res.rounds} wall_s={wall:.3f} {what} decision_log_sha256={sha} "
+              f"summary_equal={same} decided={d['decided']} offered_total={d['offered_total']} "
+              f"latency_p99={d['latency_p99']} region_pairs={d['region_pairs']['n_regions']} | {card}")
+        if sha != gold["decision_log_sha256"] or sha != run["decision_log_sha256"]:
+            raise SystemExit(f"armed {key}: the decision log differs from the plain golden")
+        if not same:
+            raise SystemExit(f"armed {key}: the summary differs from JAX's: "
+                             f"{_dict_diff(d, run['summary'])}")
+        if checked:
+            out["checked"] = _summarize_checked(f"armed {key} operands", stats)
+        elif min(launches.values()) < 1:
+            raise SystemExit(f"armed {key}: a simkern kernel was never launched")
+        else:
+            out["launches"][key] = launches
+        del res, summ, wsum
+        torch.cuda.empty_cache()
+    cfg = _golden_cfg(goldens["bench_sim"]["config"])
+    turns = []
+    for armed in (False, True, True, False):
+        r = dict(_loop_run(cfg, armed, ww), armed=armed)
+        turns.append(r)
+        print(f"bench_sim round loop {'armed' if armed else 'plain'}: {r['calls']} round calls, "
+              f"wall_s={r['wall_s']:.3f} ms_per_round={r['ms_per_round']:.3f} "
+              f"syncs={r['syncs']} syncs_per_round={r['syncs_per_round']:.2f} | {card}")
+        torch.cuda.empty_cache()
+    _same_syncs(turns, "the armed round")
+    out["loop"] = turns
+    return out
+
+
+def run_telemetry_fleet(sk, goldens, card: str) -> dict:
+    """Phase 12c: the fleet's headline cycle, plain and armed in turns."""
+    import numpy as np
+
+    from tpu_paxos_torch import config as cfgm
+    from tpu_paxos_torch.core import wan
+    from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.fleet import search
+    from tpu_paxos_torch.harness import stress
+
+    gold = goldens["fleet"]
+    tg = goldens["telemetry"]["fleet"]
+    c = gold["config"]
+    n = c["lanes"]
+    wl, gates, _ = stress._workload(2, np.random.default_rng(0))
+    cfg = cfgm.SimConfig(
+        n_nodes=c["n_nodes"], n_instances=c["n_instances"], proposers=tuple(c["proposers"]),
+        seed=c["seed"], max_rounds=c["max_rounds"], faults=cfgm.FaultConfig(**c["faults"]),
+    )
+    rng = np.random.default_rng(1)
+    scheds = [search.sample_schedule(rng, 5, 4, 96) for _ in range(n)]
+    gc = gold[tg["cycle"]]
+    mixes = gc["knob_mixes"]
+    knobs = [cfgm.FaultConfig(**mixes[i % len(mixes)]) for i in range(n)]
+    seeds = [gc["first_seed"] + i for i in range(n)]
+    maps = [wan.node_regions(wan.WAN3, 5).tolist(), wan.node_regions(wan.WAN5, 5).tolist(), None]
+    regions = [maps[i % len(maps)] for i in range(n)]
+    runners = {False: frun.FleetRunner(cfg, wl, gates, device=DEV),
+               True: frun.FleetRunner(cfg, wl, gates, device=DEV, telemetry=True)}
+    turns = []
+    for armed in (False, True, True, False):
+        kw = {"regions": regions} if armed else {}
+        it = {}
+        torch.cuda.synchronize()
+        sk.reset_counts()
+        with lane_counts(sk) as shapes:
+            syncs = count_syncs(lambda: it.setdefault(
+                "rep", runners[armed].run(seeds, scheds, knobs=knobs, **kw)))
+        rep = it.pop("rep")
+        launches = dict(sk.LAUNCHES)
+        r = {"armed": armed, "lanes_per_sec": rep.lanes_per_sec, "seconds": rep.seconds,
+             "iterations": rep.iterations, "ms_per_round": rep.seconds / rep.iterations * 1e3,
+             "syncs_per_round": syncs / rep.iterations, "launches": launches}
+        shas = [_lane_sha(rep, i, gold["stride"]) for i in range(n)]
+        off = [i for i in range(n) if shas[i] != gc["decision_log_sha256"][i]]
+        tele_off = []
+        if armed:
+            tele_off = [i for i in range(n)
+                        if _telemetry_sha(rep.lane_telemetry(i)) != tg["lane_telemetry_sha256"][i]]
+            for key, want in tg["lane_telemetry"].items():
+                if rep.lane_telemetry(int(key)) != want:
+                    print(f"armed fleet lane {key}: {_dict_diff(rep.lane_telemetry(int(key)), want)}",
+                          file=sys.stderr)
+        lanes_ok = all(x == [n] * len(x) for x in shapes.values())
+        print(f"fleet [{tg['cycle']}] {n} lanes {'armed' if armed else 'plain'}: "
+              f"lanes_per_sec={r['lanes_per_sec']:.2f} seconds={r['seconds']:.3f} "
+              f"iterations={r['iterations']} ms_per_round={r['ms_per_round']:.3f} "
+              f"syncs_per_round={r['syncs_per_round']:.2f} launches={json.dumps(launches, sort_keys=True)} "
+              f"lanes_per_launch_ok={lanes_ok} decision_log_off={off} lane_telemetry_off={tele_off} "
+              f"| {card}")
+        if off or tele_off or not rep.verdict.ok.all():
+            raise SystemExit(f"fleet [{tg['cycle']}] {'armed' if armed else 'plain'} disagrees "
+                             "with its JAX goldens")
+        if min(launches.values()) < 1 or not lanes_ok:
+            raise SystemExit(f"fleet: a simkern kernel did not launch on {n}-lane operands")
+        turns.append(r)
+        del rep
+    _same_syncs(turns, "the armed fleet")
+    return {"turns": turns, "launches": turns[1]["launches"]}
+
+
+def run_trace_cli(goldens, here: str, full_path: str, card: str) -> dict:
+    """Phase 12d: ``python -m tpu_paxos_torch trace`` on three artifacts,
+    the three processes at once."""
+    tg = goldens["telemetry"]["trace"]
+    data = os.path.join(here, "tpu_paxos_torch", "data")
+    paths = {name: os.path.join(data, name) for name in ("repro_culprit.json", "repro_takeover.json")}
+    paths[goldens["triage_full"]["artifact"]] = full_path
+    before = {name: _file_sha256(path) for name, path in paths.items()}
+    t0 = time.perf_counter()
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, "-m", "tpu_paxos_torch", "trace", os.path.basename(path), "--stdout",
+             "--device", DEV],
+            cwd=os.path.dirname(path), env=_port_env(here, tg[name]["env"]),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for name, path in sorted(paths.items())
+    }
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        g = tg[name]
+        sha = hashlib.sha256(stdout.encode()).hexdigest()
+        after = _file_sha256(paths[name])
+        print(f"trace {name} (python -m tpu_paxos_torch trace --stdout): rc={proc.returncode} "
+              f"done_after_s={wall:.3f} stdout_bytes={len(stdout.encode())} stdout_sha256={sha} "
+              f"artifact_unchanged={before[name] == after} | {card}")
+        if proc.returncode != 0 or sha != g["stdout_sha256"] or before[name] != after \
+                or after != g["artifact_sha256"]:
+            print(stderr[-3000:], file=sys.stderr)
+            for p in procs.values():
+                p.kill()
+            raise SystemExit(f"trace {name} disagrees with JAX's")
+        out[name] = wall
+    return out
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1245,8 +1498,14 @@ def main() -> int:
     t11 = time.perf_counter()
     run_stress_quick(goldens, here, card)
     wedge = run_triage_wedge(sk, goldens, here, card)
-    run_triage_full(sk, goldens, here, card)
-    print(f"phase 11 (triage) took {time.perf_counter() - t11:.1f} s")
+    with tempfile.TemporaryDirectory() as keep:
+        full_art = run_triage_full(sk, goldens, here, card, keep)["path"]
+        print(f"phase 11 (triage) took {time.perf_counter() - t11:.1f} s")
+        t12 = time.perf_counter()
+        tele = run_telemetry_single(sk, goldens, card)
+        tele_fleet = run_telemetry_fleet(sk, goldens, card)
+        run_trace_cli(goldens, here, full_art, card)
+        print(f"phase 12 (flight recorder) took {time.perf_counter() - t12:.1f} s")
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -1280,6 +1539,10 @@ def main() -> int:
             "triage_launches": wedge["culprit"]["launches"][key],
             "triage_ms": wedge["checked"][name]["ms"],
             "triage_bound_ms": wedge["checked"][name]["bound_ms"],
+            "armed_launches": tele["launches"]["bench_sim"][key],
+            "armed_ms": tele["checked"][name]["ms"],
+            "armed_bound_ms": tele["checked"][name]["bound_ms"],
+            "armed_fleet_launches": tele_fleet["launches"][key],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

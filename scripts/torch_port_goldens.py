@@ -47,7 +47,22 @@ writes) what each must reproduce:
   ``decision_round_max`` one round below its last decision, shrunk with
   ``shrink_case(max_evals=3, batch=False)``: the final config, the
   violation, the artifact's ``decision_log_sha256`` and ``rounds``, and
-  the sha256 of the artifact file and of the ``repro --json`` stdout.
+  the sha256 of the artifact file and of the ``repro --json`` stdout;
+- ``telemetry``: the flight recorder.  ``runs``: ``sim.run_with_telemetry``
+  (``window_rounds`` 16) on ``bench_sim``, ``bench_sim_partition_flap``
+  and ``bench_sim_wan3`` (the last with the preset's region map and
+  names), each ``summary_to_dict(summary, windows)``; ``fleet``: the
+  128-lane ``FleetRunner(telemetry=True)`` at the fleet entry's
+  configuration and headline cycle, with ``run(regions=)`` cycling the
+  WAN3 map, the WAN5 map and None over the lanes, per lane the sha256
+  of ``lane_telemetry(i)`` as sorted compact JSON (lanes 0 and 12, the
+  one that never finishes, also in full) and the decision-log sha256;
+  ``trace``: the sha256 of ``python -m tpu_paxos trace <basename>
+  --stdout`` run in the artifact's directory, for the two committed
+  artifacts (``repro_culprit.json``, ``repro_takeover.json``, the latter
+  with the seeded wedge armed as its shrink had it) and for
+  ``triage_full``'s 2**23 artifact (rewritten here and held to its
+  golden file sha256 first).
 
 The general-engine entries hold the round count, ``done``, the chosen
 count and the decision-log sha256 (with the config, faults included, as
@@ -63,6 +78,9 @@ Usage (from the repo root)::
 ``--triage-only [ENTRY ...]`` recomputes only the triage entries (all
 three, or those named) of an existing ``--write`` file; ``triage_wedge``
 rewrites the two artifacts beside it.
+
+``--telemetry-only`` recomputes only the ``telemetry`` entry of an
+existing ``--write`` file (about 25 min on the CPU box).
 
 ``--instances`` shrinks the bench run (for a quick self-check); the
 committed file holds the full 2**23 run.
@@ -476,17 +494,190 @@ def triage_goldens(out: dict, out_dir: str, parts=("stress_quick", "triage_wedge
     return {k: make[k]() for k in parts}
 
 
+TELEMETRY_WINDOW_ROUNDS = 16
+TELEMETRY_FLEET_CYCLE = "headline"
+#: lanes whose full lane_telemetry dict is kept beside every lane's sha
+TELEMETRY_FLEET_FULL_LANES = (0, 12)
+
+
+def lane_telemetry_sha256(d: dict) -> str:
+    """The sha256 of a ``lane_telemetry`` dict as sorted compact JSON."""
+    return hashlib.sha256(
+        json.dumps(d, sort_keys=True, separators=(",", ":")).encode()
+    ).hexdigest()
+
+
+def telemetry_fleet_regions(n_lanes: int):
+    """Per-lane region maps of the armed fleet golden: the WAN3 map, the
+    WAN5 map and None in turn."""
+    from tpu_paxos.core import wan as wanm
+
+    maps = [wanm.node_regions(wanm.WAN3, 5).tolist(), wanm.node_regions(wanm.WAN5, 5).tolist(),
+            None]
+    return [maps[i % len(maps)] for i in range(n_lanes)]
+
+
+def _telemetry_run(gold: dict) -> dict:
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.core import faults as flt
+    from tpu_paxos.core import sim
+    from tpu_paxos.core import wan as wanm
+    from tpu_paxos.harness import stress
+    from tpu_paxos.replay.decision_log import decision_log
+    from tpu_paxos.telemetry import recorder as telem
+
+    bc = gold["config"]
+    f = dict(bc["faults"])
+    if "schedule" in f:
+        f["schedule"] = flt.FaultSchedule.from_dict(f["schedule"])
+    if "edges" in f:
+        f["edges"] = cfgm.EdgeFaultConfig.from_dict(f["edges"])
+    cfg = cfgm.SimConfig(
+        n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
+        proposers=tuple(bc["proposers"]), seed=bc["seed"],
+        assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
+        faults=cfgm.FaultConfig(**f),
+    )
+    mix = bc.get("mix")
+    rmap = stress.WAN_REGIONS.get(mix)
+    names = tuple(stress.WAN_NAMES.get(mix, ()))
+    res, summ, wsum = sim.run_with_telemetry(
+        cfg, sim.default_workload(cfg), None, window_rounds=TELEMETRY_WINDOW_ROUNDS,
+        region_map=rmap,
+    )
+    return {
+        "source": gold.get("mix", "bench_sim"),
+        "region_map": None if rmap is None else [int(x) for x in rmap],
+        "region_names": list(names),
+        "decision_log_sha256": hashlib.sha256(decision_log(
+            res.chosen_vid, res.chosen_ballot, gold["stride"], cfg.n_instances,
+        ).encode()).hexdigest(),
+        "summary": telem.summary_to_dict(summ, wsum, TELEMETRY_WINDOW_ROUNDS, names),
+    }
+
+
+def _telemetry_fleet(n_lanes: int = FLEET_LANES) -> dict:
+    import numpy as np
+
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.fleet import runner as frun
+    from tpu_paxos.fleet import search
+    from tpu_paxos.harness import stress
+    from tpu_paxos.replay.decision_log import decision_log
+
+    workload, gates, _ = stress._workload(2, np.random.default_rng(0))
+    fc = fleet_config(workload)
+    cfg = cfgm.SimConfig(
+        n_nodes=fc["n_nodes"], n_instances=fc["n_instances"],
+        proposers=tuple(fc["proposers"]), seed=fc["seed"],
+        max_rounds=fc["max_rounds"], faults=cfgm.FaultConfig(**fc["faults"]),
+    )
+    rng = np.random.default_rng(1)
+    schedules = [search.sample_schedule(rng, 5, 4, 96) for _ in range(n_lanes)]
+    runner = frun.FleetRunner(cfg, workload, gates, telemetry=True)
+    first, mixes = FLEET_CYCLES[TELEMETRY_FLEET_CYCLE]
+    knobs = [cfgm.FaultConfig(**mixes[i % len(mixes)]) for i in range(n_lanes)]
+    regions = telemetry_fleet_regions(n_lanes)
+    rep = runner.run([first + i for i in range(n_lanes)], schedules, knobs=knobs,
+                     regions=regions)
+    chosen_vid = np.asarray(rep.final.met.chosen_vid)  # paxlint: allow[JAX103] once per dispatch
+    chosen_ballot = np.asarray(rep.final.met.chosen_ballot)  # paxlint: allow[JAX103] once per dispatch
+    dicts = [rep.lane_telemetry(i) for i in range(n_lanes)]
+    return {
+        "cycle": TELEMETRY_FLEET_CYCLE,
+        "regions": "telemetry_fleet_regions(lanes): WAN3 map, WAN5 map, None in turn",
+        "lane_telemetry_sha256": [lane_telemetry_sha256(d) for d in dicts],
+        "lane_telemetry": {str(i): dicts[i] for i in TELEMETRY_FLEET_FULL_LANES},
+        "decision_log_sha256": [
+            hashlib.sha256(decision_log(
+                chosen_vid[i], chosen_ballot[i], runner.vid_bound, cfg.n_instances,
+            ).encode()).hexdigest()
+            for i in range(n_lanes)
+        ],
+    }
+
+
+def trace_stdout(artifact: str, env_extra: dict) -> str:
+    """Stdout of ``python -m tpu_paxos trace <basename> --stdout`` run in
+    the artifact's directory (the trace names the path as given)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **env_extra)
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_paxos", "trace", os.path.basename(artifact), "--stdout"],
+        cwd=os.path.dirname(os.path.abspath(artifact)), env=env,
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"JAX trace of {artifact} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _trace_golden(path: str, env: dict) -> dict:
+    before = _file_sha256(path)
+    out = trace_stdout(path, env)
+    if _file_sha256(path) != before:
+        raise RuntimeError(f"tracing {path} changed the artifact")
+    return {"env": env, "artifact_sha256": before,
+            "stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
+            "stdout_bytes": len(out.encode())}
+
+
+def _full_artifact(gold: dict, path: str) -> None:
+    """Rewrite ``triage_full``'s artifact with JAX and hold it to its
+    golden file sha256."""
+    import numpy as np
+
+    from tpu_paxos.core import sim
+    from tpu_paxos.harness import shrink as shr
+
+    cfg = shr._cfg_from_dict(gold["final_cfg"])
+    wl = sim.default_workload(cfg)
+    case = shr.ReproCase(cfg=cfg, workload=wl, gates=None,
+                         chains=[np.zeros(0, np.int32)] * len(wl),
+                         extra_checks=dict(gold["extra_checks"]))
+    shr.save_artifact(path, case, gold["violation"])
+    if _file_sha256(path) != gold["artifact_sha256"]:
+        raise RuntimeError("the rewritten 2**23 artifact differs from triage_full's golden")
+
+
+def telemetry_goldens(out: dict, out_dir: str) -> dict:
+    import tempfile
+
+    runs = {key: _telemetry_run(out[key])
+            for key in ("bench_sim", "bench_sim_partition_flap", "bench_sim_wan3")}
+    fleet = _telemetry_fleet()
+    trace = {}
+    for name, spec in sorted(out["triage_wedge"]["cases"].items()):
+        trace[spec["artifact"]] = _trace_golden(os.path.join(out_dir, spec["artifact"]),
+                                                spec["env"])
+    full = out["triage_full"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, full["artifact"])
+        _full_artifact(full, path)
+        trace[full["artifact"]] = _trace_golden(path, {})
+    return {"window_rounds": TELEMETRY_WINDOW_ROUNDS, "runs": runs, "fleet": fleet,
+            "trace": trace}
+
+
 def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
     """Every entry; the triage artifacts go to ``out_dir`` (a temporary
     directory when None)."""
     import tempfile
 
     out = compute_runs(n_instances)
+
+    def rest(path):
+        out.update(triage_goldens(out, path))
+        out["telemetry"] = telemetry_goldens(out, path)
+
     if out_dir is not None:
-        out.update(triage_goldens(out, out_dir))
+        rest(out_dir)
         return out
     with tempfile.TemporaryDirectory() as tmp:
-        out.update(triage_goldens(out, tmp))
+        rest(tmp)
     return out
 
 
@@ -542,9 +733,11 @@ def main(argv=None) -> int:
                     choices=("stress_quick", "triage_wedge", "triage_full"),
                     help="recompute only the triage entries (all three, or those "
                     "named) of the --write file")
+    ap.add_argument("--telemetry-only", action="store_true",
+                    help="recompute only the telemetry entry of the --write file")
     args = ap.parse_args(argv)
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
-    if args.fleet_only or args.triage_only is not None:
+    if args.fleet_only or args.triage_only is not None or args.telemetry_only:
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -552,6 +745,8 @@ def main(argv=None) -> int:
         if args.triage_only is not None:
             out.update(triage_goldens(out, out_dir, tuple(args.triage_only) or (
                 "stress_quick", "triage_wedge", "triage_full")))
+        if args.telemetry_only:
+            out["telemetry"] = telemetry_goldens(out, out_dir)
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

@@ -100,7 +100,8 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
     (["4", "4", "10", "--engine=fast", "--mesh", "2"], "--engine=fast"),
     (["4", "4", "10", "--engine=member"], "--engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
-    (["trace", "artifact.json"], "'trace'"),
+    # trace is ported; its serve mode is not (kept under the case's id)
+    pytest.param(["trace", "--serve"], "'trace --serve'", id="argv3-'trace'"),
     (["fleet", "--lanes", "2"], "'fleet'"),
     (["serve", "--values", "8"], "'serve'"),
     (["evolve"], "'evolve'"),
@@ -160,7 +161,7 @@ fleet = envelope.runner_for(config.SimConfig(n_nodes=3, n_instances=16, proposer
                             [[100, 101], [200]], device="cpu")
 rep = fleet.run([0, 1], [sched, None], workloads=[([[100, 101], [200]], None)] * 2,
                 knobs=[config.FaultConfig(max_delay=1), config.FaultConfig(drop_rate=500)])
-import contextlib, io, os, tempfile
+import contextlib, io, json, os, tempfile
 from tpu_paxos_torch import __main__ as cli
 from tpu_paxos_torch.analysis import artifact_schema, chunking
 from tpu_paxos_torch.harness import shrink, stress
@@ -176,10 +177,27 @@ with tempfile.TemporaryDirectory() as tmp:
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["repro", path, "--device", "cpu"])
 summary = stress.sweep(n_seeds=1, mixes=stress.MIXES[:1], verbose=False, device="cpu")
+from tpu_paxos_torch.telemetry import diagnose, recorder
+armed, summ, wins = sim.run_with_telemetry(
+    config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1),
+                     faults=config.FaultConfig(max_delay=1, schedule=sched)), device="cpu")
+tele = envelope.runner_for(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1)),
+                           [[100, 101], [200]], telemetry=True, device="cpu").run(
+    [0, 1], [sched, None], workloads=[([[100, 101], [200]], None)] * 2,
+    knobs=[config.FaultConfig(max_delay=1)] * 2, regions=[[0, 1, 2], None])
+diag = diagnose.diagnose_series(recorder.summary_to_dict(summ, wins)["windows"])
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "a.json")
+    shrink.save_artifact(path, small, viol, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc_trace = cli.main(["trace", path, "--stdout", "--device", "cpu"])
+    trace = json.loads(buf.getvalue())
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
-      and chunking.chunk_pad([1], 2) == [([1, 1], 1)])
+      and chunking.chunk_pad([1], 2) == [([1, 1], 1)]
+      and armed.done and int(summ.decided) == 8 and tele.lane_telemetry(1)["decided"] == 3
+      and isinstance(diag, dict) and rc_trace == 0 and trace["otherData"]["decided"] >= 1)
 print(len(mods), bool(ok), loaded)
 """
 
@@ -188,7 +206,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 34  # every module of the package was imported, analysis/ too
+    assert int(n_mods) >= 38  # every module of the package was imported, telemetry/ too
     assert done == "True"
     assert loaded.strip() == "[]"
 

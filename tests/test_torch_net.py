@@ -91,7 +91,7 @@ def test_knobs_from_faults_rejects_edges():
 
 def test_init_and_clear_slot_match_jax():
     jb = jnet.init_buffers(4, 2, 5)
-    tb = tnet.init_buffers(4, 2, 5)
+    tb = tnet.init_buffers(4, 2, 5, device="cpu")
     rng = np.random.default_rng(2)
     jb = jb._replace(prep_req=jnp.asarray(rng.integers(-1, 9, (4, 2, 5)), jnp.int32),
                      com_rep=jnp.asarray(rng.random((4, 5, 2)) < 0.5))

@@ -359,8 +359,17 @@ def test_unported_faults_raise_by_name(field):
 def test_unported_build_flags_raise_by_name(flag):
     """Build options not ported yet raise by name.  The runtime-schedule
     and runtime-knob builds are ported: their round raises by name the
-    per-call input it is not given, as the JAX round does."""
-    _, tc = _cfgs(n_nodes=3, n_instances=16)
+    per-call input it is not given, as the JAX round does.  The
+    telemetry build is ported: with ``axis_name`` it raises JAX's
+    ValueError, before the sharded build's own refusal."""
+    jc, tc = _cfgs(n_nodes=3, n_instances=16)
+    if flag == "telemetry":
+        with pytest.raises(ValueError) as je:
+            jsim.build_engine(jc, 32, axis_name="x", telemetry=True)
+        with pytest.raises(ValueError) as te:
+            tsim.build_engine(tc, 32, device="cpu", axis_name="x", telemetry=True)
+        assert str(te.value) == str(je.value) and "sharded" in str(te.value)
+        return
     if flag not in ("runtime_knobs", "runtime_schedule"):
         with pytest.raises(NotImplementedError, match=flag):
             tsim.build_engine(tc, 32, device="cpu", **{flag: True})

@@ -10,7 +10,8 @@ Output, byte for byte as the JAX CLI prints it: for the general engine
 the decision log in the reference grammar on stdout, then one invariant
 verdict line; for the fast path the verdict line alone.  Exit code 0
 iff every invariant holds; 2 for what the port does not run yet
-(``--engine=member``, ``--mesh``, every subcommand but ``repro``).
+(``--engine=member``, ``--mesh``, every subcommand but ``repro`` and
+``trace``).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -18,6 +19,11 @@ decision log, then the JSON summary or verdict line; exit 0 iff the
 recorded violation recurs with an equal decision-log sha256, 1 if not,
 2 for a malformed artifact (a JSON summary naming the field) and for
 artifacts of engines the port does not run yet.
+
+``python -m tpu_paxos_torch trace <artifact> [--stdout] [--device
+{cuda,cpu}]`` re-runs a repro artifact with the flight recorder armed
+and renders it as a Chrome-trace/Perfetto timeline
+(``telemetry/export.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import json
 import os
 import sys
 
-_SUBCOMMANDS = ("trace", "serve", "fleet", "evolve", "mc", "lint", "audit")
+_SUBCOMMANDS = ("serve", "fleet", "evolve", "mc", "lint", "audit")
 
 #: Artifact engines whose replay is not ported yet, and what replays them.
 _UNPORTED_ENGINES = {
@@ -274,6 +280,10 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "repro":
         return run_repro(argv[1:])
+    if argv and argv[0] == "trace":
+        from tpu_paxos_torch.telemetry import export
+
+        return export.main(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2

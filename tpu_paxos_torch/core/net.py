@@ -144,9 +144,10 @@ class NetBuffers(NamedTuple):
     com_rep: torch.Tensor  # [S, A, P] bool
 
 
-def init_buffers(s: int, p: int, a: int, device="cpu", lanes: int | None = None) -> NetBuffers:
-    """Empty calendars; with ``lanes`` every buffer gains a leading lane
-    axis (``[L, S, ...]``)."""
+def init_buffers(s: int, p: int, a: int, device="cuda", lanes: int | None = None) -> NetBuffers:
+    """Empty calendars on ``device``; with ``lanes`` every buffer gains a
+    leading lane axis (``[L, S, ...]``)."""
+    device = devm.resolve(device)
     lead = () if lanes is None else (lanes,)
 
     def none(*shape):

@@ -51,10 +51,14 @@ How the port runs what JAX compiles:
   launch per kernel; a single run is one lane of it.  How each
   ``lax.cond`` block stays exact per lane, and how a finished lane stays
   as it was, is documented there and at :func:`run_lanes`.
+- The flight recorder (``telemetry=True``, :func:`_record`) rides the
+  lane-axis round beside the state: it reads values the round computed,
+  including the identity values of the blocks the host skipped, makes
+  no host read of its own, and is frozen with a lane's state.
+  :func:`run_with_telemetry` reduces it on the device after the loop.
 
 Not ported yet (each raises ``NotImplementedError`` naming itself):
-``admit_block``, and the sharded, telemetry, geometry and
-runtime-protocol builds.
+``admit_block``, and the sharded, geometry and runtime-protocol builds.
 """
 
 from __future__ import annotations
@@ -241,19 +245,25 @@ def _init_lanes(cfg: SimConfig, pend, gate, tail, roots, device) -> SimState:
     )
 
 
+def _rebuild(tree, items):
+    """A tree of the kind of ``tree`` (a NamedTuple or a plain tuple)
+    holding ``items``."""
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
 def lanes_view(state):
     """``state`` (or any tree of tensors) as one lane: every leaf gains a
     leading lane axis of 1, as a view of the same storage."""
     if isinstance(state, torch.Tensor):
         return state[None]
-    return type(state)(*[lanes_view(x) for x in state])
+    return _rebuild(state, [lanes_view(x) for x in state])
 
 
 def lane_of(state, i: int):
     """Lane ``i`` of a lane-stacked tree, as views."""
     if isinstance(state, torch.Tensor):
         return state[i]
-    return type(state)(*[lane_of(x, i) for x in state])
+    return _rebuild(state, [lane_of(x, i) for x in state])
 
 
 def _freeze(old, new, keep: torch.Tensor):
@@ -265,7 +275,7 @@ def _freeze(old, new, keep: torch.Tensor):
             return new
         k = keep.reshape((-1,) + (1,) * (new.ndim - 1))
         return torch.where(k, new, old)
-    return type(new)(*[_freeze(o, n, keep) for o, n in zip(old, new)])
+    return _rebuild(new, [_freeze(o, n, keep) for o, n in zip(old, new)])
 
 
 def _window_read(rows: torch.Tensor, starts: torch.Tensor, w: int) -> torch.Tensor:
@@ -332,9 +342,7 @@ def _one_lane(table):
     return type(table)(*[np.asarray(x)[None] for x in table])
 
 
-_UNPORTED_FLAGS = (
-    "axis_name", "telemetry", "window_rounds", "geometry", "runtime_protocol",
-)
+_UNPORTED_FLAGS = ("axis_name", "geometry", "runtime_protocol")
 
 
 def build_engine(
@@ -345,6 +353,8 @@ def build_engine(
     device="cuda",
     runtime_schedule: bool = False,
     runtime_knobs: bool = False,
+    telemetry: bool = False,
+    window_rounds: int = 0,
     **flags,
 ):
     """Returns ``round_fn(root, state, tab=None, knobs=None) -> state``,
@@ -366,12 +376,31 @@ def build_engine(
     then only sizes the ring.  Both are exact against the constant build
     for the same schedule and knobs, as in the JAX engine.
 
+    ``telemetry=True`` arms the flight recorder
+    (``telemetry/recorder.py``): ``round_fn(..., tele=Telemetry)``
+    returns ``(state, telemetry)``, and a nonzero ``window_rounds`` adds
+    the windowed plane, ``tele`` then being a ``(Telemetry,
+    TelemetryWindows)`` pair, bucketed ``window_rounds`` rounds wide.
+    The recorder reads the round's values and never writes into the
+    state, so an armed run's decisions equal the plain run's.  Not with
+    ``axis_name``; ``window_rounds`` needs ``telemetry``.
+
     The accept store and the ack fold run the simkern CUDA kernels on a
     CUDA device and their plain versions on the CPU; ``use_kernels``
     may only confirm that (``True`` on the CPU raises: there is no CUDA
     kernel to run there).  ``flags`` are the JAX engine's
     other build options, none ported yet: any set to a non-default
     value raises naming it."""
+    if telemetry and flags.get("axis_name") is not None:
+        raise ValueError(
+            "telemetry is not supported on the sharded engine yet "
+            "(the recorder's per-instance ledger is unsharded)"
+        )
+    if window_rounds and not telemetry:
+        raise ValueError(
+            "window_rounds arms the recorder's windowed plane; it "
+            "requires telemetry=True"
+        )
     for name in _UNPORTED_FLAGS:
         if flags.pop(name, None):
             raise NotImplementedError(f"build_engine {name} is not ported yet")
@@ -439,6 +468,14 @@ def build_engine(
     # the seven send sites in message order: True = proposer->node [P, A]
     site_pa = [True, False, False, True, False, True, False]
     pn_np = np.asarray(cfg.proposers)
+    # the recorder's proposer-row scatter as a gather: node a takes
+    # proposer row pn_inv[a], or the zero row P if no proposer sits on it
+    pn_inv = np.full((a,), p, np.int64)
+    pn_inv[pn_np] = np.arange(p)
+    # the sites of each direction, as device indices: a Python list as an
+    # index would copy it to the card from pageable memory, a host sync
+    site_dirs = [torch.tensor([k for k, pa in enumerate(site_pa) if pa == d], device=dev)
+                 for d in (True, False)]
 
     def draws(roots, t: int, tab, knobs, running):
         """Every coin of round ``t`` for every lane, hashed in one pass on
@@ -506,14 +543,16 @@ def build_engine(
                 rows_d[name] = part.reshape(np.shape(x)).bool()
         return plans, coins[0], crash_coin, rows_d
 
-    def lanes_fn(roots, st: SimState, t: int, tab=None, knobs=None, running=None) -> SimState:
+    def lanes_fn(roots, st: SimState, t: int, tab=None, knobs=None, running=None, tele=None):
         """One round of ``L`` lanes: every leaf of ``st`` has a leading
         lane axis, ``roots`` is ``[L, 2]`` (``prng.root_keys``), ``t`` the
         round every running lane is at, ``tab``/``knobs`` the lane-stacked
-        schedule tables and knobs of a runtime build, and ``running`` an
-        ``[L]`` bool array (None: every lane runs).  A lane that is not
+        schedule tables and knobs of a runtime build, ``running`` an
+        ``[L]`` bool array (None: every lane runs) and ``tele`` the
+        lane-stacked recorder of an armed build.  A lane that is not
         running comes back exactly as it was given, as a finished lane's
-        carry stays in a batched ``while_loop``."""
+        carry stays in a batched ``while_loop``.  Returns the state, or
+        ``(state, tele)`` when armed."""
         if runtime_schedule and tab is None:
             raise TypeError(
                 "this engine was built with runtime_schedule=True; "
@@ -524,6 +563,11 @@ def build_engine(
                 "this engine was built with runtime_knobs=True; "
                 "round_fn needs a FaultKnobs argument"
             )
+        if telemetry and tele is None:
+            raise TypeError(
+                "this engine was built with telemetry=True; round_fn "
+                "needs a Telemetry accumulator argument"
+            )
         for name in ("pend", "gate"):
             width = getattr(st.prop, name).shape[-1]
             if width != c + w:
@@ -531,16 +575,17 @@ def build_engine(
                     f"{name} rows are {width} wide; expected {c} + "
                     f"assign_window {w} padding"
                 )
-        return _lane_round(ctx, roots, st, t, tab, knobs, running)
+        return _lane_round(ctx, roots, st, t, tab, knobs, running, tele if telemetry else None)
 
-    def round_fn(root, st: SimState, tab=None, knobs=None) -> SimState:
+    def round_fn(root, st: SimState, tab=None, knobs=None, tele=None):
         """One round of one run: :func:`_lane_round` at one lane."""
         if tab is not None:
             tab = _one_lane(tab)
         if knobs is not None:
             knobs = _one_lane(knobs)
         roots = np.asarray([root], np.uint64)
-        return lane_of(lanes_fn(roots, lanes_view(st), int(st.t), tab, knobs), 0)
+        tl = None if tele is None else lanes_view(tele)
+        return lane_of(lanes_fn(roots, lanes_view(st), int(st.t), tab, knobs, tele=tl), 0)
 
     def dormant(st: SimState, t: int, tab=None, knobs=None, running=None):
         """``[L]`` bool on the device, or None where no lane qualifies:
@@ -576,13 +621,16 @@ def build_engine(
         r_cap=r_cap, span=span, pn=pn, pn32=pn32,
         idx=idx, offs_w=offs_w, bcast_a=bcast_a,
         vid_cap=vid_cap, draws=draws, dev=dev,
+        telemetry=telemetry, window_rounds=int(window_rounds),
+        site_pa=site_pa, site_dirs=site_dirs, pn_inv=torch.from_numpy(pn_inv).to(dev),
     )
     round_fn.lanes = lanes_fn
     round_fn.dormant = dormant
+    round_fn.window_rounds = int(window_rounds) if telemetry else None
     return round_fn
 
 
-def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running) -> SimState:
+def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running, tele=None):
     """The round over a leading lane axis ``L``.  The JAX engine's
     ``lax.cond`` blocks are host branches here, as in a single run; under
     ``jax.vmap`` each is a per-lane select of both branches, so the port
@@ -592,7 +640,11 @@ def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running) -> SimState
     block), or selects per lane.  Where JAX picks a fast or a general
     form by a predicate (``_assign``'s prefix test, ``_requeue``'s
     contiguity and width tests) the fast form runs only if every lane's
-    predicate holds; the general form equals it wherever it does."""
+    predicate holds; the general form equals it wherever it does.
+
+    With ``tele`` (an armed build) the round also returns the recorder
+    updated by :func:`_record`, frozen with the state on lanes that are
+    not running."""
     a, p, pn = b.a, b.p, b.pn
     lanes = st.t.shape[0]
     s = st.net.prep_req.shape[1]
@@ -669,14 +721,19 @@ def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running) -> SimState
         )
 
     acc = AcceptorState(promised, max_seen, acc_ballot, acc_vid)
+    rec = {} if tele is not None else None
     new = _proposer_round(
         b, st, t, net, ar, plans, rnd_delay, crash_coin, alive_a,
         prop_alive, acc, learned, preq, grant, rej_prep, rej_acc,
-        abal, elig, cpres, any_com_arr, cut_pa, cut_ap, rows, run_d,
+        abal, elig, cpres, any_com_arr, cut_pa, cut_ap, rows, run_d, rec,
     )
+    if tele is not None:
+        new_tele = _record(b, st, new, rec, tele, t)
     if run_d is not None:
         new = _freeze(st, new, run_d)
-    return new
+        if tele is not None:
+            new_tele = _freeze(tele, new_tele, run_d)
+    return new if tele is None else (new, new_tele)
 
 
 def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign, lane_pred):
@@ -806,12 +863,14 @@ def _requeue(b, pend, own_assign, ptail, conflict, lane_pred):
 def _proposer_round(
     b, st, t, net, ar, plans, rnd_delay, crash_coin, alive_a, prop_alive,
     acc, learned, preq, grant, rej_prep, rej_acc, abal, elig, cpres,
-    any_com_arr, cut_pa, cut_ap, rows, run_d,
+    any_com_arr, cut_pa, cut_ap, rows, run_d, rec=None,
 ):
     """The proposer half of the round, the network writes, crash
     injection and quiescence (``tpu_paxos/core/sim.py:1022-2039``), over
     the lane axis.  ``cut_pa``/``cut_ap`` are the round's reachability
-    masks (None without them) and ``rows`` its schedule rows."""
+    masks (None without them) and ``rows`` its schedule rows.  An armed
+    build passes a dict ``rec`` that collects what the recorder reads
+    beyond the new state (:func:`_record`)."""
     a, p, pn, pk, quorum = b.a, b.p, b.pn, b.pk, b.quorum
     lanes = st.t.shape[0]
     pr = st.prop
@@ -925,6 +984,10 @@ def _proposer_round(
         mround = torch.where(any_new, t, mround)
         mballot = torch.where(any_new, new_b, mballot)
     met = st.met._replace(chosen_vid=mvid, chosen_round=mround, chosen_ballot=mballot)
+    if rec is not None:
+        # the admission stamp reads the batch the ack fold judged, before
+        # the mode ladder below clears it
+        rec["adm_any"] = (cur_batch != val.NONE).any(dim=1)  # [L, I]
 
     # COMMIT_REPLY arrivals: presence; per-instance ack by learned match.
     crep = ar.com_rep & rx_p  # [L, A, P]
@@ -1054,24 +1117,27 @@ def _proposer_round(
     send_rej = (rej_prep | rej_acc).transpose(1, 2)
     send_arep = elig.transpose(1, 2)  # [L, A, P] reply whenever ballot >= promised
     send_crep = cpres.transpose(1, 2)  # [L, A, P]
+    # the seven send masks in message order, before and after the cuts
+    pre = [
+        send_prep[..., None] & bcast_a, send_rep, send_rej,
+        send_accept[..., None] & bcast_a, send_arep,
+        send_commit[..., None] & bcast_a, send_crep,
+    ]
+    post = [cpa(m) if pa else cap(m) for m, pa in zip(pre, b.site_pa)]
+    if rec is not None:
+        rec["sites"] = [(al_, dl_, m, m0) for (al_, dl_), m, m0 in zip(plans, post, pre)]
     net = netm.NetBuffers(
-        prep_req=netm.write_ballot(
-            net.prep_req, t, al0, dl0, ballot[..., None], cpa(send_prep[..., None] & bcast_a)
-        ),
-        prep_echo=netm.write_ballot(net.prep_echo, t, al1, dl1, preq.transpose(1, 2), cap(send_rep)),
+        prep_req=netm.write_ballot(net.prep_req, t, al0, dl0, ballot[..., None], post[0]),
+        prep_echo=netm.write_ballot(net.prep_echo, t, al1, dl1, preq.transpose(1, 2), post[1]),
         rej=netm.write_ballot(
-            net.rej, t, al2, dl2, acc.max_seen[..., None].expand(lanes, a, p), cap(send_rej)
+            net.rej, t, al2, dl2, acc.max_seen[..., None].expand(lanes, a, p), post[2]
         ),
-        acc_req=netm.write_ballot(
-            net.acc_req, t, al3, dl3, ballot[..., None], cpa(send_accept[..., None] & bcast_a)
-        ),
+        acc_req=netm.write_ballot(net.acc_req, t, al3, dl3, ballot[..., None], post[3]),
         acc_echo=netm.write_ballot(
-            net.acc_echo, t, al4, dl4, abal[:, None, :].expand(lanes, a, p), cap(send_arep)
+            net.acc_echo, t, al4, dl4, abal[:, None, :].expand(lanes, a, p), post[4]
         ),
-        com_pres=netm.write_flag(
-            net.com_pres, t, al5, dl5, cpa(send_commit[..., None] & bcast_a)
-        ),
-        com_rep=netm.write_flag(net.com_rep, t, al6, dl6, cap(send_crep)),
+        com_pres=netm.write_flag(net.com_pres, t, al5, dl5, post[5]),
+        com_rep=netm.write_flag(net.com_rep, t, al6, dl6, post[6]),
     )
     msgs = met.msgs + torch.stack([
         send_prep.sum(dim=1) * a, send_rep.sum(dim=(1, 2)), send_rej.sum(dim=(1, 2)),
@@ -1134,6 +1200,8 @@ def _proposer_round(
         & (q_pending == 0) & (own_n == 0) & palive2
     )
     stall = torch.where(idle_now & (unresolved & ~done)[:, None], pr.stall + 1, 0)
+    if rec is not None:
+        rec.update(newly=newly, nreq=nreq, do_restart=do_restart, crep=crep)
 
     return SimState(
         t=st.t + 1,
@@ -1174,6 +1242,125 @@ def _proposer_round(
         qsums=sums,
         qhmax=hmax,
     )
+
+
+def _record(b, st: SimState, new: SimState, rec: dict, tele, t: int):
+    """The flight recorder's round (``tpu_paxos/core/sim.py:2040-2181``):
+    every field reduces values the round already computed (``new``, the
+    round's output, and ``rec`` from :func:`_proposer_round`), with no
+    host read, so an armed round makes the plain round's syncs.  Where
+    the host skipped a block the recorder reads that block's identity
+    values: ``newly`` None is all-false, ``nreq`` zeros.  ``tele`` is a
+    :class:`~tpu_paxos_torch.telemetry.recorder.Telemetry` or, windowed,
+    a ``(Telemetry, TelemetryWindows)`` pair; returns the same kind."""
+    from tpu_paxos_torch.telemetry import recorder as rc
+
+    none = val.NONE
+    ww = b.window_rounds
+    base, wins = tele if ww else (tele, None)
+
+    # The seven sites stacked proposer-row first ([L, 7, (4,) P, A]:
+    # node->proposer sites transposed), so each counter is one reduction.
+    def orient(x, pa):
+        return x if pa else x.transpose(-1, -2)
+
+    al, dl, post, pre = (
+        torch.stack([orient(s[k], pa) for s, pa in zip(rec["sites"], b.site_pa)], dim=1)
+        for k in range(4)
+    )
+    surv = post[:, :, None] & al  # [L, 7, 4, P, A] surviving copies
+    drop = post & ~al[:, :, 0]
+    per_type = torch.stack([
+        post.sum(dim=(2, 3)), drop.sum(dim=(2, 3)), surv[:, :, 1:].sum(dim=(2, 3, 4)),
+        (surv & (dl > 0)).sum(dim=(2, 3, 4)),
+    ]).to(_I32)  # [4, L, 7]: offered, dropped, duped, delayed
+    # Per-edge increments [L, 4, A, A] (offered, dropped, cut, summed
+    # delay): each direction's sites summed, proposer rows placed on their
+    # nodes, node->proposer sums transposed back.
+    per_edge = torch.stack([
+        post.to(_I32), drop.to(_I32), (pre & ~post).to(_I32),
+        torch.where(surv, dl, 0).sum(dim=2).to(_I32),
+    ], dim=1)  # [L, 4, 7, P, A]
+
+    def rows(sites):  # the sites' sum [L, 4, P, A] -> [L, 4, A, A] by proposer node
+        q = per_edge.index_select(2, sites).sum(dim=2)
+        pad = torch.cat([q, torch.zeros_like(q[:, :, :1])], dim=2)
+        return pad.index_select(2, b.pn_inv)
+
+    pa_sites, ap_sites = b.site_dirs
+    inc = (rows(pa_sites) + rows(ap_sites).transpose(-1, -2)).to(_I32)
+
+    pr, pr0 = new.prop, st.prop
+    restarts = _sum32(rec["do_restart"], dim=1)
+    cv_new = (pr.commit_vid != none) & (pr0.commit_vid == none)
+    newly = rec["newly"]
+    took = cv_new if newly is None else cv_new & ~newly  # [L, P, I]
+    takeovers = _sum32(took, dim=(1, 2))
+    learned = new.learned
+    learned_any = learned != none
+    # phase-ledger stamps: learned by a majority of nodes; commit ladder
+    # complete (some commitment acked by every node not crashed)
+    learn_ok = learned_any.sum(dim=1) >= b.quorum  # [L, I]
+    full_ack = (
+        (pr.commit_vid != none)
+        & (pr.commit_acked | new.crashed[:, None, :, None]).all(dim=2)
+    ).any(dim=1)  # [L, I]
+    stall_now = pr.stall.amax(dim=1)
+
+    def stamp(old, cond):
+        return torch.where((old == none) & cond, t, old)
+
+    new_base = rc.Telemetry(
+        offered=base.offered + per_type[0],
+        dropped=base.dropped + per_type[1],
+        duped=base.duped + per_type[2],
+        delayed=base.delayed + per_type[3],
+        learns=base.learns + _sum32(learned_any & (st.learned == none), dim=(1, 2)),
+        commit_acks=base.commit_acks + _sum32(rec["crep"], dim=(1, 2)),
+        takeovers=base.takeovers + takeovers,
+        requeues=base.requeues + _sum32(rec["nreq"], dim=1),
+        restarts=base.restarts + restarts,
+        admit_round=stamp(base.admit_round, rec["adm_any"]),
+        learned_round=stamp(base.learned_round, learn_ok),
+        committed_round=stamp(base.committed_round, full_ack),
+        takeover_round=stamp(base.takeover_round, took.any(dim=2)),
+        stall_max=torch.maximum(base.stall_max, stall_now),
+        edge_offered=base.edge_offered + inc[:, 0],
+        edge_dropped=base.edge_dropped + inc[:, 1],
+        edge_cut=base.edge_cut + inc[:, 2],
+    )
+    if not ww:
+        return new_base
+    # Windowed plane: the same values in the bucket of round t (one
+    # bucket for every running lane: they share the round).
+    wb = rc.window_bucket(t, ww)
+    totals = per_type.sum(dim=2)  # [4, L]
+
+    def add(series, v):
+        out = series.clone()
+        out[:, wb] += v
+        return out
+
+    def top(series, v):
+        out = series.clone()
+        out[:, wb] = torch.maximum(out[:, wb], v)
+        return out
+
+    node = inc.sum(dim=2) + inc.sum(dim=3)  # [L, 4, A] both endpoints
+    new_wins = rc.TelemetryWindows(
+        offered=add(wins.offered, totals[0]),
+        dropped=add(wins.dropped, totals[1]),
+        duped=add(wins.duped, totals[2]),
+        delayed=add(wins.delayed, totals[3]),
+        stall_max=top(wins.stall_max, stall_now),
+        takeovers=add(wins.takeovers, takeovers),
+        restarts=add(wins.restarts, restarts),
+        cut=add(wins.cut, _sum32(inc[:, 2], dim=(1, 2))),
+        backlog_max=top(wins.backlog_max, _sum32(pr.tail - pr.head, dim=1)),
+        node_offered=add(wins.node_offered, node[:, 0]),
+        node_delay=add(wins.node_delay, node[:, 3]),
+    )
+    return new_base, new_wins
 
 
 def admit_block(st: SimState, admit, keep=None) -> SimState:
@@ -1268,7 +1455,7 @@ def _unchanged(old, new, lanes: int) -> torch.Tensor:
     return ~changed
 
 
-def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None):
+def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None, tele=None):
     """The whole-run loop of ``L`` lanes (a batched ``while_loop``):
     lane ``l`` runs while ``~done[l] & t[l] < budgets[l]``, and a lane
     that stops keeps its state while the others run on.  Every running
@@ -1279,10 +1466,18 @@ def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None):
     says no later round depends on ``t`` there, and one round changed
     nothing) would only count rounds up to its budget: it is parked and
     its counter set to the budget at the end, as the JAX loop leaves it.
-    Returns the final states and the number of round calls."""
+    Returns the final states and the number of round calls.
+
+    An armed engine takes the lane-stacked recorder as ``tele`` and the
+    loop returns ``(states, tele, round calls)``.  The rounds a parked
+    lane skips would add nothing to its counters (no node that could
+    send is alive, nothing is in flight, every stamp already holds), but
+    their window buckets would each take the lane's constant stall depth
+    and backlog: :func:`_fill_parked` writes those at the end."""
     budgets = np.asarray(budgets, np.int64)
     lanes = budgets.shape[0]
     parked = np.zeros((lanes,), bool)
+    park_t = np.zeros((lanes,), np.int64)
     t = calls = None
     prev = check = None
     while True:
@@ -1294,7 +1489,9 @@ def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None):
         host = torch.stack(reads).cpu().numpy()
         done, t_l = host[0].astype(bool), host[1]
         if check is not None:
-            parked |= host[2].astype(bool)
+            now = host[2].astype(bool) & ~parked
+            park_t[now] = t_l[now]
+            parked |= now
         prev = check = None
         running = ~done & (t_l < budgets) & ~parked
         if not running.any():
@@ -1306,9 +1503,11 @@ def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None):
         check = round_fn.dormant(state, t, tab, knobs, running)
         if check is not None:
             prev = state
-        state = round_fn.lanes(
-            roots, state, t, tab, knobs, None if running.all() else running
-        )
+        run = None if running.all() else running
+        if tele is None:
+            state = round_fn.lanes(roots, state, t, tab, knobs, run)
+        else:
+            state, tele = round_fn.lanes(roots, state, t, tab, knobs, run, tele=tele)
         t += 1
         calls += 1
     if parked.any():
@@ -1317,7 +1516,33 @@ def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None):
             torch.from_numpy(parked).to(dev),
             torch.from_numpy(budgets.astype(np.int32)).to(dev), state.t,
         ))
-    return state, calls or 0
+        if tele is not None and round_fn.window_rounds:
+            tele = (tele[0], _fill_parked(tele[1], state, parked, park_t, budgets,
+                                          round_fn.window_rounds))
+    if tele is None:
+        return state, calls or 0
+    return state, tele, calls or 0
+
+
+def _fill_parked(wins, state: SimState, parked, park_t, budgets, window_rounds: int):
+    """The window buckets of the rounds a parked lane skipped (from the
+    round it was parked at to its budget) take its stall depth and
+    backlog as running those rounds would have: the state no longer
+    changes, so each round writes the same values."""
+    from tpu_paxos_torch.telemetry import recorder as rc
+
+    span = np.zeros((len(parked), rc.NUM_WINDOWS), bool)
+    for lane in np.flatnonzero(parked & (park_t < budgets)):
+        lo = rc.window_bucket(int(park_t[lane]), window_rounds)
+        hi = rc.window_bucket(int(budgets[lane]) - 1, window_rounds)
+        span[lane, lo:hi + 1] = True
+    span = devm.to_device(torch.from_numpy(span), state.t.device)
+    stall = state.prop.stall.amax(dim=1)[:, None]
+    backlog = _sum32(state.prop.tail - state.prop.head, dim=1)[:, None]
+    return wins._replace(
+        stall_max=torch.where(span, torch.maximum(wins.stall_max, stall), wins.stall_max),
+        backlog_max=torch.where(span, torch.maximum(wins.backlog_max, backlog), wins.backlog_max),
+    )
 
 
 def run_state(
@@ -1360,6 +1585,70 @@ def to_result(final: SimState, expected_vids: np.ndarray) -> SimResult:
         msgs=host(final.met.msgs),
         expected_vids=expected_vids,
     )
+
+
+def run_with_telemetry(
+    cfg: SimConfig,
+    workload=None,
+    gates=None,
+    window_rounds: int | None = None,
+    region_map=None,
+    return_ledger: bool = False,
+    device="cuda",
+):
+    """:func:`run` with the flight recorder armed: returns ``(SimResult,
+    TelemetrySummary, WindowSummary | None)`` with the summaries as host
+    numpy, reduced on the device after the loop and moved in one copy.
+    The decisions equal :func:`run`'s for the same (cfg, workload,
+    gates).  ``window_rounds`` is the windowed plane's bucket width
+    (default ``recorder.WINDOW_ROUNDS``; 0 leaves the plane out and its
+    slot None); ``region_map`` the ``[A]`` node->region map of the
+    per-region-pair counters (None: every node in region 0).
+    ``return_ledger=True`` appends the per-instance phase ledger (admit,
+    batch, learned and committed rounds, host numpy) for offline export."""
+    from tpu_paxos_torch.telemetry import recorder as telem
+
+    if window_rounds is None:
+        window_rounds = telem.WINDOW_ROUNDS
+    ww = int(window_rounds)
+    if workload is None:
+        workload = default_workload(cfg)
+    dev = devm.resolve(device)
+    pend, gate, tail, c = prepare_queues(cfg, workload, gates)
+    root = prng.root_key(cfg.seed)
+    state = init_state(cfg, pend, gate, tail, root, device=dev)
+    expected = np.unique(
+        np.concatenate([np.asarray(w, np.int32).reshape(-1) for w in workload])
+    )
+    round_fn = build_engine(
+        cfg, c, vid_cap=gates_vid_cap(workload, gates), device=dev,
+        telemetry=True, window_rounds=ww,
+    )
+    tele0 = telem.init_telemetry(cfg.n_instances, len(cfg.proposers), cfg.n_nodes, device=dev)
+    if ww:
+        tele0 = (tele0, telem.init_windows(cfg.n_nodes, device=dev))
+    roots = np.asarray([root], np.uint64)
+    final, tl, _ = run_lanes(round_fn, roots, lanes_view(state), [cfg.round_budget], tele=tele0)
+    base = tl[0] if ww else tl
+    sched = cfg.faults.schedule
+    trees = telem.close(tl, final, sched.horizon if sched is not None else 0, region_map, ww)
+    if return_ledger:
+        trees.append(_Ledger(base.admit_round, base.admit_round, base.learned_round,
+                             base.committed_round))
+    host = [telem.lane(x, 0) for x in devm.to_host(*trees)]
+    ret = (to_result(lane_of(final, 0), expected), host[0], host[1] if ww else None)
+    if return_ledger:
+        ret = ret + (dict(sorted(host[-1]._asdict().items())),)  # JAX's pytree order
+    return ret
+
+
+class _Ledger(NamedTuple):
+    """The per-instance phase ledger of :func:`run_with_telemetry`."""
+
+    admit_round: torch.Tensor
+    batch_round: torch.Tensor
+    learned_round: torch.Tensor
+    committed_round: torch.Tensor
 
 
 def run(

@@ -51,11 +51,13 @@ def envelope_key(
     max_episodes: int,
     delay_bound: int,
     device=None,
+    telemetry: bool = False,
 ) -> tuple:
     """The hashable envelope of a (cfg, workload-template) pair: exactly
-    the facts a runner fixes when it is built, including the seeded-wedge
-    flag (``core/sim.seeded_wedge``: an armed build leaves the takeover
-    out) and the device the runner's states live on."""
+    the facts a runner fixes when it is built, including whether the
+    flight recorder is armed, the seeded-wedge flag
+    (``core/sim.seeded_wedge``: an armed build leaves the takeover out)
+    and the device the runner's states live on."""
     wl = [np.asarray(w, np.int32).reshape(-1) for w in workload]
     expected, owner = vdt.expected_owners(cfg, wl)
     gate_sig = (
@@ -63,6 +65,7 @@ def envelope_key(
         else tuple(len(np.asarray(g).reshape(-1)) for g in gates)
     )
     return (
+        bool(telemetry),
         bool(cfg.faults.delivery_cut),  # a build-time engine flag
         simm.seeded_wedge(),
         cfg.n_nodes,
@@ -100,9 +103,11 @@ def runner_for(
     are per-lane inputs of the returned runner, passed to ``run()``);
     only ``cfg.faults.max_delay`` survives, as a floor on the ring bound.
     Callers MUST pass explicit per-lane ``workloads=`` and ``knobs=`` to
-    ``run()`` (enforced: the returned runner rejects implicit inputs)."""
-    for name, given in (("mesh", mesh is not None), ("telemetry", telemetry),
-                        ("geometry", geometry is not None)):
+    ``run()`` (enforced: the returned runner rejects implicit inputs).
+
+    ``telemetry=True`` hands back the flight-recorder-armed twin of the
+    envelope, in a cache slot of its own."""
+    for name, given in (("mesh", mesh is not None), ("geometry", geometry is not None)):
         if given:
             raise NotImplementedError(f"runner_for {name}= is not ported yet")
     if delay_bound is None:
@@ -113,7 +118,8 @@ def runner_for(
             f"requested envelope delay bound {delay_bound}"
         )
     dev = devm.resolve(device)
-    key = envelope_key(cfg, workload, gates, max_episodes, delay_bound, dev)
+    key = envelope_key(cfg, workload, gates, max_episodes, delay_bound, dev,
+                       telemetry=telemetry)
     runner = _CACHE.get(key)
     if runner is None:
         base = dataclasses.replace(
@@ -124,6 +130,7 @@ def runner_for(
         )
         runner = frun.FleetRunner(
             base, workload, gates, max_episodes=max_episodes, device=dev,
+            telemetry=telemetry,
         )
         runner.explicit_inputs_only = True
         _CACHE[key] = runner

@@ -15,7 +15,10 @@ verdict vectors move to the host.
 
 Lane for lane the fleet equals single ``core/sim.run`` executions of the
 same (cfg, schedule, knobs, seed): ``FleetReport.lane_cfg(i)`` is that
-config.
+config.  A ``telemetry=True`` runner carries the flight recorder (with
+its windowed plane) beside every lane's state and reduces it on the
+device with the verdict; the summaries come to the host in the
+verdict's one copy.
 """
 
 from __future__ import annotations
@@ -90,6 +93,14 @@ class FleetReport:
     expected_lanes: list = dataclasses.field(default_factory=list)
     #: round-loop iterations of the dispatch (the slowest lane's rounds)
     iterations: int = 0
+    #: flight-recorder summaries, ``[lanes]``-leading host numpy
+    #: (``telemetry/recorder.TelemetrySummary``); None unless the runner
+    #: was built with ``telemetry=True``
+    telemetry: object = None
+    #: windowed series, ``[lanes, W]``-leading host numpy
+    #: (``telemetry/recorder.WindowSummary``, bucket width
+    #: ``recorder.WINDOW_ROUNDS``); None when recorder-free
+    windows: object = None
 
     @property
     def lanes_per_sec(self) -> float:
@@ -104,6 +115,17 @@ class FleetReport:
         result type."""
         exp = self.expected_lanes[i] if self.expected_lanes else self.expected
         return simm.to_result(simm.lane_of(self.final, i), exp)
+
+    def lane_telemetry(self, i: int):
+        """One lane's flight-recorder summary as a JSON-ready dict
+        (``telemetry/recorder.summary_to_dict`` with the windowed block);
+        None when the runner ran recorder-free."""
+        if self.telemetry is None:
+            return None
+        from tpu_paxos_torch.telemetry import recorder as telem
+
+        wone = telem.lane(self.windows, i) if self.windows is not None else None
+        return telem.summary_to_dict(telem.lane(self.telemetry, i), wone, telem.WINDOW_ROUNDS)
 
     def lane_cfg(self, i: int) -> SimConfig:
         """The single-run config this lane equals: the base cfg with the
@@ -139,8 +161,7 @@ class FleetRunner:
         geometry=None,
         device="cuda",
     ):
-        for name, given in (("telemetry", telemetry), ("geometry", geometry is not None),
-                            ("mesh", mesh is not None)):
+        for name, given in (("geometry", geometry is not None), ("mesh", mesh is not None)):
             if given:
                 raise NotImplementedError(f"FleetRunner {name}= is not ported yet")
         if cfg.faults.schedule is not None:
@@ -153,6 +174,7 @@ class FleetRunner:
         self.workload = [np.asarray(w, np.int32) for w in workload]
         self.gates = gates
         self.max_episodes = max_episodes
+        self.telemetry = telemetry
         self.delay_bound = cfg.faults.max_delay
         #: set by fleet/envelope.runner_for: a cache-shared runner's
         #: template queues and base knobs are whatever caller warmed
@@ -171,9 +193,15 @@ class FleetRunner:
         self._tmpl = (pend, gate, tail)
         self.queue_cap = c
         self._gate_vid_cap = simm.gates_vid_cap(self.workload, gates)
+        window_rounds = 0
+        if telemetry:
+            from tpu_paxos_torch.telemetry import recorder as telem
+
+            window_rounds = telem.WINDOW_ROUNDS
         self._round = simm.build_engine(
             cfg, c, vid_cap=self._gate_vid_cap, device=self.device,
             runtime_schedule=True, runtime_knobs=True,
+            telemetry=telemetry, window_rounds=window_rounds,
         )
 
     def _pad_vtab(self, exp: np.ndarray, own: np.ndarray):
@@ -343,15 +371,16 @@ class FleetRunner:
         FaultKnobs, or None for the base cfg's mix) drive lane ``i``;
         ``workloads`` optionally carries per-lane ``(workload, gates)``
         pairs (template-shaped; vid sets free within the envelope's vid
-        bound).  Returns once the verdict vectors are on the host; the
-        per-lane states stay on the device.
+        bound); ``regions`` (telemetry runners only) optionally carries
+        per-lane ``[A]`` node->region maps for the recorder's
+        per-region-pair counters (None: every node in region 0).  Returns
+        once the verdict vectors (and an armed runner's summaries) are on
+        the host; the per-lane states stay on the device.
 
         Runners from the envelope cache (``fleet/envelope.runner_for``)
         REJECT ``workloads=None`` / ``knobs=None``: the cached template's
         queue order and base knobs belong to whichever caller warmed the
         cache."""
-        if regions is not None:
-            raise NotImplementedError("FleetRunner.run regions= is not ported yet")
         if self.explicit_inputs_only and (workloads is None or knobs is None):
             raise ValueError(
                 "this runner came from the envelope cache "
@@ -388,24 +417,55 @@ class FleetRunner:
                 )
         roots = prng.root_keys(seeds)
         pend, gate, tail, exp, own, exp_list = self._queues(n_lanes, workloads)
+        if regions is not None and not self.telemetry:
+            raise ValueError(
+                "regions maps feed the flight recorder's region-pair "
+                "counters; build the runner with telemetry=True"
+            )
+        if self.telemetry:
+            a = self.cfg.n_nodes
+            if regions is None:
+                rmaps = np.zeros((n_lanes, a), np.int32)
+            else:
+                regions = list(regions)
+                if len(regions) != n_lanes:
+                    raise ValueError("one region map per lane required")
+                rmaps = np.stack([
+                    np.zeros((a,), np.int32) if r is None
+                    else np.asarray(r, np.int32).reshape(a)
+                    for r in regions
+                ])
         budgets = self.cfg.max_rounds + tabs.horizon.astype(np.int64)
         dev = self.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         states = simm.init_lanes(self.cfg, pend, gate, tail, roots, device=dev)
-        final, iters = simm.run_lanes(self._round, roots, states, budgets, tabs, kn)
-        v = vdt.lane_verdict(
+        if self.telemetry:
+            from tpu_paxos_torch.telemetry import recorder as telem
+
+            c = self.cfg
+            tele0 = (
+                telem.init_telemetry(c.n_instances, len(c.proposers), c.n_nodes,
+                                     lanes=n_lanes, device=dev),
+                telem.init_windows(c.n_nodes, lanes=n_lanes, device=dev),
+            )
+            final, tele, iters = simm.run_lanes(
+                self._round, roots, states, budgets, tabs, kn, tele=tele0)
+        else:
+            final, iters = simm.run_lanes(self._round, roots, states, budgets, tabs, kn)
+        trees = [vdt.lane_verdict(
             self.cfg, final,
             torch.from_numpy(np.ascontiguousarray(exp)).to(dev),
             torch.from_numpy(np.ascontiguousarray(own)).to(dev),
             self.vid_bound,
-        )
-        host = torch.stack([x.to(torch.int32) for x in v]).cpu().numpy()
-        verdict = vdt.LaneVerdict(
-            *(host[k].astype(bool) for k in range(4)), host[4], host[5]
-        )
-        seconds = time.perf_counter() - t0  # the verdict's copy is the sync
+        )]
+        if self.telemetry:
+            trees += telem.close(tele, final, tabs.horizon, rmaps, telem.WINDOW_ROUNDS)
+        host = devm.to_host(*trees)  # one copy: the sync
+        verdict = host[0]
+        tsum, wsum = (host[1], host[2]) if self.telemetry else (None, None)
+        seconds = time.perf_counter() - t0
         return FleetReport(
             cfg=self.cfg,
             n_lanes=n_lanes,
@@ -418,4 +478,6 @@ class FleetRunner:
             fault_cfgs=fault_cfgs,
             expected_lanes=exp_list,
             iterations=iters,
+            telemetry=tsum,
+            windows=wsum,
         )

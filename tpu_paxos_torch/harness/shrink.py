@@ -172,7 +172,12 @@ def _judge(case: ReproCase, r):
 def _runner(case: ReproCase, device):
     """The case's envelope runner (runtime schedule and knobs): every
     shrink move changes only its per-lane inputs, so all candidates of a
-    case share it.  None for cases that cannot ride it (sharded)."""
+    case share it.  None for cases that cannot ride it (sharded).
+
+    The runner is the plain one: the JAX shrinker arms the recorder only
+    so that its candidates share the sweep's compiled program, and the
+    port compiles nothing, so the recorder would be cost without use (it
+    changes no verdict)."""
     if case.engine != "sim":
         return None
     from tpu_paxos_torch.fleet import envelope as env

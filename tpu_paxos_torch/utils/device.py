@@ -7,6 +7,7 @@ The CPU runs only when the caller names it, as the tests do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +31,24 @@ def to_device(x: torch.Tensor, device) -> torch.Tensor:
     if device.type != "cuda" or x.device.type != "cpu":
         return x.to(device)
     return x.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(*trees):
+    """NamedTuples of ``[L, ...]`` tensors (bool or integer) moved to host
+    numpy in ONE copy, so a run's results cost one wait: every leaf
+    travels as int32 and bool leaves come back bool.  Returns the trees
+    in the given order."""
+    leaves = [x for tree in trees for x in tree]
+    lanes = leaves[0].shape[0]
+    flat = torch.cat([x.reshape(lanes, -1).to(torch.int32) for x in leaves], dim=1)
+    host = flat.cpu().numpy()
+    out, k = [], 0
+    for tree in trees:
+        fields = []
+        for x in tree:
+            n = x[0].numel()
+            part = host[:, k:k + n].reshape(x.shape)
+            fields.append(part.astype(np.bool_) if x.dtype == torch.bool else part)
+            k += n
+        out.append(type(tree)(*fields))
+    return out
