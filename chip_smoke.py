@@ -59,9 +59,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ``bench.py``'s fleet configuration: 5 nodes, proposers (0, 1), the
    gated stress workload on 56 instances, ``max_rounds`` 20000, ring bound
    8, 128 lanes with sampled schedules, first under the headline knob
-   cycle (seeds 0-127), then the delay-spread cycle (seeds 50000+), each
+   cycle (seeds 0-127), then the delay-spread cycle (seeds 50000+) on the
+   113 of its lanes that decide within ``DELAY_ROUNDS_MAX`` (1000) rounds
+   or park (the 15 that duel for 1011-7988 rounds are left out: they
+   cost 7000 round calls), each
    with the counts zeroed before and read after: both simkern kernels
-   must launch on lane-stacked operands (128 lanes a launch), every lane
+   must launch on lane-stacked operands (all the dispatch's lanes a
+   launch), every lane
    be ``ok``, and the six verdict fields and every lane's decision-log
    sha256 equal the JAX goldens.  Prints lanes/sec to verdict, rounds,
    ms and host syncs a round.  Then the headline again with every kernel
@@ -130,6 +134,40 @@ Phases (any failure exits non-zero; nothing is caught):
       the latter with the seeded wedge armed) and on 11c's 2**23
       artifact: each stdout's sha256 must equal JAX's and the artifact's
       bytes stay unchanged.
+13. The schedule search, the fleet stress sweep and the geometry-padded
+   envelope on the card, against the JAX goldens (``search``,
+   ``stress_fleet``, ``envelope``), with phase 13's own seconds:
+   a. ``python -m tpu_paxos_torch fleet --lanes 8 --generations 1 --seed 2
+      --decision-round-max 35 --max-wedges 1 --triage-dir DIR --quiet``
+      (``make fleet-quick``'s arguments) as a subprocess, started beside
+      13c's: its summary,
+      less ``seconds``, ``lanes_per_sec`` and ``shrink_seconds``, must
+      equal JAX's, the wedge artifact must equal JAX's byte for byte
+      (file sha256) and ``python -m tpu_paxos_torch repro`` on it must
+      exit 0 with JAX's stdout (sha256).
+   b. ``fleet.search.main`` at the card's default 128 lanes with
+      ``--generations 2 --seed 0 --gray --wan`` (no triage directory),
+      with the counts zeroed before and read after: the summary less the
+      timing keys (every generation's margins, causes and per-lane causes
+      included) must equal JAX's and both kernels must launch on 128-lane
+      operands.  Prints lanes/s, ms and host syncs a round.
+   c. ``python -m tpu_paxos_torch.harness.stress --fleet --seeds 8
+      --triage-dir DIR`` as a subprocess: both summary lines, less
+      ``seconds``, ``lanes_per_sec`` and ``compiles_per_mix``, must equal
+      JAX's (the per-mix ``telemetry`` blocks key for key).  Prints each
+      mix's lanes/s.
+   d. ``bench.py``'s geometry-padded envelope configuration (menu 3/(0,),
+      5/(0,1), 7/(0,1,2); three 8-value rows on 48 instances,
+      ``max_rounds`` 4000; 64 lanes; both protocol configs and both
+      rates): one ``runner_for(..., geometry=)`` serves all 12 cells (one
+      runner built), with the counts zeroed before and read after; each
+      lane's rounds, verdict and decision-log sha256 must equal JAX's and
+      its bound-free twin's on the card, and both kernels launch on
+      64-lane (A, P) = (7, 3) operands (the run-time-loop build).  Then
+      the padding toll: lanes/s at each true geometry, padded and
+      unpadded in turns; and one padded dispatch at 7 nodes with every
+      kernel launch held against its plain version, timed and its needed
+      bytes counted.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -157,6 +195,7 @@ A, P, I_FULL = 5, 2, 1 << 23
 REPS = 25
 SNAP_REPS = 9  # launches timed on each main-path snapshot
 FLEET_WIDE = 2048  # lanes of the timing-only fleet dispatch
+DELAY_ROUNDS_MAX = 1000  # the delay cycle's lanes run: those deciding within this many rounds
 FLEET_SINGLES = 8  # lanes of it re-run as single runs
 FULL_REPS = 3  # launches timed on each full-width runtime-lane snapshot
 TRIAGE_REPS = 3  # launches timed on each 8-lane shrink-dispatch snapshot
@@ -847,17 +886,25 @@ def run_fleet(sk, goldens, card) -> dict:
     for name in ("headline", "delay"):
         gc = gold[name]
         seeds, sch, knobs = cycle(name, n)
+        # the delay cycle runs its lanes that decide within DELAY_ROUNDS_MAX
+        # rounds and those that park (a fixed subset, chosen by the golden)
+        sub = list(range(n)) if name == "headline" else [
+            i for i, r in enumerate(gc["rounds"])
+            if r <= DELAY_ROUNDS_MAX or r > cfg.max_rounds]
+        seeds, sch, knobs = ([x[i] for i in sub] for x in (seeds, sch, knobs))
+        m = len(sub)
         torch.cuda.synchronize()
         sk.reset_counts()
         with lane_counts(sk) as shapes:
             rep = runner.run(seeds, sch, knobs=knobs)
         launches = dict(sk.LAUNCHES)
         v = rep.verdict
-        bad = [f for f in v._fields if np.asarray(getattr(v, f)).tolist() != gc[f]]
-        shas = [_lane_sha(rep, i, gold["stride"]) for i in range(n)]
-        off = [i for i in range(n) if shas[i] != gc["decision_log_sha256"][i]]
-        lanes_ok = all(s == [n] * len(s) for s in shapes.values())
-        print(f"fleet [{name}] {n} lanes (I={cfg.n_instances}): lanes_per_sec={rep.lanes_per_sec:.2f} "
+        bad = [f for f in v._fields
+               if np.asarray(getattr(v, f)).tolist() != [gc[f][i] for i in sub]]
+        shas = [_lane_sha(rep, k, gold["stride"]) for k in range(m)]
+        off = [i for k, i in enumerate(sub) if shas[k] != gc["decision_log_sha256"][i]]
+        lanes_ok = all(s == [m] * len(s) for s in shapes.values())
+        print(f"fleet [{name}] {m} of {n} lanes (I={cfg.n_instances}): lanes_per_sec={rep.lanes_per_sec:.2f} "
               f"seconds={rep.seconds:.3f} rounds_max={int(v.rounds.max())} iterations={rep.iterations} "
               f"ms_per_round={rep.seconds / rep.iterations * 1e3:.3f} ok={int(v.ok.sum())}/{n} "
               f"launches={json.dumps(launches, sort_keys=True)} lanes_per_launch_ok={lanes_ok} "
@@ -865,7 +912,7 @@ def run_fleet(sk, goldens, card) -> dict:
         if bad or off or not v.ok.all():
             raise SystemExit(f"fleet [{name}] disagrees with its JAX golden")
         if min(launches.values()) < 1 or not lanes_ok:
-            raise SystemExit(f"fleet [{name}]: a simkern kernel did not launch on {n}-lane operands")
+            raise SystemExit(f"fleet [{name}]: a simkern kernel did not launch on {m}-lane operands")
         out[name] = {"launches": launches, "iterations": rep.iterations, "seconds": rep.seconds,
                      "lanes_per_sec": rep.lanes_per_sec}
 
@@ -1457,6 +1504,251 @@ def run_trace_cli(goldens, here: str, full_path: str, card: str) -> dict:
         out[name] = wall
     return out
 
+SEARCH_TIMING = ("seconds", "lanes_per_sec")
+STRESS_TIMING = ("seconds", "lanes_per_sec", "compiles_per_mix")
+ENVELOPE_REPS = 3  # launches timed on each snapshot of the checked padded dispatch
+
+
+def _less_timing(summary: dict, keys) -> dict:
+    """A search or sweep summary less its wall-clock keys, each wedge's or
+    failure's ``shrink_seconds`` dropped and artifact paths cut to their
+    basename, as the goldens hold them."""
+    out = {k: v for k, v in summary.items() if k not in keys}
+    for key in ("wedges", "failures"):
+        if key in out:
+            out[key] = [{k: (os.path.basename(v) if k == "artifact" else v)
+                         for k, v in item.items() if k != "shrink_seconds"} for item in out[key]]
+    return out
+
+
+def start_fleet_quick(goldens, here: str, tmp: str):
+    """Phase 13a's search, started as a subprocess writing into ``tmp``;
+    returns the process and its start time."""
+    gold = goldens["search"]["fleet_quick"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_paxos_torch", "fleet", *gold["args"], "--triage-dir", tmp,
+         "--quiet", "--device", DEV],
+        cwd=here, env=_port_env(here), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, time.perf_counter()
+
+
+def run_fleet_quick(goldens, here: str, card: str, started, tmp: str) -> dict:
+    """Phase 13a: ``make fleet-quick``'s search (``started`` by
+    :func:`start_fleet_quick`), its wedge artifact and its CLI replay."""
+    gold = goldens["search"]["fleet_quick"]
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not stdout.strip():
+        print(stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"fleet-quick exited {proc.returncode}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    path = os.path.join(tmp, gold["artifact"])
+    sha = _file_sha256(path)
+    rproc, cli_s = _repro_cli(here, path, {})
+    out_sha = hashlib.sha256(rproc.stdout.encode()).hexdigest()
+    less = _less_timing(summary, SEARCH_TIMING)
+    w = summary["wedges"][0] if summary["wedges"] else {}
+    print(f"fleet-quick (python -m tpu_paxos_torch fleet {' '.join(gold['args'])}): "
+          f"rc={proc.returncode} done_after_s={wall:.3f} search_seconds={summary['seconds']} "
+          f"lanes_per_sec={summary['lanes_per_sec']} shrink_seconds={w.get('shrink_seconds')} "
+          f"wedges={summary['wedges_found']} summary_equal={less == gold['summary']} "
+          f"artifact_sha256={sha}; repro rc={rproc.returncode} cli_s={cli_s:.3f} "
+          f"stdout_sha256={out_sha} | {card}")
+    if less != gold["summary"]:
+        raise SystemExit(f"fleet-quick disagrees with its JAX golden: "
+                         f"{_dict_diff(less, gold['summary'])}")
+    if sha != gold["artifact_sha256"]:
+        raise SystemExit("fleet-quick's wedge artifact differs from JAX's")
+    if rproc.returncode != 0 or out_sha != gold["repro_stdout_sha256"]:
+        print(rproc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("fleet-quick's artifact replay disagrees with JAX's")
+    return {"done_after_s": wall, "seconds": summary["seconds"],
+            "lanes_per_sec": summary["lanes_per_sec"], "shrink_seconds": w.get("shrink_seconds")}
+
+
+def run_search_wide(sk, goldens, card: str) -> dict:
+    """Phase 13b: the gray/WAN search at the card's default lane count,
+    through the CLI's entry point in this process."""
+    from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.fleet import search
+
+    gold = goldens["search"]["search_wide"]
+    n = frun.default_lane_count(DEV)
+    if n != gold["lanes"]:
+        raise SystemExit(f"the card's default lane count is {n}, the golden's {gold['lanes']}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    sk.reset_counts()
+    with lane_counts(sk) as shapes, dispatch_log() as disp, contextlib.redirect_stdout(buf):
+        syncs = count_syncs(lambda: search.main([*gold["args"], "--quiet", "--device", DEV]))
+    launches = dict(sk.LAUNCHES)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rounds = sum(d[1] for d in disp)
+    secs = sum(d[2] for d in disp)
+    less = _less_timing(summary, SEARCH_TIMING)
+    lanes_ok = all(x == [n] * len(x) for x in shapes.values())
+    print(f"search --lanes {n} {' '.join(gold['args'])}: lanes_per_sec={summary['lanes_per_sec']} "
+          f"seconds={summary['seconds']} dispatches={len(disp)} round_calls={rounds} "
+          f"dispatch_s={secs:.3f} ms_per_round={secs / max(rounds, 1) * 1e3:.3f} "
+          f"syncs_per_round={syncs / max(rounds, 1):.2f} "
+          f"launches={json.dumps(launches, sort_keys=True)} lanes_per_launch_ok={lanes_ok} "
+          f"summary_equal={less == gold['summary']} | {card}")
+    if less != gold["summary"]:
+        raise SystemExit(f"the wide search disagrees with its JAX golden: "
+                         f"{_dict_diff(less, gold['summary'])}")
+    if min(launches.values()) < 1 or not lanes_ok:
+        raise SystemExit(f"the wide search: a simkern kernel did not launch on {n}-lane operands")
+    return {"launches": launches, "lanes_per_sec": summary["lanes_per_sec"],
+            "ms_per_round": secs / max(rounds, 1) * 1e3, "syncs_per_round": syncs / max(rounds, 1),
+            "round_calls": rounds}
+
+
+def run_stress_fleet(goldens, here: str, card: str) -> dict:
+    """Phase 13c: ``stress --fleet --seeds 8`` as a subprocess."""
+    gold = goldens["stress_fleet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_paxos_torch.harness.stress", "--fleet", "--seeds",
+             str(gold["seeds"]), "--triage-dir", tmp, "--device", DEV],
+            cwd=here, env=_port_env(here), capture_output=True, text=True, timeout=900,
+        )
+        wall = time.perf_counter() - t0
+        left = sorted(os.listdir(tmp))
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) < 2:
+        print(proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"stress --fleet exited {proc.returncode}")
+    host, fleet = (json.loads(x) for x in lines[-2:])
+    mixes = [ln[ln.index("fleet mix"):] for ln in proc.stderr.splitlines() if "fleet mix" in ln]
+    hl, fl = _less_timing(host, STRESS_TIMING), _less_timing(fleet, STRESS_TIMING)
+    print(f"stress --fleet --seeds {gold['seeds']}: rc={proc.returncode} wall_s={wall:.3f} "
+          f"host_seconds={host['seconds']} fleet_seconds={fleet['seconds']} "
+          f"fleet_lanes_per_sec={fleet['lanes_per_sec']} "
+          f"runners_built={json.dumps(fleet['compiles_per_mix'], sort_keys=True)} "
+          f"host_equal={hl == gold['host']} fleet_equal={fl == gold['fleet']} artifacts={left} "
+          f"| {card}")
+    for ln in mixes:
+        print(f"stress --fleet {ln}")
+    if hl != gold["host"]:
+        raise SystemExit(f"stress --fleet's host sweep disagrees with JAX's: "
+                         f"{_dict_diff(hl, gold['host'])}")
+    if fl != gold["fleet"]:
+        for mix, want in gold["fleet"]["telemetry"].items():
+            got = fl["telemetry"].get(mix, {})
+            if got != want:
+                print(f"stress --fleet telemetry [{mix}]: {_dict_diff(got, want)}", file=sys.stderr)
+        raise SystemExit(f"stress --fleet's fleet sweep disagrees with JAX's: "
+                         f"{_dict_diff(fl, gold['fleet'])}")
+    return {"wall_s": wall, "host_seconds": host["seconds"], "fleet_seconds": fleet["seconds"],
+            "lanes_per_sec": fleet["lanes_per_sec"]}
+
+
+def run_envelope(sk, goldens, card: str) -> dict:
+    """Phase 13d: the geometry-padded envelope at bench.py's configuration."""
+    import numpy as np
+
+    from tpu_paxos_torch import config as cfgm
+    from tpu_paxos_torch.core import geom
+    from tpu_paxos_torch.fleet import envelope
+
+    gold = goldens["envelope"]
+    e = gold["config"]
+    genv = geom.GeometryEnvelope(tuple((n, tuple(p)) for n, p in e["menu"]))
+    tmpl = [np.arange(lo, hi, dtype=np.int32) for lo, hi in e["template"]]
+    lanes = e["lanes"]
+    seeds = [e["first_seed"] + i for i in range(lanes)]
+    bound = (genv.bound_nodes, genv.bound_proposers)
+
+    def cell_args(c):
+        n, props = c["n_nodes"], tuple(c["proposers"])
+        pc = cfgm.ProtocolConfig(**e["protocols"][c["protocol"]])
+        cfg = cfgm.SimConfig(n_nodes=n, n_instances=e["n_instances"], proposers=props, seed=0,
+                             max_rounds=e["max_rounds"], faults=cfgm.FaultConfig(max_delay=2),
+                             protocol=pc)
+        wl = tmpl[: len(props)]
+        kw = dict(workloads=[(wl, None)] * lanes,
+                  knobs=[cfgm.FaultConfig(**e["rates"][c["rate"]])] * lanes)
+        return cfg, wl, kw, dict(geometry=(n, props), protocol=pc)
+
+    def shas(rep):
+        return [_lane_sha(rep, i, e["stride"]) for i in range(lanes)]
+
+    envelope.clear_cache()
+    before = envelope.cache_misses()
+    runners, padded, off = set(), {}, []
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    sk.reset_counts()
+    with lane_counts(sk) as shapes:
+        for k, c in enumerate(gold["cells"]):
+            cfg, wl, kw, gp = cell_args(c)
+            runner = envelope.runner_for(cfg, tmpl, geometry=genv, device=DEV)
+            runners.add(id(runner))
+            rep = runner.run(seeds, [None] * lanes, **kw, **gp)
+            padded[k] = shas(rep)
+            if (padded[k] != c["decision_log_sha256"] or rep.verdict.rounds.tolist() != c["rounds"]
+                    or rep.verdict.ok.tolist() != c["ok"]):
+                off.append(k)
+    grid_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    builds = envelope.cache_misses() - before
+    lanes_ok = all(x == [lanes] * len(x) for x in shapes.values())
+    print(f"envelope grid ({len(gold['cells'])} cells x {lanes} lanes, bound {bound}): "
+          f"grid_s={grid_s:.3f} runners={len(runners)} runners_built={builds} "
+          f"launches={json.dumps(launches, sort_keys=True)} lanes_per_launch_ok={lanes_ok} "
+          f"cells_off_golden={off} | {card}")
+    if off:
+        raise SystemExit(f"the padded envelope disagrees with its JAX goldens in cells {off}")
+    if builds != 1 or len(runners) != 1:
+        raise SystemExit(f"the envelope grid built {builds} runners; one must serve it")
+    if min(launches.values()) < 1 or not lanes_ok:
+        raise SystemExit(f"the envelope: a simkern kernel did not launch on {lanes}-lane operands")
+    twins_off = []
+    for k, c in enumerate(gold["cells"]):
+        cfg, wl, kw, _ = cell_args(c)
+        rep = envelope.runner_for(cfg, wl, device=DEV).run(seeds, [None] * lanes, **kw)
+        if shas(rep) != padded[k]:
+            twins_off.append(k)
+    print(f"envelope bound-free twins on the card: cells_off={twins_off}")
+    if twins_off:
+        raise SystemExit(f"padded lanes differ from their bound-free twins in cells {twins_off}")
+    # the padding toll: bench.py's timed cell (first protocol, second rate)
+    toll = {}
+    for c in gold["cells"]:
+        if c["protocol"] != 0 or c["rate"] != 1:
+            continue
+        cfg, wl, kw, gp = cell_args(c)
+        runs = {True: lambda: envelope.runner_for(cfg, tmpl, geometry=genv, device=DEV).run(
+                    seeds, [None] * lanes, **kw, **gp),
+                False: lambda: envelope.runner_for(cfg, wl, device=DEV).run(
+                    seeds, [None] * lanes, **kw)}
+        got = {True: [], False: []}
+        for pad in (True, False, False, True):
+            got[pad].append(runs[pad]().lanes_per_sec)
+        n = c["n_nodes"]
+        toll[n] = {"padded": got[True], "unpadded": got[False]}
+        print(f"envelope padding toll at {n} nodes (turns padded, unpadded, unpadded, padded): "
+              f"padded lanes_per_sec={[round(x, 2) for x in got[True]]} unpadded "
+              f"{[round(x, 2) for x in got[False]]} ratio="
+              f"{sum(got[True]) / sum(got[False]):.3f} | {card}")
+    stats = {}
+    c = [c for c in gold["cells"] if c["n_nodes"] == bound[0]][0]
+    cfg, wl, kw, gp = cell_args(c)
+    with check_launches(sk, ENVELOPE_REPS, stats, lanes=lanes):
+        rep = envelope.runner_for(cfg, tmpl, geometry=genv, device=DEV).run(
+            seeds, [None] * lanes, **kw, **gp)
+    if shas(rep) != c["decision_log_sha256"]:
+        raise SystemExit("the checked padded dispatch disagrees with its JAX golden")
+    checked = _summarize_checked(
+        f"envelope (A, P) = {bound} {lanes}-lane operands (7 nodes)", stats)
+    envelope.clear_cache()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "grid_s": grid_s, "toll": toll, "checked": checked}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1506,6 +1798,15 @@ def main() -> int:
         tele_fleet = run_telemetry_fleet(sk, goldens, card)
         run_trace_cli(goldens, here, full_art, card)
         print(f"phase 12 (flight recorder) took {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 13a's subprocess runs beside 13c's
+        quick = start_fleet_quick(goldens, here, tmp)
+        run_stress_fleet(goldens, here, card)
+        run_fleet_quick(goldens, here, card, quick, tmp)
+    wide = run_search_wide(sk, goldens, card)
+    env13 = run_envelope(sk, goldens, card)
+    print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -1543,6 +1844,11 @@ def main() -> int:
             "armed_ms": tele["checked"][name]["ms"],
             "armed_bound_ms": tele["checked"][name]["bound_ms"],
             "armed_fleet_launches": tele_fleet["launches"][key],
+            "search_launches": wide["launches"][key],
+            "envelope_launches": env13["launches"][key],
+            "envelope_lanes": env13["checked"][name]["lanes"][0],
+            "envelope_ms": env13["checked"][name]["ms"],
+            "envelope_bound_ms": env13["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

@@ -82,6 +82,36 @@ rewrites the two artifacts beside it.
 ``--telemetry-only`` recomputes only the ``telemetry`` entry of an
 existing ``--write`` file (about 25 min on the CPU box).
 
+Phase 13 of ``chip_smoke.py`` (the schedule search, the fleet stress
+sweep and the geometry-padded envelope) holds three more entries:
+
+- ``search``: ``fleet_quick``, the summary of ``python -m tpu_paxos fleet
+  --lanes 8 --generations 1 --seed 2 --decision-round-max 35
+  --max-wedges 1 --triage-dir DIR --quiet`` (``make fleet-quick``'s
+  arguments), less ``seconds``, ``lanes_per_sec`` and each wedge's
+  ``shrink_seconds``, artifact paths cut to their basename, with the
+  sha256 of its wedge artifact (written beside the goldens file as
+  ``repro_fleet_g0_lane0.json``) and of ``python -m tpu_paxos repro
+  <basename> --json`` run in its directory; ``search_wide``, the summary
+  of ``python -m tpu_paxos fleet --lanes 128 --generations 2 --seed 0
+  --gray --wan --quiet`` less the same keys (128: the GPU's
+  ``default_lane_count``);
+- ``stress_fleet``: both summary lines of ``python -m
+  tpu_paxos.harness.stress --fleet --seeds 8 --triage-dir DIR``, less
+  ``seconds``, ``lanes_per_sec`` and ``compiles_per_mix`` (JAX's XLA
+  compile count; the port counts runner builds there);
+- ``envelope``: ``bench.py``'s geometry-padded envelope configuration
+  (``bench.bench_envelope_record``): menu 3/(0,), 5/(0,1), 7/(0,1,2),
+  template rows 100-107, 200-207, 300-307 on 48 instances,
+  ``max_rounds`` 4000, 64 lanes (seeds 10000-10063, no schedule) under
+  both protocol configs and both rates, through ONE padded
+  ``envelope.runner_for(..., geometry=)``; per cell and lane the rounds,
+  ``ok`` and the decision-log sha256 (stride 308).
+
+``--search-only``, ``--stress-fleet-only`` and ``--envelope-only``
+recompute just those entries of an existing ``--write`` file (about 10,
+6 and 4 min on the CPU box).
+
 ``--instances`` shrinks the bench run (for a quick self-check); the
 committed file holds the full 2**23 run.
 """
@@ -662,6 +692,172 @@ def telemetry_goldens(out: dict, out_dir: str) -> dict:
             "trace": trace}
 
 
+FLEET_QUICK_ARGS = ["--lanes", "8", "--generations", "1", "--seed", "2",
+                    "--decision-round-max", "35", "--max-wedges", "1"]  # Makefile:133-135
+FLEET_QUICK_ARTIFACT = "repro_fleet_g0_lane0.json"
+SEARCH_WIDE_ARGS = ["--generations", "2", "--seed", "0", "--gray", "--wan"]
+SEARCH_WIDE_LANES = 128  # the GPU's default_lane_count
+STRESS_FLEET_SEEDS = 8
+SEARCH_TIMING_KEYS = ("seconds", "lanes_per_sec")
+STRESS_TIMING_KEYS = ("seconds", "lanes_per_sec", "compiles_per_mix")
+ENVELOPE = {
+    "menu": [[3, [0]], [5, [0, 1]], [7, [0, 1, 2]]],
+    "template": [[100, 108], [200, 208], [300, 308]],  # arange(lo, hi) rows
+    "n_instances": 48,
+    "max_rounds": 4000,
+    "lanes": 64,
+    "first_seed": 10_000,
+    "protocols": [
+        {},
+        {"prepare_delay_min": 1, "prepare_delay_max": 6, "prepare_retry_count": 2,
+         "prepare_retry_timeout": 3, "accept_retry_count": 2, "accept_retry_timeout": 3,
+         "commit_retry_timeout": 3},
+    ],
+    "rates": [{"max_delay": 2}, {"drop_rate": 500, "dup_rate": 500, "max_delay": 2}],
+    "stride": 308,
+}
+
+
+def normalize_summary(summary: dict, timing_keys) -> dict:
+    """A search or sweep summary less its wall-clock keys, with each
+    wedge's or failure's ``shrink_seconds`` dropped and artifact paths cut
+    to their basename (the triage directory differs run to run)."""
+    out = {k: v for k, v in summary.items() if k not in timing_keys}
+    for key in ("wedges", "failures"):
+        if key in out:
+            out[key] = [
+                {k: (os.path.basename(v) if k == "artifact" else v)
+                 for k, v in item.items() if k != "shrink_seconds"}
+                for item in out[key]
+            ]
+    return out
+
+
+def _jax_module(args, cwd=None):
+    """``python -m <args>`` of the JAX package on the CPU; returns the
+    completed process (stdout, stderr, exit code)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return subprocess.run([sys.executable, "-m", *args], cwd=cwd or root, env=env,
+                          capture_output=True, text=True, check=False)
+
+
+def search_goldens(out_dir: str) -> dict:
+    """Phase 13a-b: the fleet-quick search with its wedge artifact (copied
+    into ``out_dir``) and its CLI replay, and the 128-lane gray/WAN
+    search."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = _jax_module(["tpu_paxos", "fleet", *FLEET_QUICK_ARGS, "--triage-dir", tmp,
+                            "--quiet"])
+        if proc.returncode != 0:
+            raise RuntimeError(f"JAX fleet-quick exited {proc.returncode}: {proc.stderr[-2000:]}")
+        quick = json.loads(proc.stdout.strip().splitlines()[-1])
+        path = os.path.join(out_dir, FLEET_QUICK_ARTIFACT)
+        shutil.copyfile(os.path.join(tmp, FLEET_QUICK_ARTIFACT), path)
+    out = repro_stdout(path, {})
+    proc = _jax_module(["tpu_paxos", "fleet", "--lanes", str(SEARCH_WIDE_LANES),
+                        *SEARCH_WIDE_ARGS, "--quiet"])
+    if proc.returncode not in (0, 1):
+        raise RuntimeError(f"JAX wide search exited {proc.returncode}: {proc.stderr[-2000:]}")
+    wide = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {
+        "fleet_quick": {
+            "args": FLEET_QUICK_ARGS, "summary": normalize_summary(quick, SEARCH_TIMING_KEYS),
+            "artifact": FLEET_QUICK_ARTIFACT, "artifact_sha256": _file_sha256(path),
+            "repro_stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
+        },
+        "search_wide": {
+            "args": SEARCH_WIDE_ARGS, "lanes": SEARCH_WIDE_LANES,
+            "summary": normalize_summary(wide, SEARCH_TIMING_KEYS),
+        },
+    }
+
+
+def stress_fleet_golden() -> dict:
+    """Phase 13c: ``stress --fleet``'s two summary lines."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = _jax_module(["tpu_paxos.harness.stress", "--fleet", "--seeds",
+                            str(STRESS_FLEET_SEEDS), "--triage-dir", tmp])
+    if proc.returncode != 0:
+        raise RuntimeError(f"JAX stress --fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
+    host, fleet = [json.loads(ln) for ln in proc.stdout.strip().splitlines()[-2:]]
+    return {"seeds": STRESS_FLEET_SEEDS,
+            "host": normalize_summary(host, STRESS_TIMING_KEYS),
+            "fleet": normalize_summary(fleet, STRESS_TIMING_KEYS)}
+
+
+def envelope_cells():
+    """The envelope grid's cells in order: ``(n_nodes, proposers,
+    protocol index, rate index)``."""
+    return [(n, tuple(props), pi, ri)
+            for n, props in ENVELOPE["menu"]
+            for pi in range(len(ENVELOPE["protocols"]))
+            for ri in range(len(ENVELOPE["rates"]))]
+
+
+def envelope_golden() -> dict:
+    """Phase 13d: every cell of the padded envelope grid through one JAX
+    ``runner_for(..., geometry=)``."""
+    import numpy as np
+
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.core import geom as geo
+    from tpu_paxos.fleet import envelope as env
+    from tpu_paxos.replay.decision_log import decision_log
+
+    e = ENVELOPE
+    genv = geo.GeometryEnvelope(menu=tuple((n, tuple(p)) for n, p in e["menu"]))
+    tmpl = [np.arange(lo, hi, dtype=np.int32) for lo, hi in e["template"]]
+    lanes = e["lanes"]
+    seeds = [e["first_seed"] + i for i in range(lanes)]
+    cells = []
+    runner = None
+    for n, props, pi, ri in envelope_cells():
+        pc = cfgm.ProtocolConfig(**e["protocols"][pi])
+        fc = cfgm.FaultConfig(**e["rates"][ri])
+        cfg = cfgm.SimConfig(n_nodes=n, n_instances=e["n_instances"], proposers=props, seed=0,
+                             max_rounds=e["max_rounds"], faults=cfgm.FaultConfig(max_delay=2),
+                             protocol=pc)
+        r = env.runner_for(cfg, tmpl, geometry=genv)
+        if runner is not None and r is not runner:
+            raise RuntimeError("the padded envelope did not collapse to one runner")
+        runner = r
+        wl = tmpl[: len(props)]
+        rep = runner.run(seeds, [None] * lanes, workloads=[(wl, None)] * lanes,
+                         knobs=[fc] * lanes, geometry=(n, props), protocol=pc)
+        cv = np.asarray(rep.final.met.chosen_vid)  # paxlint: allow[JAX103] once per dispatch
+        cb = np.asarray(rep.final.met.chosen_ballot)  # paxlint: allow[JAX103] once per dispatch
+        cells.append({
+            "n_nodes": n, "proposers": list(props), "protocol": pi, "rate": ri,
+            "rounds": rep.verdict.rounds.tolist(),  # the verdict is host numpy
+            "ok": rep.verdict.ok.tolist(),
+            "decision_log_sha256": [
+                hashlib.sha256(decision_log(cv[i], cb[i], e["stride"], e["n_instances"])
+                               .encode()).hexdigest()
+                for i in range(lanes)
+            ],
+        })
+    return {"config": e, "cells": cells}
+
+
+def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
+    if "search" in parts:
+        out["search"] = search_goldens(out_dir)
+    if "stress_fleet" in parts:
+        out["stress_fleet"] = stress_fleet_golden()
+    if "envelope" in parts:
+        out["envelope"] = envelope_golden()
+    return out
+
+
 def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
     """Every entry; the triage artifacts go to ``out_dir`` (a temporary
     directory when None)."""
@@ -672,6 +868,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
     def rest(path):
         out.update(triage_goldens(out, path))
         out["telemetry"] = telemetry_goldens(out, path)
+        phase13_goldens(out, path)
 
     if out_dir is not None:
         rest(out_dir)
@@ -735,9 +932,14 @@ def main(argv=None) -> int:
                     "named) of the --write file")
     ap.add_argument("--telemetry-only", action="store_true",
                     help="recompute only the telemetry entry of the --write file")
+    for part in ("search", "stress-fleet", "envelope"):
+        ap.add_argument(f"--{part}-only", action="store_true",
+                        help=f"recompute only the {part.replace('-', '_')} entry of the "
+                        "--write file")
     args = ap.parse_args(argv)
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
-    if args.fleet_only or args.triage_only is not None or args.telemetry_only:
+    p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
+    if args.fleet_only or args.triage_only is not None or args.telemetry_only or p13:
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -747,6 +949,8 @@ def main(argv=None) -> int:
                 "stress_quick", "triage_wedge", "triage_full")))
         if args.telemetry_only:
             out["telemetry"] = telemetry_goldens(out, out_dir)
+        if p13:
+            phase13_goldens(out, out_dir, p13)
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

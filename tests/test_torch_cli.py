@@ -102,7 +102,8 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
     # trace is ported; its serve mode is not (kept under the case's id)
     pytest.param(["trace", "--serve"], "'trace --serve'", id="argv3-'trace'"),
-    (["fleet", "--lanes", "2"], "'fleet'"),
+    # fleet is ported; lint is not (kept under the case's id)
+    pytest.param(["lint"], "'lint'", id="argv4-'fleet'"),
     (["serve", "--values", "8"], "'serve'"),
     (["evolve"], "'evolve'"),
     (["mc", "--scope", "quick"], "'mc'"),
@@ -125,10 +126,15 @@ def test_repro_is_ported(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--fleet", "--sharded"])
 def test_stress_cli_unported_sweeps_exit_2(flag, capsys):
+    """``--sharded`` exits 2 by name; ``--fleet`` is ported, and with
+    ``--sharded`` beside it the sharded sweep still refuses before any
+    sweep runs."""
     from tpu_paxos_torch.harness import stress
 
-    assert stress.main(["--seeds", "1", flag, "--device", "cpu"]) == 2
-    assert f"{flag} is not ported yet" in capsys.readouterr().err
+    extra = ["--sharded"] if flag == "--fleet" else []
+    assert stress.main(["--seeds", "1", flag, *extra, "--device", "cpu"]) == 2
+    out = capsys.readouterr()
+    assert "--sharded is not ported yet" in out.err and out.out == ""
 
 
 _BLOCKED_IMPORT_PROBE = """
@@ -192,12 +198,30 @@ with tempfile.TemporaryDirectory() as tmp:
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         rc_trace = cli.main(["trace", path, "--stdout", "--device", "cpu"])
     trace = json.loads(buf.getvalue())
+from tpu_paxos_torch.core import geom
+from tpu_paxos_torch.fleet import search
+genv = geom.GeometryEnvelope(((3, (0,)), (5, (0, 1))))
+padded = envelope.runner_for(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0,)),
+                             [[100, 101]], geometry=genv, device="cpu")
+prep = padded.run([0, 1], [sched, None], workloads=[([[100, 101]], None)] * 2,
+                  knobs=[config.FaultConfig(max_delay=1)] * 2, geometry=(3, (0,)))
+found = search.search(n_lanes=2, generations=1, max_episodes=1, horizon=16, verbose=False,
+                      device="cpu")
+stress.MIXES, stress.EPISODE_MIXES, stress.WAN_MIXES = stress.MIXES[:1], stress.EPISODE_MIXES[:1], []
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    rc_fleet = cli.main(["fleet", "--lanes", "2", "--generations", "1", "--max-episodes", "1",
+                         "--quiet", "--device", "cpu"])
+    rc_stress = stress.main(["--fleet", "--seeds", "1", "--device", "cpu"])
+lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
       and chunking.chunk_pad([1], 2) == [([1, 1], 1)]
       and armed.done and int(summ.decided) == 8 and tele.lane_telemetry(1)["decided"] == 3
-      and isinstance(diag, dict) and rc_trace == 0 and trace["otherData"]["decided"] >= 1)
+      and isinstance(diag, dict) and rc_trace == 0 and trace["otherData"]["decided"] >= 1
+      and bool(prep.verdict.ok.all()) and prep.cfg.n_nodes == 3 and found["lanes_total"] == 2
+      and rc_fleet == rc_stress == 0
+      and [d["metric"] for d in lines] == ["fleet_search", "stress_sweep", "stress_sweep_fleet"])
 print(len(mods), bool(ok), loaded)
 """
 

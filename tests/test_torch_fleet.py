@@ -299,10 +299,21 @@ def test_runner_rejections_match_jax():
 
 @pytest.mark.parametrize("what", ["telemetry", "geometry", "mesh", "regions"])
 def test_unported_runner_options_raise_by_name(what):
-    """``geometry=`` and ``mesh=`` are not ported and raise by name.  The
-    recorder is: ``telemetry`` pins JAX's refusal of region maps on a
-    plain runner, ``regions`` its refusal of a wrong number of maps."""
+    """``mesh=`` is not ported and raises by name.  The recorder is:
+    ``telemetry`` pins JAX's refusal of region maps on a plain runner,
+    ``regions`` its refusal of a wrong number of maps.  The padded runner
+    is: ``geometry`` pins JAX's refusal of one built off its envelope's
+    bound."""
     cfg = _cfg(tcfg)
+    if what == "geometry":
+        from tpu_paxos.core import geom as jgeo
+        from tpu_paxos_torch.core import geom as tgeo
+
+        menu = ((3, (0,)), (7, (0, 1, 2)))
+        _same_error(lambda: jrun.FleetRunner(_cfg(jcfg), WL, geometry=jgeo.GeometryEnvelope(menu)),
+                    lambda: trun.FleetRunner(cfg, WL, device="cpu",
+                                             geometry=tgeo.GeometryEnvelope(menu)))
+        return
     if what == "telemetry":
         _same_error(lambda: jrun.FleetRunner(_cfg(jcfg), WL).run([0], [None], regions=[None]),
                     lambda: trun.FleetRunner(cfg, WL, device="cpu").run([0], [None], regions=[None]))
@@ -340,15 +351,15 @@ def test_envelope_cache_identity_and_keying():
     # budget and ring-bound changes are different envelopes
     assert tenv.runner_for(cfg(max_rounds=2000, max_delay=2)[1], WL, device="cpu") is not t1
     assert tenv.runner_for(tc, WL, delay_bound=12, device="cpu") is not t1
-    # the same facts as JAX's key, without its geometry and mesh
-    # entries, and with the device; the recorder flag leads both
+    # the same facts as JAX's key (the geometry entry included), without
+    # its mesh entry, and with the device; the recorder flag leads both
     key = tenv.envelope_key(tc, WL, None, trun.MAX_EPISODES, 8)
     jkey = jenv.envelope_key(jc, WL, None, jrun.MAX_EPISODES, 8, None)
     assert jkey[0] is False and jkey[9] is None and jkey[-1] is None
-    assert key == jkey[:9] + jkey[10:-1] + (None,)
+    assert key == jkey[:-1] + (None,)
     tkey = tenv.envelope_key(tc, WL, None, trun.MAX_EPISODES, 8, telemetry=True)
     jtkey = jenv.envelope_key(jc, WL, None, jrun.MAX_EPISODES, 8, None, telemetry=True)
-    assert tkey == jtkey[:9] + jtkey[10:-1] + (None,) and tkey != key
+    assert tkey == jtkey[:-1] + (None,) and tkey != key
     _same_error(lambda: jenv.runner_for(cfg(max_delay=6)[0], WL, delay_bound=4),
                 lambda: tenv.runner_for(cfg(max_delay=6)[1], WL, delay_bound=4, device="cpu"))
     # cache-shared runners refuse implicit inputs

@@ -357,11 +357,13 @@ def test_unported_faults_raise_by_name(field):
 @pytest.mark.parametrize("flag", ["telemetry", "runtime_knobs", "runtime_schedule",
                                   "geometry", "runtime_protocol", "axis_name"])
 def test_unported_build_flags_raise_by_name(flag):
-    """Build options not ported yet raise by name.  The runtime-schedule
-    and runtime-knob builds are ported: their round raises by name the
-    per-call input it is not given, as the JAX round does.  The
-    telemetry build is ported: with ``axis_name`` it raises JAX's
-    ValueError, before the sharded build's own refusal."""
+    """Build options not ported yet (the sharded build) raise by name.
+    The runtime-schedule, runtime-knob and runtime-protocol builds are
+    ported: their round raises by name the per-call input it is not
+    given, as the JAX round does.  The telemetry build is ported: with
+    ``axis_name`` it raises JAX's ValueError, before the sharded build's
+    own refusal.  The geometry build is ported: a ``geometry`` that is no
+    GeometryEnvelope raises JAX's TypeError."""
     jc, tc = _cfgs(n_nodes=3, n_instances=16)
     if flag == "telemetry":
         with pytest.raises(ValueError) as je:
@@ -370,7 +372,14 @@ def test_unported_build_flags_raise_by_name(flag):
             tsim.build_engine(tc, 32, device="cpu", axis_name="x", telemetry=True)
         assert str(te.value) == str(je.value) and "sharded" in str(te.value)
         return
-    if flag not in ("runtime_knobs", "runtime_schedule"):
+    if flag == "geometry":
+        with pytest.raises(TypeError) as je:
+            jsim.build_engine(jc, 32, geometry=True)
+        with pytest.raises(TypeError) as te:
+            tsim.build_engine(tc, 32, device="cpu", geometry=True)
+        assert str(te.value) == str(je.value) and "GeometryEnvelope" in str(te.value)
+        return
+    if flag == "axis_name":
         with pytest.raises(NotImplementedError, match=flag):
             tsim.build_engine(tc, 32, device="cpu", **{flag: True})
         return
@@ -379,7 +388,9 @@ def test_unported_build_flags_raise_by_name(flag):
     assert c == 32
     root = tprng.root_key(0)
     st = tsim.init_state(tc, pend, gate, tail, root, device="cpu")
-    with pytest.raises(TypeError, match="ScheduleTable" if flag == "runtime_schedule" else "FaultKnobs"):
+    want = {"runtime_schedule": "ScheduleTable", "runtime_knobs": "FaultKnobs",
+            "runtime_protocol": "ProtocolKnobs"}[flag]
+    with pytest.raises(TypeError, match=want):
         rf(root, st)
 
 

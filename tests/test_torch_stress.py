@@ -131,3 +131,86 @@ def test_stress_quick_golden_is_jax_summary():
         gold = json.load(f)["stress_quick"]["summary"]
     assert gold == {"metric": "stress_sweep", "runs": 10, "mixes": len(tstress.MIXES),
                     "seeds_per_mix": 1, "failures": [], "ok": True}
+
+
+# ---------------------------------------------------------------- the fleet sweep
+
+FLEET_TIMING = ("seconds", "lanes_per_sec", "compiles_per_mix")
+
+
+def _less_fleet_timing(summary):
+    return {k: v for k, v in summary.items() if k not in FLEET_TIMING}
+
+
+def test_wan_region_tables_equal_jax():
+    assert sorted(tstress.WAN_REGIONS) == sorted(jstress.WAN_REGIONS)
+    for label, rmap in jstress.WAN_REGIONS.items():
+        assert tstress.WAN_REGIONS[label].tolist() == rmap.tolist()
+    assert tstress.WAN_NAMES == jstress.WAN_NAMES
+
+
+def test_sweep_fleet_reproduces_the_stress_telemetry_golden():
+    """``tests/data/stress_telemetry_golden.json`` (JAX's partition-flap
+    telemetry block at two seeds) from the port's fleet sweep, exactly;
+    the first mix builds its envelope's runner."""
+    tenv.clear_cache()
+    summary = tstress.sweep_fleet(n_seeds=2, verbose=False, mixes=tstress.EPISODE_MIXES[:1],
+                                  device="cpu")
+    with open(os.path.join(ROOT, "tests", "data", "stress_telemetry_golden.json")) as f:
+        assert summary["telemetry"] == json.load(f)
+    assert summary["ok"] and summary["compiles_per_mix"] == {"partition-flap": 1}
+    tenv.clear_cache()
+
+
+def test_sweep_fleet_wan_mix_equals_jax():
+    """One WAN mix (per-edge tables, gray and one-way episodes, the
+    preset's region map and names) through both fleet sweeps: equal
+    summaries less the timing keys, and a second mix of the same
+    envelope builds no runner."""
+    jmix = [m for m in jstress.WAN_MIXES if m[0] == "wan-3region"]
+    tmix = [m for m in tstress.WAN_MIXES if m[0] == "wan-3region"]
+    tenv.clear_cache()
+    js = jstress.sweep_fleet(n_seeds=2, verbose=False, mixes=jmix)
+    ts = tstress.sweep_fleet(n_seeds=2, verbose=False, mixes=tmix, device="cpu")
+    assert _less_fleet_timing(ts) == _less_fleet_timing(js)
+    assert ts["ok"] and ts["telemetry"]["wan-3region"]["region_pairs"]["n_regions"] == 3
+    again = tstress.sweep_fleet(n_seeds=1, verbose=False, mixes=tstress.EPISODE_MIXES[:1],
+                                device="cpu")
+    assert again["compiles_per_mix"] == {"partition-flap": 0}
+    tenv.clear_cache()
+
+
+def test_stress_fleet_cli_prints_jax_lines(monkeypatch, capsys):
+    """``stress --fleet`` prints JAX's two lines, the host-loop sweep over
+    the i.i.d.-only mixes and then the fleet summary over the episode and
+    WAN mixes (cut here to one of each kind), less the timing keys."""
+    for mod in (jstress, tstress):
+        monkeypatch.setattr(mod, "MIXES", [m for m in mod.MIXES
+                                           if m[0] in ("debug.conf", "pause-heavy")])
+        monkeypatch.setattr(mod, "EPISODE_MIXES", [m for m in mod.MIXES if m[0] == "pause-heavy"])
+        monkeypatch.setattr(mod, "WAN_MIXES", mod.WAN_MIXES[1:])
+    assert jstress.main(["--fleet", "--seeds", "1"]) == 0
+    jlines = capsys.readouterr().out.splitlines()
+    assert tstress.main(["--fleet", "--seeds", "1", "--device", "cpu"]) == 0
+    tlines = capsys.readouterr().out.splitlines()
+    assert len(tlines) == len(jlines) == 2
+    host = [_less_seconds(json.loads(x)) for x in (tlines[0], jlines[0])]
+    fleet = [_less_fleet_timing(json.loads(x)) for x in (tlines[1], jlines[1])]
+    assert host[0] == host[1] and host[0]["mixes"] == 1
+    assert fleet[0] == fleet[1] and sorted(fleet[0]["telemetry"]) == ["pause-heavy", "wan-5region"]
+
+
+def test_stress_fleet_golden_is_jax_summary():
+    """The committed ``stress_fleet`` golden (``stress --fleet --seeds 8``,
+    the card's phase 13c) holds JAX's two green summaries: 6 i.i.d. mixes
+    on the host loop, 4 episode and 2 WAN mixes as fleet lanes."""
+    with open(os.path.join(ROOT, "tpu_paxos_torch", "data", "goldens.json")) as f:
+        gold = json.load(f)["stress_fleet"]
+    host, fleet = gold["host"], gold["fleet"]
+    assert gold["seeds"] == 8
+    assert host == {"metric": "stress_sweep", "runs": 48, "mixes": 6, "seeds_per_mix": 8,
+                    "failures": [], "ok": True}
+    assert (fleet["metric"], fleet["runs"], fleet["lanes"], fleet["ok"]) == \
+        ("stress_sweep_fleet", 48, 48, True)
+    assert sorted(fleet["telemetry"]) == sorted(m[0] for m in tstress.EPISODE_MIXES
+                                                + tstress.WAN_MIXES)

@@ -10,8 +10,8 @@ Output, byte for byte as the JAX CLI prints it: for the general engine
 the decision log in the reference grammar on stdout, then one invariant
 verdict line; for the fast path the verdict line alone.  Exit code 0
 iff every invariant holds; 2 for what the port does not run yet
-(``--engine=member``, ``--mesh``, every subcommand but ``repro`` and
-``trace``).
+(``--engine=member``, ``--mesh``, every subcommand but ``repro``,
+``trace`` and ``fleet``).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -24,6 +24,11 @@ artifacts of engines the port does not run yet.
 {cuda,cpu}]`` re-runs a repro artifact with the flight recorder armed
 and renders it as a Chrome-trace/Perfetto timeline
 (``telemetry/export.py``).
+
+``python -m tpu_paxos_torch fleet [--lanes N] [--generations G] [--seed
+S] [--gray] [--wan] [--triage-dir D] [--device {cuda,cpu}] ...`` runs
+the device-batched schedule search (``fleet/search.py``) and prints its
+one JSON summary line.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import json
 import os
 import sys
 
-_SUBCOMMANDS = ("serve", "fleet", "evolve", "mc", "lint", "audit")
+_SUBCOMMANDS = ("serve", "evolve", "mc", "lint", "audit")
 
 #: Artifact engines whose replay is not ported yet, and what replays them.
 _UNPORTED_ENGINES = {
@@ -284,6 +289,12 @@ def main(argv=None) -> int:
         from tpu_paxos_torch.telemetry import export
 
         return export.main(argv[1:])
+    if argv and argv[0] == "fleet":
+        # device-batched schedule search: (seed x schedule) lanes a
+        # dispatch, wedges shrunk to repro artifacts
+        from tpu_paxos_torch.fleet import search as fsearch
+
+        return fsearch.main(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2

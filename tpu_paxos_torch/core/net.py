@@ -110,6 +110,36 @@ def matrix_knobs(fc: FaultConfig, n_nodes: int | None = None) -> FaultKnobs:
     )
 
 
+def pad_matrix_knobs(knobs: FaultKnobs, bound: int) -> FaultKnobs:
+    """Pad matrix-form knob fields from a true ``[n, n]`` geometry to the
+    envelope's ``[bound, bound]`` with zeros: a geometry-padded engine
+    slices the TRUE leading block back out per edge shape, so the pad is
+    never read (true nodes are ids ``0..n-1``).  Scalar fields pass
+    through."""
+    def pad(x):
+        x = np.asarray(x)
+        if x.ndim < 2:
+            return x
+        n = x.shape[-1]
+        if n > bound:
+            raise ValueError(
+                f"knob matrix is [{n}, {n}]; the envelope geometry "
+                f"bound is {bound} nodes"
+            )
+        out = np.zeros(x.shape[:-2] + (bound, bound), np.int32)
+        out[..., :n, :n] = x
+        return out
+
+    return FaultKnobs(
+        drop_rate=pad(knobs.drop_rate),
+        dup_rate=pad(knobs.dup_rate),
+        min_delay=pad(knobs.min_delay),
+        max_delay=pad(knobs.max_delay),
+        crash_rate=knobs.crash_rate,
+        delay_bound=knobs.delay_bound,
+    )
+
+
 def edge_knobs(knobs: FaultKnobs, rows, cols) -> FaultKnobs:
     """Slice matrix-form knob fields to one edge shape: ``rows`` are the
     source node ids of the edge shape's leading axis, ``cols`` the

@@ -57,8 +57,18 @@ How the port runs what JAX compiles:
   no host read of its own, and is frozen with a lane's state.
   :func:`run_with_telemetry` reduces it on the device after the loop.
 
+- The geometry-padded build (``geometry=``, a
+  ``core.geom.GeometryEnvelope``) pads the node and proposer axes to the
+  menu's bound and takes the TRUE geometry per call
+  (``round_fn(..., geom=Geometry)``); the runtime-protocol build takes the
+  protocol constants per call (``pknobs=ProtocolKnobs``).  A dispatch
+  has one true geometry, so the host picks its menu entry per call, as
+  it runs the ``lax.cond`` blocks: every draw whose shape depends on the
+  geometry is made at the entry's true shape and padded, as JAX's
+  ``lax.switch`` branches draw (:func:`_draws`).
+
 Not ported yet (each raises ``NotImplementedError`` naming itself):
-``admit_block``, and the sharded, geometry and runtime-protocol builds.
+``admit_block`` and the sharded build.
 """
 
 from __future__ import annotations
@@ -177,19 +187,25 @@ class SimResult:
     expected_vids: np.ndarray  # union of workload vids (all proposers)
 
 
-def _init_lanes(cfg: SimConfig, pend, gate, tail, roots, device) -> SimState:
+def _init_lanes(cfg: SimConfig, pend, gate, tail, roots, device,
+                geometry=None, geom=None, pknobs=None) -> SimState:
     """The initial state of ``L`` lanes, every leaf with a leading lane
     axis: ``pend``/``gate`` ``[L, P, C+W]`` and ``tail`` ``[L, P]``
-    (numpy), ``roots`` ``[L, 2]`` lane keys."""
+    (numpy), ``roots`` ``[L, 2]`` lane keys.  Under a ``geometry`` the
+    initial backoff is drawn at ``geom``'s true proposer count and
+    padded; ``pknobs`` replaces the config's backoff span."""
     a, i = cfg.n_nodes, cfg.n_instances
     p = len(cfg.proposers)
     lanes = roots.shape[0]
     s = cfg.faults.max_delay + 2
-    pc = cfg.protocol
-    delay0 = prng.randint_lanes([(
-        prng.stream_keys(roots, prng.STREAM_PREPARE_DELAY, 0), (p,),
-        pc.prepare_delay_min, pc.prepare_delay_max + 1,
-    )])[0].to(device)
+    pc = cfg.protocol if pknobs is None else pknobs
+    lo, hi = int(pc.prepare_delay_min), int(pc.prepare_delay_max) + 1
+    k0 = prng.stream_keys(roots, prng.STREAM_PREPARE_DELAY, 0)
+    if geometry is None:
+        delay0 = prng.randint_lanes([(k0, (p,), lo, hi)])[0]
+    else:
+        delay0 = geo.menu_randint(geometry, geom.geom_idx, k0, "proposers", lo, hi, pad_value=0)
+    delay0 = delay0.to(device)
 
     def none(*sh):
         return torch.full((lanes, *sh), bal.NONE, dtype=_I32, device=device)
@@ -342,7 +358,102 @@ def _one_lane(table):
     return type(table)(*[np.asarray(x)[None] for x in table])
 
 
-_UNPORTED_FLAGS = ("axis_name", "geometry", "runtime_protocol")
+_UNPORTED_FLAGS = ("axis_name",)
+
+
+def _pad_edges(x: torch.Tensor, shape) -> torch.Tensor:
+    """``[..., r, c]`` padded with zeros (False) to ``[..., *shape]``."""
+    if tuple(x.shape[-2:]) == tuple(shape):
+        return x
+    out = x.new_zeros((*x.shape[:-2], *shape))
+    out[..., :x.shape[-2], :x.shape[-1]] = x
+    return out
+
+
+def _draws(b, roots, t: int, tab, knobs, running):
+    """Every coin of round ``t`` for every lane, hashed in one pass on the
+    engine's device from keys derived on the host, and the schedule's rows
+    for round ``t``, moved to the device in one copy: the seven copy
+    plans, the restart backoff, the crash coins (``u < crash_rate``), the
+    pause / reachability / crash rows, the heal gate of a runtime table
+    and the running-lane mask.  Returns ``(plans, rnd_delay, crash_coin,
+    rows)`` with ``rows`` a dict of what this build has.
+
+    The draws are made at the shapes of ``b.draw_nodes`` nodes and the
+    proposers ``b.draw_props``: the build's own, or under a geometry the
+    dispatch's true menu entry (knob matrices and gray rows sliced to its
+    node prefix and proposers), then padded to the bound with dead copies
+    (alive False, delay 0), backoff 0 and crash coins False, as JAX's
+    menu branches pad them."""
+    a, p, fc, dev = b.a, b.p, b.fc, b.dev
+    n_m, props = b.draw_nodes, b.draw_props
+    p_m = len(props)
+    lanes = roots.shape[0]
+    gray = xdrop = None
+    rows = {}
+    if b.runtime_schedule:
+        reach, paused, xdrop, gray = stm.masks_at(tab, t)
+        rows = {"pause": paused, "reach": reach,
+                "crash": stm.crashes_at(tab, t), "heal": t >= tab.horizon}
+    elif b.comp is not None:
+        comp, tt = b.comp, min(t, b.horizon)
+        if b.has["gray"]:
+            gray = np.broadcast_to(comp.gray[tt], (lanes, a))
+        if b.has["burst"]:
+            xdrop = np.full((lanes,), comp.extra_drop[tt])
+        for name, table in (("pause", "paused"), ("reach", "reach"), ("crash", "crashed")):
+            if b.has[name]:
+                row = getattr(comp, table)[tt]
+                rows[name] = np.broadcast_to(row, (lanes, *row.shape))
+    if running is not None:
+        rows["run"] = running
+    gray_pa = gray_ap = None
+    if gray is not None:
+        g = np.asarray(gray, np.int64)
+        gray_pa = g[:, props][:, :, None] + g[:, None, :n_m]  # [L, P, A] src + dst
+        gray_ap = g[:, :n_m, None] + g[:, props][:, None, :]  # [L, A, P]
+    if b.runtime_knobs:
+        kn_pa = netm.edge_knobs(knobs, props, range(n_m))
+        kn_ap = netm.edge_knobs(knobs, range(n_m), props)
+    else:
+        kn_pa, kn_ap = b.kn_pa0, b.kn_ap0
+    keys = prng.split_keys(prng.stream_keys(roots, prng.STREAM_NET_DROP, t), 8)
+    sites = [
+        ((p_m, n_m), kn_pa, gray_pa) if pa else ((n_m, p_m), kn_ap, gray_ap)
+        for pa in b.site_pa
+    ]
+    pk = b.pk
+    extra = [(
+        prng.stream_keys(roots, prng.STREAM_PREPARE_DELAY, t + 1), (p_m,),
+        pk.prepare_delay_min, pk.prepare_delay_max + 1,
+    )]
+    if b.draw_crash:
+        extra.append((prng.stream_keys(roots, prng.STREAM_CRASH, t), (n_m,), 0, 1_000_000))
+    plans, coins = netm.lane_copy_plans(
+        keys[:, :7], sites, fc, extra_drop=xdrop, delay_bound=fc.max_delay,
+        extra=extra, device=dev,
+    )
+    rnd_delay = coins[0]
+    crash_coin = None
+    if b.draw_crash:
+        rate = knobs.crash_rate if b.runtime_knobs else fc.crash_rate
+        rate = devm.to_device(torch.from_numpy(np.asarray(rate, np.int64).reshape(-1, 1)), dev)
+        crash_coin = coins[1] < rate
+    if b.geometry is not None:
+        plans = [
+            (_pad_edges(al, (p, a) if pa else (a, p)), _pad_edges(dl, (p, a) if pa else (a, p)))
+            for (al, dl), pa in zip(plans, b.site_pa)
+        ]
+        rnd_delay = geo.menu_pad(b.geometry, b.geom_idx, "proposers", rnd_delay, 0)
+        if crash_coin is not None:
+            crash_coin = geo.menu_pad(b.geometry, b.geom_idx, "nodes", crash_coin, False)
+    rows_d = {}
+    if rows:
+        parts = [np.asarray(x, np.int32).reshape(-1) for x in rows.values()]
+        flat = devm.to_device(torch.from_numpy(np.concatenate(parts)), dev)
+        for (name, x), part in zip(rows.items(), torch.split(flat, [len(q) for q in parts])):
+            rows_d[name] = part.reshape(np.shape(x)).bool()
+    return plans, rnd_delay, crash_coin, rows_d
 
 
 def build_engine(
@@ -355,15 +466,17 @@ def build_engine(
     runtime_knobs: bool = False,
     telemetry: bool = False,
     window_rounds: int = 0,
+    geometry: geo.GeometryEnvelope | None = None,
+    runtime_protocol: bool = False,
     **flags,
 ):
-    """Returns ``round_fn(root, state, tab=None, knobs=None) -> state``,
-    the unpadded, unsharded round of the JAX engine with i.i.d.
-    drop/dup/delay and crash faults, per-edge fault tables, the
-    correlated-fault schedule (``delivery_cut`` included), gates
-    (``vid_cap``) and the seeded takeover wedge.  ``round_fn.lanes`` is
-    the same round over a leading lane axis, which ``round_fn`` runs at
-    one lane (see :func:`_lane_round`).
+    """Returns ``round_fn(root, state, tab=None, knobs=None, tele=None,
+    geom=None, pknobs=None) -> state``, the unsharded round of the JAX
+    engine with i.i.d. drop/dup/delay and crash faults, per-edge fault
+    tables, the correlated-fault schedule (``delivery_cut`` included),
+    gates (``vid_cap``) and the seeded takeover wedge.  ``round_fn.lanes``
+    is the same round over a leading lane axis, which ``round_fn`` runs
+    at one lane (see :func:`_lane_round`).
     ``round_fn`` consumes its ``state``: the acceptor arrays and the ack
     cube are updated in place, on the CPU as on a card.
 
@@ -385,12 +498,23 @@ def build_engine(
     state, so an armed run's decisions equal the plain run's.  Not with
     ``axis_name``; ``window_rounds`` needs ``telemetry``.
 
+    With ``geometry`` (a ``core.geom.GeometryEnvelope``) ``cfg`` must be
+    the envelope's bound (``geometry.bound_cfg``): every [A]/[P]-shaped
+    array pads to the bound and the TRUE geometry arrives per call as a
+    ``core.geom.Geometry`` (``geom=``).  Absent nodes are masked out of
+    all I/O, timers, quorums, crash room and obligations, and every draw
+    whose shape depends on the geometry is made at the true shape, so a
+    padded run makes the unpadded run's decisions.  With
+    ``runtime_protocol=True`` the protocol constants (retry ladders,
+    backoff spans, stall patience) arrive per call as a
+    ``core.geom.ProtocolKnobs`` (``pknobs=``).
+
     The accept store and the ack fold run the simkern CUDA kernels on a
     CUDA device and their plain versions on the CPU; ``use_kernels``
     may only confirm that (``True`` on the CPU raises: there is no CUDA
     kernel to run there).  ``flags`` are the JAX engine's
-    other build options, none ported yet: any set to a non-default
-    value raises naming it."""
+    other build options (the sharded build's), not ported yet: any set
+    to a non-default value raises naming it."""
     if telemetry and flags.get("axis_name") is not None:
         raise ValueError(
             "telemetry is not supported on the sharded engine yet "
@@ -420,6 +544,16 @@ def build_engine(
     c = n_pend_cap
     w = cfg.assign_window
     fc = cfg.faults
+    if geometry is not None:
+        if not isinstance(geometry, geo.GeometryEnvelope):
+            raise TypeError("geometry must be a GeometryEnvelope or None")
+        if a != geometry.bound_nodes or p != geometry.bound_proposers:
+            raise ValueError(
+                f"a geometry-padded engine must be built at the "
+                f"envelope bound ({geometry.bound_nodes} nodes, "
+                f"{geometry.bound_proposers} proposers); cfg has "
+                f"({a}, {p}) — use geometry.bound_cfg(cfg)"
+            )
     if runtime_schedule and fc.schedule is not None:
         raise ValueError(
             "runtime_schedule engines take their schedule per call "
@@ -430,8 +564,6 @@ def build_engine(
             "runtime_knobs engines take their knobs per call (matrix "
             "or scalar FaultKnobs); cfg.faults.edges must be None"
         )
-    quorum = cfg.quorum
-    max_crash = (a - 1) // 2
     pk = geo.static_protocol(cfg.protocol, stall_patience=IDLE_RESTART_ROUNDS)
     wedge_no_takeover = seeded_wedge() == "takeover"
     # Correlated-fault schedule as per-round host tables; a dimension
@@ -442,14 +574,16 @@ def build_engine(
         k: runtime_schedule or (comp is not None and getattr(comp, f"has_{k}"))
         for k in ("reach", "pause", "burst", "crash", "gray")
     }
-    # Per-edge [A, A] fault tables: matrix knobs sliced once per send
-    # direction (proposer->node rows pn, node->proposer columns pn).
-    if fc.edges is not None:
-        mknobs = netm.matrix_knobs(fc)
-        kn_pa0 = netm.edge_knobs(mknobs, cfg.proposers, range(a))
-        kn_ap0 = netm.edge_knobs(mknobs, range(a), cfg.proposers)
-    else:
-        kn_pa0 = kn_ap0 = None
+    # Per-edge [A, A] fault tables: matrix knobs, sliced per send
+    # direction (proposer->node rows pn, node->proposer columns pn) to
+    # the shapes a call draws at.
+    mknobs = netm.matrix_knobs(fc) if fc.edges is not None else None
+
+    def sliced(props, n):
+        if mknobs is None:
+            return None, None
+        return netm.edge_knobs(mknobs, props, range(n)), netm.edge_knobs(mknobs, range(n), props)
+
     # delivery_cut only acts where reachability masks exist.
     delivery_cut = bool(fc.delivery_cut) and has["reach"]
     draw_crash = runtime_knobs or bool(fc.crash_rate)
@@ -459,100 +593,82 @@ def build_engine(
     crash_faults = draw_crash or has["crash"]
     r_cap = min(w, i_cap)
     span = min(2 * r_cap, i_cap)
-
-    pn = torch.tensor(cfg.proposers, dtype=torch.int64, device=dev)  # [P] proposer -> node
-    pn32 = pn.to(_I32)
-    idx = torch.arange(i_cap, dtype=_I32, device=dev)
-    offs_w = torch.arange(w, dtype=_I32, device=dev)
-    bcast_a = torch.ones((p, a), dtype=torch.bool, device=dev)
     # the seven send sites in message order: True = proposer->node [P, A]
     site_pa = [True, False, False, True, False, True, False]
-    pn_np = np.asarray(cfg.proposers)
-    # the recorder's proposer-row scatter as a gather: node a takes
-    # proposer row pn_inv[a], or the zero row P if no proposer sits on it
-    pn_inv = np.full((a,), p, np.int64)
-    pn_inv[pn_np] = np.arange(p)
-    # the sites of each direction, as device indices: a Python list as an
-    # index would copy it to the card from pageable memory, a host sync
-    site_dirs = [torch.tensor([k for k, pa in enumerate(site_pa) if pa == d], device=dev)
-                 for d in (True, False)]
 
-    def draws(roots, t: int, tab, knobs, running):
-        """Every coin of round ``t`` for every lane, hashed in one pass on
-        the engine's device from keys derived on the host, and the
-        schedule's rows for round ``t``, moved to the device in one copy:
-        the seven copy plans, the restart backoff, the crash coins
-        (``u < crash_rate``), the pause / reachability / crash rows, the
-        heal gate of a runtime table and the running-lane mask.  Returns
-        ``(plans, rnd_delay, crash_coin, rows)`` with ``rows`` a dict of
-        what this build has."""
-        lanes = roots.shape[0]
-        gray = xdrop = None
-        rows = {}
-        if runtime_schedule:
-            reach, paused, xdrop, gray = stm.masks_at(tab, t)
-            rows = {"pause": paused, "reach": reach,
-                    "crash": stm.crashes_at(tab, t), "heal": t >= tab.horizon}
-        elif comp is not None:
-            tt = min(t, horizon)
-            if has["gray"]:
-                gray = np.broadcast_to(comp.gray[tt], (lanes, a))
-            if has["burst"]:
-                xdrop = np.full((lanes,), comp.extra_drop[tt])
-            for name, table in (("pause", "paused"), ("reach", "reach"), ("crash", "crashed")):
-                if has[name]:
-                    row = getattr(comp, table)[tt]
-                    rows[name] = np.broadcast_to(row, (lanes, *row.shape))
-        if running is not None:
-            rows["run"] = running
-        gray_pa = gray_ap = None
-        if gray is not None:
-            g = np.asarray(gray, np.int64)
-            gray_pa = g[:, pn_np][:, :, None] + g[:, None, :]  # [L, P, A] src + dst
-            gray_ap = g[:, :, None] + g[:, pn_np][:, None, :]  # [L, A, P]
-        if runtime_knobs:
-            kn_pa = netm.edge_knobs(knobs, pn_np, range(a))
-            kn_ap = netm.edge_knobs(knobs, range(a), pn_np)
-        else:
-            kn_pa, kn_ap = kn_pa0, kn_ap0
-        keys = prng.split_keys(prng.stream_keys(roots, prng.STREAM_NET_DROP, t), 8)
-        sites = [
-            ((p, a), kn_pa, gray_pa) if pa else ((a, p), kn_ap, gray_ap)
-            for pa in site_pa
-        ]
-        extra = [(
-            prng.stream_keys(roots, prng.STREAM_PREPARE_DELAY, t + 1), (p,),
-            pk.prepare_delay_min, pk.prepare_delay_max + 1,
-        )]
-        if draw_crash:
-            extra.append((prng.stream_keys(roots, prng.STREAM_CRASH, t), (a,), 0, 1_000_000))
-        plans, coins = netm.lane_copy_plans(
-            keys[:, :7], sites, fc, extra_drop=xdrop, delay_bound=fc.max_delay,
-            extra=extra, device=dev,
+    def geometry_fields(pn_np, prop_mask, node_mask):
+        """The round's constants that follow the proposer -> node map:
+        ``pn`` (device int64 and int32), the recorder's node -> proposer
+        row gather (node a takes proposer row pn_inv[a], or the zero row
+        P if no true proposer sits on it) and the broadcast fan-out."""
+        pn = torch.tensor(pn_np, dtype=torch.int64, device=dev)
+        pn_inv = np.full((a,), p, np.int64)
+        true = np.flatnonzero(np.ones(p, bool) if prop_mask is None else prop_mask)
+        pn_inv[np.asarray(pn_np)[true]] = true
+        bcast = torch.ones((p, a), dtype=torch.bool, device=dev)
+        if node_mask is not None:
+            bcast = bcast & node_mask[None, :]
+        return dict(pn=pn, pn32=pn.to(_I32), pn_inv=torch.from_numpy(pn_inv).to(dev),
+                    bcast_a=bcast)
+
+    kn_pa0, kn_ap0 = sliced(cfg.proposers, a)
+    # The round shares the build's constants through this namespace.
+    ctx = types.SimpleNamespace(
+        a=a, p=p, i_cap=i_cap, w=w, quorum=cfg.quorum, n_true=a,
+        max_crash=(a - 1) // 2, pk=pk, wedge=wedge_no_takeover,
+        crash_faults=crash_faults, draw_crash=draw_crash, horizon=horizon,
+        runtime_schedule=runtime_schedule, runtime_knobs=runtime_knobs,
+        delivery_cut=delivery_cut, comp=comp, has=has, fc=fc,
+        r_cap=r_cap, span=span,
+        idx=torch.arange(i_cap, dtype=_I32, device=dev),
+        offs_w=torch.arange(w, dtype=_I32, device=dev),
+        vid_cap=vid_cap, dev=dev,
+        telemetry=telemetry, window_rounds=int(window_rounds),
+        site_pa=site_pa,
+        # the sites of each direction, as device indices: a Python list as
+        # an index would copy it to the card from pageable memory, a sync
+        site_dirs=[torch.tensor([k for k, pa in enumerate(site_pa) if pa == d], device=dev)
+                   for d in (True, False)],
+        geometry=None, geom_idx=None, node_mask=None, prop_mask=None,
+        draw_nodes=a, draw_props=np.asarray(cfg.proposers), kn_pa0=kn_pa0, kn_ap0=kn_ap0,
+        **geometry_fields(np.asarray(cfg.proposers), None, None),
+    )
+    views = {}
+
+    def view(geom, pknobs):
+        """The round's constants for one call: the build's, or under a
+        geometry the dispatch's true geometry (proposer map, quorum,
+        crash room, masks, the menu entry it draws at), with the call's
+        protocol knobs.  Built once per distinct call."""
+        if geom is None and pknobs is None:
+            return ctx
+        key = (
+            None if geom is None else tuple(tuple(np.asarray(x).reshape(-1).tolist()) for x in geom),
+            None if pknobs is None else tuple(int(x) for x in pknobs),
         )
-        crash_coin = None
-        if draw_crash:
-            rate = knobs.crash_rate if runtime_knobs else fc.crash_rate
-            rate = devm.to_device(torch.from_numpy(np.asarray(rate, np.int64).reshape(-1, 1)), dev)
-            crash_coin = coins[1] < rate
-        rows_d = {}
-        if rows:
-            parts = [np.asarray(x, np.int32).reshape(-1) for x in rows.values()]
-            flat = devm.to_device(torch.from_numpy(np.concatenate(parts)), dev)
-            for (name, x), part in zip(rows.items(), torch.split(flat, [len(q) for q in parts])):
-                rows_d[name] = part.reshape(np.shape(x)).bool()
-        return plans, coins[0], crash_coin, rows_d
+        v = views.get(key)
+        if v is not None:
+            return v
+        v = types.SimpleNamespace(**vars(ctx))
+        if pknobs is not None:
+            v.pk = geo.ProtocolKnobs(*(int(x) for x in pknobs))
+        if geom is not None:
+            idx = int(geom.geom_idx)
+            n_m, props = geometry.menu[idx]
+            node_mask = np.asarray(geom.node_mask, bool).reshape(a)
+            prop_mask = np.asarray(geom.prop_mask, bool).reshape(p)
+            v.geometry, v.geom_idx = geometry, idx
+            v.n_true, v.quorum, v.max_crash = int(geom.n_true), int(geom.quorum), int(geom.max_crash)
+            v.node_mask = torch.from_numpy(node_mask).to(dev)
+            v.prop_mask = torch.from_numpy(prop_mask).to(dev)
+            v.draw_nodes, v.draw_props = n_m, np.asarray(props)
+            v.kn_pa0, v.kn_ap0 = sliced(props, n_m)
+            vars(v).update(geometry_fields(np.asarray(geom.pn, np.int64).reshape(p), prop_mask,
+                                           v.node_mask))
+        views[key] = v
+        return v
 
-    def lanes_fn(roots, st: SimState, t: int, tab=None, knobs=None, running=None, tele=None):
-        """One round of ``L`` lanes: every leaf of ``st`` has a leading
-        lane axis, ``roots`` is ``[L, 2]`` (``prng.root_keys``), ``t`` the
-        round every running lane is at, ``tab``/``knobs`` the lane-stacked
-        schedule tables and knobs of a runtime build, ``running`` an
-        ``[L]`` bool array (None: every lane runs) and ``tele`` the
-        lane-stacked recorder of an armed build.  A lane that is not
-        running comes back exactly as it was given, as a finished lane's
-        carry stays in a batched ``while_loop``.  Returns the state, or
-        ``(state, tele)`` when armed."""
+    def check_call(tab, knobs, tele, geom, pknobs):
         if runtime_schedule and tab is None:
             raise TypeError(
                 "this engine was built with runtime_schedule=True; "
@@ -568,6 +684,32 @@ def build_engine(
                 "this engine was built with telemetry=True; round_fn "
                 "needs a Telemetry accumulator argument"
             )
+        if (geometry is not None) != (geom is not None):
+            raise TypeError(
+                "a GeometryEnvelope engine takes its Geometry per "
+                "call (round_fn geom=); a bound-free engine takes "
+                "none"
+            )
+        if runtime_protocol and pknobs is None:
+            raise TypeError(
+                "this engine was built with runtime_protocol=True; "
+                "round_fn needs a ProtocolKnobs argument"
+            )
+
+    def lanes_fn(roots, st: SimState, t: int, tab=None, knobs=None, running=None, tele=None,
+                 geom=None, pknobs=None):
+        """One round of ``L`` lanes: every leaf of ``st`` has a leading
+        lane axis, ``roots`` is ``[L, 2]`` (``prng.root_keys``), ``t`` the
+        round every running lane is at, ``tab``/``knobs`` the lane-stacked
+        schedule tables and knobs of a runtime build, ``running`` an
+        ``[L]`` bool array (None: every lane runs), ``tele`` the
+        lane-stacked recorder of an armed build, and ``geom``/``pknobs``
+        the one geometry and protocol of every lane (padded and
+        runtime-protocol builds).  A lane that is not running comes back
+        exactly as it was given, as a finished lane's carry stays in a
+        batched ``while_loop``.  Returns the state, or ``(state, tele)``
+        when armed."""
+        check_call(tab, knobs, tele, geom, pknobs)
         for name in ("pend", "gate"):
             width = getattr(st.prop, name).shape[-1]
             if width != c + w:
@@ -575,9 +717,10 @@ def build_engine(
                     f"{name} rows are {width} wide; expected {c} + "
                     f"assign_window {w} padding"
                 )
-        return _lane_round(ctx, roots, st, t, tab, knobs, running, tele if telemetry else None)
+        return _lane_round(view(geom, pknobs), roots, st, t, tab, knobs, running,
+                           tele if telemetry else None)
 
-    def round_fn(root, st: SimState, tab=None, knobs=None, tele=None):
+    def round_fn(root, st: SimState, tab=None, knobs=None, tele=None, geom=None, pknobs=None):
         """One round of one run: :func:`_lane_round` at one lane."""
         if tab is not None:
             tab = _one_lane(tab)
@@ -585,45 +728,38 @@ def build_engine(
             knobs = _one_lane(knobs)
         roots = np.asarray([root], np.uint64)
         tl = None if tele is None else lanes_view(tele)
-        return lane_of(lanes_fn(roots, lanes_view(st), int(st.t), tab, knobs, tele=tl), 0)
+        return lane_of(lanes_fn(roots, lanes_view(st), int(st.t), tab, knobs, tele=tl,
+                                geom=geom, pknobs=pknobs), 0)
 
-    def dormant(st: SimState, t: int, tab=None, knobs=None, running=None):
+    def dormant(st: SimState, t: int, tab=None, knobs=None, running=None, geom=None, pknobs=None):
         """``[L]`` bool on the device, or None where no lane qualifies:
         the running lanes on which round ``t`` and every later round can
-        depend on nothing but the state.  Every proposer has crashed (so
-        no timer, send or decision acts), the calendars are empty (so
+        depend on nothing but the state.  Every true proposer has crashed
+        (so no timer, send or decision acts), the calendars are empty (so
         nothing arrives, whatever the slot), no crash can come (the
         lane's crash rate is 0 or its crash room is spent) and the
         schedule is past its horizon.  Where one such round changes
         nothing, no later round does."""
+        b = view(geom, pknobs)
         lanes = st.t.shape[0]
         healed = t >= (np.asarray(tab.horizon) if runtime_schedule else np.full(lanes, horizon))
         if running is not None:
             healed = healed & running
         if not healed.any():
             return None
-        out = st.crashed[:, pn].all(dim=1) & devm.to_device(torch.from_numpy(healed), dev)
+        gone = st.crashed[:, b.pn]
+        if b.prop_mask is not None:
+            gone = gone | ~b.prop_mask
+        out = gone.all(dim=1) & devm.to_device(torch.from_numpy(healed), dev)
         for buf in st.net:
             empty = ~buf if buf.dtype == torch.bool else buf == bal.NONE
             out &= empty.reshape(lanes, -1).all(dim=1)
         if draw_crash:
             rate = knobs.crash_rate if runtime_knobs else fc.crash_rate
             no_rate = torch.from_numpy(np.broadcast_to(np.asarray(rate) == 0, (lanes,)).copy())
-            out &= devm.to_device(no_rate, dev) | (_sum32(st.crashed, dim=1) >= max_crash)
+            out &= devm.to_device(no_rate, dev) | (_sum32(st.crashed, dim=1) >= b.max_crash)
         return out
 
-    # The round shares the build's constants through this namespace.
-    ctx = types.SimpleNamespace(
-        a=a, p=p, i_cap=i_cap, w=w, quorum=quorum,
-        max_crash=max_crash, pk=pk, wedge=wedge_no_takeover,
-        crash_faults=crash_faults, draw_crash=draw_crash, horizon=horizon,
-        runtime_schedule=runtime_schedule, delivery_cut=delivery_cut,
-        r_cap=r_cap, span=span, pn=pn, pn32=pn32,
-        idx=idx, offs_w=offs_w, bcast_a=bcast_a,
-        vid_cap=vid_cap, draws=draws, dev=dev,
-        telemetry=telemetry, window_rounds=int(window_rounds),
-        site_pa=site_pa, site_dirs=site_dirs, pn_inv=torch.from_numpy(pn_inv).to(dev),
-    )
     round_fn.lanes = lanes_fn
     round_fn.dormant = dormant
     round_fn.window_rounds = int(window_rounds) if telemetry else None
@@ -651,16 +787,24 @@ def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running, tele=None):
     slot = t % s
     ar = netm.NetBuffers(*[x[:, slot] for x in st.net])
     net = netm.clear_slot(st.net, slot)
-    plans, rnd_delay, crash_coin, rows = b.draws(roots, t, tab, knobs, running)
+    plans, rnd_delay, crash_coin, rows = _draws(b, roots, t, tab, knobs, running)
     run_d = rows.get("run")  # [L] bool, None when every lane runs
 
     # I/O-alive mask: crashed or currently paused nodes neither
     # send, receive nor act on timers this round; excusals stay on
     # `crashed` alone (a paused node's obligations are deferred).
     alive_a = ~st.crashed  # [L, A]
+    if b.node_mask is not None:
+        # absent nodes: dead for all I/O and timers, and excused from
+        # every obligation (the round's `dead` masks below)
+        alive_a = alive_a & b.node_mask
     if "pause" in rows:
         alive_a = alive_a & ~rows["pause"]
     prop_alive = alive_a[:, pn]  # [L, P]
+    if b.prop_mask is not None:
+        # pad proposer slots read node 0 through pn's padding: masked out
+        # so they never start, resend, restart or take over
+        prop_alive = prop_alive & b.prop_mask
     # Per-edge reachability cuts, ANDed into every send mask (and,
     # with delivery_cut, into this round's arrivals).
     reach = rows.get("reach")
@@ -999,9 +1143,10 @@ def _proposer_round(
             & (commit_vid != val.NONE)[:, :, None, :]
             & (learned[:, None] == commit_vid[:, :, None, :])
         )
+        excused = st.crashed if b.node_mask is None else st.crashed | ~b.node_mask
         fresh = (
             (commit_vid != val.NONE)
-            & ~(commit_acked | st.crashed[:, None, :, None]).all(dim=2)
+            & ~(commit_acked | excused[:, None, :, None]).all(dim=2)
         ).any(dim=2)  # [L, P]
         # a lane without a reply keeps its cached flag
         commit_wait = fresh if crep_l is None else torch.where(crep_l[:, None], fresh, commit_wait)
@@ -1139,9 +1284,11 @@ def _proposer_round(
         com_pres=netm.write_flag(net.com_pres, t, al5, dl5, post[5]),
         com_rep=netm.write_flag(net.com_rep, t, al6, dl6, post[6]),
     )
+    # broadcast fan-out counts the TRUE node set under a geometry
+    na = b.n_true
     msgs = met.msgs + torch.stack([
-        send_prep.sum(dim=1) * a, send_rep.sum(dim=(1, 2)), send_rej.sum(dim=(1, 2)),
-        send_accept.sum(dim=1) * a, send_arep.sum(dim=(1, 2)), send_commit.sum(dim=1) * a,
+        send_prep.sum(dim=1) * na, send_rep.sum(dim=(1, 2)), send_rej.sum(dim=(1, 2)),
+        send_accept.sum(dim=1) * na, send_arep.sum(dim=(1, 2)), send_commit.sum(dim=1) * na,
         send_crep.sum(dim=(1, 2)),
     ], dim=1).to(_I32)
     met = met._replace(msgs=msgs)
@@ -1162,6 +1309,10 @@ def _proposer_round(
     # The cached counts are recomputed on a round where any lane's may
     # have changed: on the others they equal the cache.
     palive2 = (~crashed)[:, pn]
+    if b.prop_mask is not None:
+        palive2 = palive2 & b.prop_mask
+    # obligation excusal: crashed nodes and, under a geometry, absent ones
+    dead2 = crashed if b.node_mask is None else crashed | ~b.node_mask
     q_change = (
         any_com_arr or any_echo or any_p1 or any_window or any_reset
         or any_own_done or any_conflict or t == 0
@@ -1186,7 +1337,7 @@ def _proposer_round(
     q_empty = ~(palive2 & (q_pending > 0)).any(dim=1)
     own_none = ~(palive2 & (own_n > 0)).any(dim=1)
     contiguous = n_chosen == hmax + 1
-    learned_ok = ((n_learned == hmax[:, None] + 1) | crashed).all(dim=1)
+    learned_ok = ((n_learned == hmax[:, None] + 1) | dead2).all(dim=1)
     done = q_empty & own_none & contiguous & learned_ok & (t > 0)
     if b.runtime_schedule:
         # heal-then-converge with each lane's own horizon
@@ -1301,9 +1452,10 @@ def _record(b, st: SimState, new: SimState, rec: dict, tele, t: int):
     # phase-ledger stamps: learned by a majority of nodes; commit ladder
     # complete (some commitment acked by every node not crashed)
     learn_ok = learned_any.sum(dim=1) >= b.quorum  # [L, I]
+    dead = new.crashed if b.node_mask is None else new.crashed | ~b.node_mask
     full_ack = (
         (pr.commit_vid != none)
-        & (pr.commit_acked | new.crashed[:, None, :, None]).all(dim=2)
+        & (pr.commit_acked | dead[:, None, :, None]).all(dim=2)
     ).any(dim=1)  # [L, I]
     stall_now = pr.stall.amax(dim=1)
 
@@ -1420,22 +1572,30 @@ def gates_vid_cap(workload, gates) -> int:
     return max(int(np.max(w)) for w in workload if len(w)) + 1
 
 
-def init_state(cfg: SimConfig, pend, gate, tail, root, device="cuda") -> SimState:
-    """Initial state on ``device`` (queue arrays as numpy or tensors)."""
+def init_state(cfg: SimConfig, pend, gate, tail, root, device="cuda",
+               geometry=None, geom=None, pknobs=None) -> SimState:
+    """Initial state on ``device`` (queue arrays as numpy or tensors).
+    With ``geometry``/``geom``/``pknobs`` (a padded build; ``cfg`` is
+    then the envelope's bound) the initial backoff is drawn as the
+    engine's in-round backoff is."""
     dev = devm.resolve(device)
 
     def lane(x):
         return (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x))[None]
 
     roots = np.asarray([root], np.uint64)
-    return lane_of(_init_lanes(cfg, lane(pend), lane(gate), lane(tail), roots, dev), 0)
+    return lane_of(_init_lanes(cfg, lane(pend), lane(gate), lane(tail), roots, dev,
+                               geometry=geometry, geom=geom, pknobs=pknobs), 0)
 
 
-def init_lanes(cfg: SimConfig, pend, gate, tail, roots, device="cuda") -> SimState:
+def init_lanes(cfg: SimConfig, pend, gate, tail, roots, device="cuda",
+               geometry=None, geom=None, pknobs=None) -> SimState:
     """Initial states of ``L`` lanes on ``device``, stacked on a leading
     lane axis: ``pend``/``gate`` ``[L, P, C+W]``, ``tail`` ``[L, P]``
-    (numpy) and ``roots`` ``[L, 2]`` (``prng.root_keys``)."""
-    return _init_lanes(cfg, pend, gate, tail, roots, devm.resolve(device))
+    (numpy) and ``roots`` ``[L, 2]`` (``prng.root_keys``); ``geometry``,
+    ``geom`` and ``pknobs`` as :func:`init_state` takes them."""
+    return _init_lanes(cfg, pend, gate, tail, roots, devm.resolve(device),
+                       geometry=geometry, geom=geom, pknobs=pknobs)
 
 
 def _unchanged(old, new, lanes: int) -> torch.Tensor:
@@ -1455,7 +1615,8 @@ def _unchanged(old, new, lanes: int) -> torch.Tensor:
     return ~changed
 
 
-def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None, tele=None):
+def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None, tele=None,
+              geom=None, pknobs=None):
     """The whole-run loop of ``L`` lanes (a batched ``while_loop``):
     lane ``l`` runs while ``~done[l] & t[l] < budgets[l]``, and a lane
     that stops keeps its state while the others run on.  Every running
@@ -1467,6 +1628,8 @@ def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None, t
     nothing) would only count rounds up to its budget: it is parked and
     its counter set to the budget at the end, as the JAX loop leaves it.
     Returns the final states and the number of round calls.
+    ``geom``/``pknobs`` are a padded or runtime-protocol build's
+    per-call geometry and protocol knobs, shared by every lane.
 
     An armed engine takes the lane-stacked recorder as ``tele`` and the
     loop returns ``(states, tele, round calls)``.  The rounds a parked
@@ -1500,14 +1663,15 @@ def run_lanes(round_fn, roots, state: SimState, budgets, tab=None, knobs=None, t
             t, calls = int(t_l[running][0]), 0
         if (t_l[running] != t).any():
             raise AssertionError(f"running lanes are at rounds {t_l[running]}, not {t}")
-        check = round_fn.dormant(state, t, tab, knobs, running)
+        check = round_fn.dormant(state, t, tab, knobs, running, geom=geom, pknobs=pknobs)
         if check is not None:
             prev = state
         run = None if running.all() else running
+        kw = dict(geom=geom, pknobs=pknobs)
         if tele is None:
-            state = round_fn.lanes(roots, state, t, tab, knobs, run)
+            state = round_fn.lanes(roots, state, t, tab, knobs, run, **kw)
         else:
-            state, tele = round_fn.lanes(roots, state, t, tab, knobs, run, tele=tele)
+            state, tele = round_fn.lanes(roots, state, t, tab, knobs, run, tele=tele, **kw)
         t += 1
         calls += 1
     if parked.any():

@@ -17,6 +17,10 @@ distinct key.  The key pins the template's expected-vid/owner TABLES and
 shapes, not its queue ORDER, so callers pass explicit per-lane
 ``workloads=`` (and ``knobs=``) to ``run()``; cached runners refuse
 implicit ones.
+
+Under a geometry envelope (``core/geom.GeometryEnvelope``) the key
+collapses over the menu and the protocol knobs: every true geometry
+under the bound, with any protocol mix, shares one padded runner.
 """
 
 from __future__ import annotations
@@ -37,11 +41,18 @@ from tpu_paxos_torch.utils import device as devm
 MAX_DELAY_BOUND = 8
 
 _CACHE: dict = {}
+_MISSES = 0  # runners built by runner_for since import
 
 
 def clear_cache() -> None:
     """Drop every cached runner."""
     _CACHE.clear()
+
+
+def cache_misses() -> int:
+    """The runners ``runner_for`` has built since import (cache misses):
+    the port's count of what JAX's compile census counts for a fleet."""
+    return _MISSES
 
 
 def envelope_key(
@@ -52,12 +63,17 @@ def envelope_key(
     delay_bound: int,
     device=None,
     telemetry: bool = False,
+    geometry=None,
 ) -> tuple:
     """The hashable envelope of a (cfg, workload-template) pair: exactly
     the facts a runner fixes when it is built, including whether the
     flight recorder is armed, the seeded-wedge flag
     (``core/sim.seeded_wedge``: an armed build leaves the takeover out)
-    and the device the runner's states live on."""
+    and the device the runner's states live on.
+
+    Under a ``geometry`` envelope ``cfg`` must already be the bound cfg:
+    the menu stands for the per-geometry facts and the protocol knobs
+    drop out (they are per-dispatch data of the padded runner)."""
     wl = [np.asarray(w, np.int32).reshape(-1) for w in workload]
     expected, owner = vdt.expected_owners(cfg, wl)
     gate_sig = (
@@ -73,7 +89,11 @@ def envelope_key(
         cfg.n_instances,
         cfg.assign_window,
         cfg.max_rounds,
-        dataclasses.astuple(cfg.protocol),
+        (
+            dataclasses.astuple(cfg.protocol)
+            if geometry is None else "runtime-protocol"
+        ),
+        None if geometry is None else ("geom", geometry.menu),
         int(delay_bound),
         int(max_episodes),
         tuple(len(w) for w in wl),
@@ -106,10 +126,18 @@ def runner_for(
     ``run()`` (enforced: the returned runner rejects implicit inputs).
 
     ``telemetry=True`` hands back the flight-recorder-armed twin of the
-    envelope, in a cache slot of its own."""
-    for name, given in (("mesh", mesh is not None), ("geometry", geometry is not None)):
-        if given:
-            raise NotImplementedError(f"runner_for {name}= is not ported yet")
+    envelope, in a cache slot of its own.
+
+    ``geometry`` (a ``core.geom.GeometryEnvelope``) hands back the
+    geometry-PADDED runner of the envelope's bound: ``cfg`` may name any
+    true geometry under the bound (it normalizes to
+    ``geometry.bound_cfg``), the workload template pads to the proposer
+    bound, and every such geometry and protocol mix shares the one
+    runner.  Dispatch with ``run(geometry=(n_nodes, proposers),
+    protocol=...)``."""
+    global _MISSES
+    if mesh is not None:
+        raise NotImplementedError("runner_for mesh= is not ported yet")
     if delay_bound is None:
         delay_bound = max(cfg.faults.max_delay, MAX_DELAY_BOUND)
     if cfg.faults.max_delay > delay_bound:
@@ -117,9 +145,25 @@ def runner_for(
             f"cfg max_delay {cfg.faults.max_delay} exceeds the "
             f"requested envelope delay bound {delay_bound}"
         )
+    if geometry is not None:
+        # normalize ONTO the envelope bound before keying: every true
+        # geometry under the bound lands on the same cache slot
+        if (
+            cfg.n_nodes > geometry.bound_nodes
+            or len(cfg.proposers) > geometry.bound_proposers
+        ):
+            raise ValueError(
+                f"geometry ({cfg.n_nodes}, {cfg.proposers}) exceeds "
+                f"the envelope geometry bound ({geometry.bound_nodes} "
+                f"nodes, {geometry.bound_proposers} proposers)"
+            )
+        cfg = geometry.bound_cfg(cfg)
+        workload, gates = frun._pad_geometry_workload(
+            workload, gates, geometry.bound_proposers
+        )
     dev = devm.resolve(device)
     key = envelope_key(cfg, workload, gates, max_episodes, delay_bound, dev,
-                       telemetry=telemetry)
+                       telemetry=telemetry, geometry=geometry)
     runner = _CACHE.get(key)
     if runner is None:
         base = dataclasses.replace(
@@ -130,10 +174,11 @@ def runner_for(
         )
         runner = frun.FleetRunner(
             base, workload, gates, max_episodes=max_episodes, device=dev,
-            telemetry=telemetry,
+            telemetry=telemetry, geometry=geometry,
         )
         runner.explicit_inputs_only = True
         _CACHE[key] = runner
+        _MISSES += 1
     return runner
 
 

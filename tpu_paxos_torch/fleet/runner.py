@@ -19,6 +19,12 @@ config.  A ``telemetry=True`` runner carries the flight recorder (with
 its windowed plane) beside every lane's state and reduces it on the
 device with the verdict; the summaries come to the host in the
 verdict's one copy.
+
+A ``geometry=`` runner (a ``core.geom.GeometryEnvelope``) is built at
+the envelope's bound and serves every true geometry of its menu: each
+``run(geometry=(n_nodes, proposers), protocol=...)`` dispatch names its
+true geometry and protocol knobs, and its lanes make the decisions of
+the bound-free runner of that geometry.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from tpu_paxos_torch.config import EdgeFaultConfig, FaultConfig, SimConfig
+from tpu_paxos_torch.core import geom as geo
 from tpu_paxos_torch.core import net as netm
 from tpu_paxos_torch.core import sim as simm
 from tpu_paxos_torch.core import values as val
@@ -161,14 +168,29 @@ class FleetRunner:
         geometry=None,
         device="cuda",
     ):
-        for name, given in (("geometry", geometry is not None), ("mesh", mesh is not None)):
-            if given:
-                raise NotImplementedError(f"FleetRunner {name}= is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("FleetRunner mesh= is not ported yet")
         if cfg.faults.schedule is not None:
             raise ValueError(
                 "fleet base cfg must not bake a schedule; schedules "
                 "are per-lane runtime tables"
             )
+        if geometry is not None:
+            # padded runner: the build cfg IS the envelope bound; the
+            # true geometry and protocol knobs arrive per run() dispatch
+            if (
+                cfg.n_nodes != geometry.bound_nodes
+                or tuple(cfg.proposers)
+                != tuple(range(geometry.bound_proposers))
+            ):
+                raise ValueError(
+                    "a geometry-padded fleet runner must be built at "
+                    "the envelope bound; use geometry.bound_cfg(cfg)"
+                )
+            workload, gates = _pad_geometry_workload(
+                workload, gates, geometry.bound_proposers
+            )
+        self.geometry = geometry
         self.device = devm.resolve(device)
         self.cfg = cfg
         self.workload = [np.asarray(w, np.int32) for w in workload]
@@ -202,6 +224,7 @@ class FleetRunner:
             cfg, c, vid_cap=self._gate_vid_cap, device=self.device,
             runtime_schedule=True, runtime_knobs=True,
             telemetry=telemetry, window_rounds=window_rounds,
+            geometry=geometry, runtime_protocol=geometry is not None,
         )
 
     def _pad_vtab(self, exp: np.ndarray, own: np.ndarray):
@@ -214,7 +237,7 @@ class FleetRunner:
         po[: len(own)] = own
         return pe, po
 
-    def _queues(self, n_lanes: int, workloads):
+    def _queues(self, n_lanes: int, workloads, owner_cfg=None):
         """Stacked per-lane (pend, gate, tail, expected, owner) plus the
         per-lane expected-vid list.  Per-lane workloads must match the
         template's SHAPES (same per-proposer lengths, same queue
@@ -240,7 +263,7 @@ class FleetRunner:
         for wl_lane, g_lane in workloads:
             key = (id(wl_lane), id(g_lane))
             if key not in cache:
-                cache[key] = self._lane_tables(wl_lane, g_lane)
+                cache[key] = self._lane_tables(wl_lane, g_lane, owner_cfg)
             lanes.append(cache[key])
         return (
             stack([ln[0] for ln in lanes]), stack([ln[1] for ln in lanes]),
@@ -248,10 +271,17 @@ class FleetRunner:
             stack([ln[4] for ln in lanes]), [ln[5] for ln in lanes],
         )
 
-    def _lane_tables(self, wl_lane, g_lane):
+    def _lane_tables(self, wl_lane, g_lane, owner_cfg=None):
         """Validate one lane's (workload, gates) against the envelope and
-        return its (pend, gate, tail, expected, owner, exp)."""
-        exp, own = vdt.expected_owners(self.cfg, wl_lane)
+        return its (pend, gate, tail, expected, owner, exp).  ``owner_cfg``
+        (padded dispatches) is the TRUE geometry the verdict's vid ->
+        owner-node map is computed against; the queues pad to the
+        bound."""
+        exp, own = vdt.expected_owners(owner_cfg or self.cfg, wl_lane)
+        if self.geometry is not None:
+            wl_lane, g_lane = _pad_geometry_workload(
+                wl_lane, g_lane, self.geometry.bound_proposers
+            )
         if exp.size and int(exp.max()) >= self.vid_bound:
             raise ValueError(
                 f"per-lane workload vid {int(exp.max())} exceeds "
@@ -344,6 +374,10 @@ class FleetRunner:
                 )
             fcs.append(k)
         mats = [netm.matrix_knobs(fc, a) for fc in fcs]
+        if self.geometry is not None:
+            # true-size [n, n] edge tables pad to the bound with zeros
+            # (the round slices the true leading block back out)
+            mats = [netm.pad_matrix_knobs(m, a) for m in mats]
         stacked = netm.FaultKnobs(
             drop_rate=np.stack([m.drop_rate for m in mats]),
             dup_rate=np.stack([m.dup_rate for m in mats]),
@@ -380,7 +414,13 @@ class FleetRunner:
         Runners from the envelope cache (``fleet/envelope.runner_for``)
         REJECT ``workloads=None`` / ``knobs=None``: the cached template's
         queue order and base knobs belong to whichever caller warmed the
-        cache."""
+        cache.
+
+        A padded runner takes every dispatch's TRUE geometry as
+        ``geometry=(n_nodes, proposers)`` (on its menu) and its protocol
+        knobs as ``protocol`` (a ProtocolConfig; None: the build cfg's),
+        with explicit ``workloads=``; the report's ``cfg`` is the true
+        geometry's."""
         if self.explicit_inputs_only and (workloads is None or knobs is None):
             raise ValueError(
                 "this runner came from the envelope cache "
@@ -388,11 +428,38 @@ class FleetRunner:
                 "and knobs= — its template queues and base knob mix "
                 "are cache-normalized, not yours"
             )
-        if geometry is not None or protocol is not None:
-            raise ValueError(
-                "geometry=/protocol= are geometry-padded dispatch "
-                "inputs; build the runner with a GeometryEnvelope "
-                "(FleetRunner(geometry=...))"
+        if self.geometry is None:
+            if geometry is not None or protocol is not None:
+                raise ValueError(
+                    "geometry=/protocol= are geometry-padded dispatch "
+                    "inputs; build the runner with a GeometryEnvelope "
+                    "(FleetRunner(geometry=...))"
+                )
+            gm = pkn = None
+            report_cfg = self.cfg
+        else:
+            if geometry is None:
+                raise ValueError(
+                    "a geometry-padded runner takes its TRUE geometry "
+                    "per dispatch: run(geometry=(n_nodes, proposers))"
+                )
+            if workloads is None:
+                raise ValueError(
+                    "a geometry-padded dispatch needs explicit "
+                    "workloads= (the verdict's vid->owner map is "
+                    "computed against the TRUE geometry, not the "
+                    "bound cfg)"
+                )
+            n_true, true_props = geometry
+            true_props = tuple(int(x) for x in true_props)
+            pc = protocol if protocol is not None else self.cfg.protocol
+            # named rejections: off-menu / over-bound geometries through
+            # GeometryEnvelope.index_of, out-of-span knobs through
+            # config.PROTOCOL_SPANS in geo.protocol_knobs
+            gm = geo.geometry_for(self.geometry, n_true, true_props)
+            pkn = geo.protocol_knobs(pc, stall_patience=simm.IDLE_RESTART_ROUNDS)
+            report_cfg = dataclasses.replace(
+                self.cfg, n_nodes=int(n_true), proposers=true_props, protocol=pc,
             )
         seeds = [int(s) for s in seeds]
         schedules = list(schedules)
@@ -416,7 +483,10 @@ class FleetRunner:
                     "episode is a no-op)"
                 )
         roots = prng.root_keys(seeds)
-        pend, gate, tail, exp, own, exp_list = self._queues(n_lanes, workloads)
+        pend, gate, tail, exp, own, exp_list = self._queues(
+            n_lanes, workloads,
+            owner_cfg=None if self.geometry is None else report_cfg,
+        )
         if regions is not None and not self.telemetry:
             raise ValueError(
                 "regions maps feed the flight recorder's region-pair "
@@ -440,7 +510,9 @@ class FleetRunner:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        states = simm.init_lanes(self.cfg, pend, gate, tail, roots, device=dev)
+        states = simm.init_lanes(self.cfg, pend, gate, tail, roots, device=dev,
+                                 geometry=self.geometry, geom=gm, pknobs=pkn)
+        gp = dict(geom=gm, pknobs=pkn)
         if self.telemetry:
             from tpu_paxos_torch.telemetry import recorder as telem
 
@@ -451,14 +523,14 @@ class FleetRunner:
                 telem.init_windows(c.n_nodes, lanes=n_lanes, device=dev),
             )
             final, tele, iters = simm.run_lanes(
-                self._round, roots, states, budgets, tabs, kn, tele=tele0)
+                self._round, roots, states, budgets, tabs, kn, tele=tele0, **gp)
         else:
-            final, iters = simm.run_lanes(self._round, roots, states, budgets, tabs, kn)
+            final, iters = simm.run_lanes(self._round, roots, states, budgets, tabs, kn, **gp)
         trees = [vdt.lane_verdict(
             self.cfg, final,
             torch.from_numpy(np.ascontiguousarray(exp)).to(dev),
             torch.from_numpy(np.ascontiguousarray(own)).to(dev),
-            self.vid_bound,
+            self.vid_bound, geom=gm,
         )]
         if self.telemetry:
             trees += telem.close(tele, final, tabs.horizon, rmaps, telem.WINDOW_ROUNDS)
@@ -467,7 +539,7 @@ class FleetRunner:
         tsum, wsum = (host[1], host[2]) if self.telemetry else (None, None)
         seconds = time.perf_counter() - t0
         return FleetReport(
-            cfg=self.cfg,
+            cfg=report_cfg,
             n_lanes=n_lanes,
             seeds=seeds,
             schedules=schedules,

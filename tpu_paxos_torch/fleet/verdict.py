@@ -62,12 +62,15 @@ def lane_verdict(
     expected: torch.Tensor,
     owner_node: torch.Tensor,
     vid_cap: int,
+    geom=None,
 ) -> LaneVerdict:
     """Judge lane-stacked final states on their device: ``final``'s
     leaves are ``[L, ...]``, ``expected``/``owner_node`` ``[L, V]`` int32
     tables (slots padded with -1 expected are vacuously covered), and
-    ``vid_cap`` the bitmap bound of the vid space.  Returns ``[L]``
-    tensors on the device."""
+    ``vid_cap`` the bitmap bound of the vid space.  ``geom`` (a
+    ``core.geom.Geometry``) is a padded dispatch's true geometry: only
+    its true proposers can excuse a lane that is not quiescent.  Returns
+    ``[L]`` tensors on the device."""
     learned = final.learned  # [L, A, I]
     lanes = learned.shape[0]
     known = learned != val.NONE
@@ -87,8 +90,15 @@ def lane_verdict(
     covered = bitmap.gather(1, exp.clamp(0, vid_cap - 1))
     coverage = (~valid | covered | owner_crashed).all(dim=1)
 
-    pn = torch.tensor(cfg.proposers, dtype=torch.int64, device=chosen.device)
-    all_props_crashed = final.crashed[:, pn].all(dim=1)
+    if geom is None:
+        pn = torch.tensor(cfg.proposers, dtype=torch.int64, device=chosen.device)
+        all_props_crashed = final.crashed[:, pn].all(dim=1)
+    else:
+        # pad proposer slots read node 0 through pn's padding: they count
+        # as crashed, so only true proposers can excuse the lane
+        pn = torch.as_tensor(np.asarray(geom.pn, np.int64), device=chosen.device)
+        pad = torch.as_tensor(~np.asarray(geom.prop_mask, bool), device=chosen.device)
+        all_props_crashed = (final.crashed[:, pn] | pad).all(dim=1)
     quiescent = final.done | all_props_crashed
 
     max_round = torch.where(

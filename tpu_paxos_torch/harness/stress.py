@@ -16,13 +16,16 @@ byte for byte.
 
 The host loop builds the round function once per mix (a seed changes
 only the PRNG root) and drives each seed as one lane of it
-(``core/sim.run_lanes``).  The fleet sweep (``sweep_fleet``) waits for
-the flight recorder, and the sharded sweep for the sharded engine.
+(``core/sim.run_lanes``).  The fleet sweep (``sweep_fleet``) runs each
+episode mix's seeds as the lanes of one dispatch of the armed envelope
+runner; the sharded sweep waits for the sharded engine.
 
 CLI: ``python -m tpu_paxos_torch.harness.stress [--seeds N]
-[--base-seed S] [--triage-dir D] [--device {cuda,cpu}]`` prints one JSON
-summary line and exits non-zero on any violation; ``--fleet`` and
-``--sharded`` exit 2 (not ported yet).
+[--base-seed S] [--triage-dir D] [--fleet] [--device {cuda,cpu}]``
+prints one JSON summary line (with ``--fleet`` two: the host-loop sweep
+over the i.i.d.-only mixes, then the fleet sweep over the episode and
+WAN mixes) and exits non-zero on any violation; ``--sharded`` exits 2
+(not ported yet).
 """
 
 from __future__ import annotations
@@ -146,6 +149,19 @@ WAN_MIXES = [
         2,
     ),
 ]
+
+#: node->region maps per WAN mix label (the recorder's region-pair
+#: counters; sweep_fleet passes them through run(regions=))
+WAN_REGIONS = {
+    "wan-3region": wanm.node_regions(wanm.WAN3, 5),
+    "wan-5region": wanm.node_regions(wanm.WAN5, 5),
+}
+#: preset region names per WAN mix label: the recorder's
+#: ``region_pairs`` blocks render pairs by name (``us->ap``)
+WAN_NAMES = {
+    "wan-3region": wanm.WAN3.regions,
+    "wan-5region": wanm.WAN5.regions,
+}
 
 N_IDS = 6  # ids per client chain (gated, in-order)
 N_FREE = 8  # ungated values per proposer
@@ -288,6 +304,166 @@ def sweep(
     }
 
 
+def _mix_telemetry(rep, cfg: SimConfig, region_names: tuple = ()) -> dict:
+    """One mix's flight-recorder block, a pure function of (cfg, seeds):
+    the lanes' counters and latency quantiles reduced across lanes
+    (``telemetry/recorder.reduce_lanes``), the region-pair plane, the
+    windowed series, and the configured against the observed drop rate
+    (i.i.d.-layer drops over offered edges, per 1e4)."""
+    from tpu_paxos_torch.telemetry import recorder as telem
+
+    ts = rep.telemetry
+    if ts is None:
+        return {}
+    agg = telem.reduce_lanes(
+        ts, getattr(rep, "windows", None),
+        region_names=tuple(region_names),
+    )
+    offered, dropped = agg["offered"], agg["dropped"]
+    return {
+        **{k: agg[k] for k in (
+            "offered", "dropped", "duped", "delayed",
+            "latency_p50", "latency_p99", "latency_max",
+            "decided", "takeovers", "requeues", "restarts",
+            "heal_gap_min", "stall_depth_max", "duel_depth_max",
+        )},
+        "region_pairs": agg["region_pairs"],
+        **({"windows": agg["windows"]} if "windows" in agg else {}),
+        "drop_rate_configured": cfg.faults.drop_rate,
+        "drop_rate_observed": (
+            round(1e4 * dropped / offered, 1) if offered else 0.0
+        ),
+    }
+
+
+def sweep_fleet(
+    n_seeds: int = 8,
+    base_seed: int = 0,
+    verbose: bool = True,
+    triage_dir: str | None = None,
+    mixes=None,
+    device="cuda",
+) -> dict:
+    """The episode-mix sweeps through the FLEET runner: per mix, every
+    seed is a lane of one dispatch of the armed envelope runner
+    (``fleet/envelope.runner_for(..., telemetry=True)``), the schedule a
+    per-lane table and the i.i.d. knobs per-lane knobs, so every mix of
+    one geometry shares one runner.  Lanes are judged on the device by
+    the invariant subset; only failing lanes come to the host for the
+    full crash-aware suite and shrink triage.  Each lane equals the host
+    loop's run of the same (mix, seed).
+
+    ``compiles_per_mix`` keeps JAX's key: JAX counts the XLA compiles of
+    each mix's dispatch, and the port compiles nothing, so each mix gets
+    the ``runner_for`` cache misses it caused (the runners built for it;
+    0 once an earlier mix built its envelope).  The summary equals JAX's
+    less ``seconds``, ``lanes_per_sec`` and ``compiles_per_mix``."""
+    from tpu_paxos_torch.fleet import envelope as env
+
+    logger = logm.get_logger(
+        "stress", logm.parse_level("INFO" if verbose else "WARN")
+    )
+    mixes = (EPISODE_MIXES + WAN_MIXES) if mixes is None else mixes
+    runs, failures = 0, []
+    lane_seconds, lanes_total = 0.0, 0
+    compiles_per_mix: dict[str, int] = {}
+    telemetry_per_mix: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for label, fkw, n_nodes, n_prop in mixes:
+        sched = fkw["schedule"]
+        base_kw = {k: v for k, v in fkw.items() if k != "schedule"}
+        lanes = []  # (seed, workload, gates, chains)
+        for s in range(n_seeds):
+            seed = base_seed + s
+            rng = np.random.default_rng(
+                seed * 7919 + zlib.crc32(label.encode()) % 1000
+            )
+            workload, gates, chains = _workload(n_prop, rng)
+            lanes.append((seed, workload, gates, chains))
+        cfg = SimConfig(
+            n_nodes=n_nodes,
+            n_instances=2 * sum(len(w) for w in lanes[0][1]),
+            proposers=tuple(range(n_prop)),
+            seed=base_seed,
+            max_rounds=20_000,
+            faults=FaultConfig(**base_kw),
+        )
+        before = env.cache_misses()
+        runner = env.runner_for(
+            cfg, lanes[0][1], lanes[0][2], telemetry=True, device=device
+        )
+        compiles_per_mix[label] = env.cache_misses() - before
+        rmap = WAN_REGIONS.get(label)
+        rep = runner.run(
+            [ln[0] for ln in lanes],
+            [sched] * n_seeds,
+            workloads=[(ln[1], ln[2]) for ln in lanes],
+            knobs=[cfg.faults] * n_seeds,
+            regions=None if rmap is None else [rmap] * n_seeds,
+        )
+        telemetry_per_mix[label] = _mix_telemetry(
+            rep, cfg, region_names=WAN_NAMES.get(label, ())
+        )
+        runs += n_seeds
+        lanes_total += n_seeds
+        lane_seconds += rep.seconds
+        for i in rep.failing:
+            seed, workload, gates, chains = lanes[i]
+            r = rep.lane_result(i)
+            try:
+                _check_run(r, rep.lane_cfg(i), workload, chains)
+                # the device verdict flagged a lane the full suite clears:
+                # a verdict/parity bug, reported as its own failure
+                failures.append({
+                    "mix": label, "seed": seed,
+                    "error": "fleet verdict flagged a lane the full "
+                    "suite clears (verdict/parity drift)",
+                })
+                logger.error(
+                    "FLEET ANOMALY mix=%s seed=%d: verdict red, "
+                    "suite green", label, seed,
+                )
+            except validate.InvariantViolation as e:
+                failure = {"mix": label, "seed": seed, "error": str(e)[:300]}
+                logger.error("FAIL mix=%s seed=%d: %s", label, seed, e)
+                if triage_dir:
+                    os.makedirs(triage_dir, exist_ok=True)
+                    path = os.path.join(
+                        triage_dir, f"repro_{label}_{seed}.json"
+                    )
+                    try:
+                        case = shr.ReproCase(
+                            cfg=rep.lane_cfg(i), workload=workload,
+                            gates=gates, chains=chains,
+                        )
+                        art = shr.triage(case, path, logger=logger, device=device)
+                        failure["artifact"] = path
+                        failure["shrink_seconds"] = art.get("shrink_seconds")
+                        logger.error("repro artifact written to %s", path)
+                    except Exception as te:  # triage must never mask a failure
+                        failure["triage_error"] = str(te)[:300]
+                failures.append(failure)
+        logger.info(
+            "fleet mix %-14s: %d lanes in %.2fs (%.1f lanes/sec, "
+            "%d runners built)",
+            label, n_seeds, rep.seconds, rep.lanes_per_sec,
+            compiles_per_mix[label],
+        )
+    return {
+        "metric": "stress_sweep_fleet",
+        "runs": runs,
+        "mixes": len(mixes),
+        "seeds_per_mix": n_seeds,
+        "lanes": lanes_total,
+        "lanes_per_sec": round(lanes_total / max(lane_seconds, 1e-9), 2),
+        "compiles_per_mix": compiles_per_mix,
+        "telemetry": telemetry_per_mix,
+        "failures": failures,
+        "ok": not failures,
+        "seconds": round(time.perf_counter() - t0, 1),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=8, help="seeds per mix")
@@ -301,22 +477,36 @@ def main(argv=None) -> int:
         "(replay with `python -m tpu_paxos_torch repro <artifact>`)",
     )
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--fleet", action="store_true",
-                    help="the fleet sweep (not ported yet)")
+    ap.add_argument(
+        "--fleet",
+        action="store_true",
+        help="route the episode mixes through the fleet runner (seeds "
+        "become lanes of one dispatch per mix; the host loop keeps the "
+        "i.i.d.-only mixes)",
+    )
     ap.add_argument("--sharded", action="store_true",
                     help="the sharded sweep (not ported yet)")
     args = ap.parse_args(argv)
-    for flag in ("fleet", "sharded"):
-        if getattr(args, flag):
-            print(f"tpu_paxos_torch.harness.stress: --{flag} is not ported yet",
-                  file=sys.stderr)
-            return 2
-    summary = sweep(
-        args.seeds, args.base_seed, triage_dir=args.triage_dir or None,
-        device=args.device,
-    )
-    print(json.dumps(summary))
-    return 0 if summary["ok"] else 1
+    if args.sharded:
+        print("tpu_paxos_torch.harness.stress: --sharded is not ported yet",
+              file=sys.stderr)
+        return 2
+    triage_dir = args.triage_dir or None
+    if args.fleet:
+        host_mixes = [m for m in MIXES if "schedule" not in m[1]]
+        summary = sweep(args.seeds, args.base_seed, triage_dir=triage_dir,
+                        mixes=host_mixes, device=args.device)
+        print(json.dumps(summary))
+        fleet_summary = sweep_fleet(args.seeds, args.base_seed, triage_dir=triage_dir,
+                                    device=args.device)
+        print(json.dumps(fleet_summary))
+        ok = summary["ok"] and fleet_summary["ok"]
+    else:
+        summary = sweep(args.seeds, args.base_seed, triage_dir=triage_dir,
+                        device=args.device)
+        print(json.dumps(summary))
+        ok = summary["ok"]
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
