@@ -169,6 +169,35 @@ Phases (any failure exits non-zero; nothing is caught):
       kernel launch held against its plain version, timed and its needed
       bytes counted.
 
+14. Membership on the card, against the JAX goldens (``member``), with
+   phase 14's own seconds and the kernel launch counts of the phase (the
+   membership path runs none of the three kernels):
+   a. BASELINE config 5 at its literal size: ``ChurnEngine(7, 2**20,
+      churn=grow_shrink_schedule(7, 5, values_per_step=1),
+      max_rounds=4000)`` with ``.run`` (decided from the tensors) and
+      ``.run_host`` (decided from numpy reads) at seeds 5, 6 and 7: rounds,
+      ``done``, ``injected``, the decision-log and chosen-round sha256 must
+      equal JAX's, and the two drivers' final states must be equal; then
+      ``MemberSim(7, 2**20)`` through the literal-size scenario of
+      ``tests/test_membership.py`` must equal its golden.  Prints each run's
+      wall, rounds, ms and host syncs a round and peak device memory.
+   b. ``python -m tpu_paxos_torch 4 4 10 --engine=member --json
+      --record-injections F``, then ``--replay-injections F``, and the same
+      line with ``--crash-rate=5000``, as subprocesses: each stdout and the
+      injection log's text must equal JAX's.
+   c. ``MemberSim(7, 2**20)``: crash node 2, checkpoint (port-written),
+      rejoin from it, record the injections and replay them; the replay
+      must equal the run, and the run its golden (rounds, decision-log
+      sha256, injection ops); restoring the checkpoint into a state of
+      the wrong geometry must raise.
+   d. The member fleet at the envelope ``evolve --axis member`` runs (3
+      nodes, 8 instances, 200 rounds), 128 lanes drawn with
+      ``sample_churn_schedule`` and ``sample_member_schedule`` from
+      ``np.random.default_rng(0)``: every lane's verdict and decision-log
+      sha256 must equal JAX's; prints lanes/s, ms and host syncs a round.
+      Then one ``geometry=`` padded runner on menu 3/5 at 3 and at 5 true
+      nodes must equal its bound-free twin lane for lane.
+
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -1749,6 +1778,253 @@ def run_envelope(sk, goldens, card: str) -> dict:
     return {"launches": launches, "grid_s": grid_s, "toll": toll, "checked": checked}
 
 
+def _goldens_script(here: str):
+    """``scripts/torch_port_goldens.py`` as a module: the membership
+    scenarios the JAX goldens were computed on, driven here with the port
+    (the script imports the JAX package only inside its JAX functions)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_goldens", os.path.join(here, "scripts", "torch_port_goldens.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sha_text(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _chosen_round_sha(state) -> str:
+    import numpy as np
+
+    return hashlib.sha256(np.asarray(state.chosen_round.cpu().numpy(), "<i4").tobytes()).hexdigest()
+
+
+def _timed(fn):
+    """``(result, wall seconds, peak device GB)`` of ``fn()``, synchronized."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _same_member_state(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_member_config5(goldens, script, card: str) -> dict:
+    """Phase 14a: BASELINE config 5 at its literal size, through both churn
+    drivers and through the host driver ``MemberSim``."""
+    from tpu_paxos_torch.membership import churn_table as ctm
+    from tpu_paxos_torch.membership import engine as meng
+
+    gold = goldens["member"]
+    c5 = gold["config5"]["config"]
+    eng = meng.ChurnEngine(
+        c5["n_nodes"], c5["n_instances"],
+        churn=ctm.grow_shrink_schedule(c5["grow_to"], c5["shrink_to"], c5["values_per_step"]),
+        max_rounds=c5["max_rounds"], device=DEV,
+    )
+    eng.run(seed=c5["seeds"][0])  # warm-up: the card's first allocations and launches
+    out = {}
+    for seed in c5["seeds"]:
+        want = gold["config5"]["runs"][str(seed)]
+        res = {}
+        for driver in ("run", "run_host"):
+            r, wall, peak = _timed(lambda: getattr(eng, driver)(seed=seed))
+            got = {"rounds": r.rounds, "done": r.done, "injected": r.injected,
+                   "decision_log_sha256": _sha_text(r.decision_log()),
+                   "chosen_round_sha256": _chosen_round_sha(r.state)}
+            it = {}
+            syncs = count_syncs(lambda: it.setdefault("r", getattr(eng, driver)(seed=seed)))
+            res[driver] = r
+            rec = {"wall_s": wall, "rounds": r.rounds, "ms_per_round": wall / r.rounds * 1e3,
+                   "syncs_per_round": syncs / r.rounds, "peak_gb": peak}
+            out[f"{driver}_{seed}"] = rec
+            print(f"member config 5 [{driver} seed {seed}] (7 nodes, I={c5['n_instances']}): "
+                  f"wall_s={wall:.3f} rounds={r.rounds} ms_per_round={rec['ms_per_round']:.3f} "
+                  f"syncs_per_round={rec['syncs_per_round']:.2f} peak_gb={peak:.3f} "
+                  f"golden_off={[k for k in want if got[k] != want[k]]} | {card}")
+            if got != want:
+                raise SystemExit(f"member config 5 [{driver} seed {seed}] disagrees with its "
+                                 f"JAX golden: {_dict_diff(got, want)}")
+        if not _same_member_state(res["run"].state, res["run_host"].state):
+            raise SystemExit(f"member config 5 seed {seed}: run and run_host end in different states")
+    del eng, res
+    want = gold["literal"]
+    ms, wall, peak = _timed(lambda: script.literal_scenario(meng.MemberSim, c5["n_instances"],
+                                                            device=DEV))
+    rounds = int(ms.state.t)
+    syncs = count_syncs(lambda: script.literal_scenario(meng.MemberSim, c5["n_instances"],
+                                                        device=DEV))
+    got = {"rounds": rounds, "acceptors": sorted(ms.acceptor_set(0)),
+           "decision_log_sha256": _sha_text(ms.decision_log()),
+           "chosen_round_sha256": _chosen_round_sha(ms.state)}
+    out["literal"] = {"wall_s": wall, "rounds": rounds, "ms_per_round": wall / rounds * 1e3,
+                      "syncs_per_round": syncs / rounds, "peak_gb": peak}
+    print(f"member config 5 [MemberSim literal scenario] (7 nodes, I={c5['n_instances']}): "
+          f"wall_s={wall:.3f} rounds={rounds} ms_per_round={out['literal']['ms_per_round']:.3f} "
+          f"syncs_per_round={out['literal']['syncs_per_round']:.2f} peak_gb={peak:.3f} | {card}")
+    if got != want:
+        raise SystemExit(f"the literal MemberSim scenario disagrees with its JAX golden: "
+                         f"{_dict_diff(got, want)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_member_cli(goldens, here: str, card: str) -> dict:
+    """Phase 14b: the member CLI (the reference member demo workload) with
+    record and replay, and a crash-rate line, as subprocesses."""
+    gold = goldens["member"]["cli"]
+    name = gold["injections"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rec_dir, tempfile.TemporaryDirectory() as crash_dir:
+        def start(args, cwd):
+            return subprocess.Popen(
+                [sys.executable, "-m", "tpu_paxos_torch", *gold["args"], *args, "--device", DEV],
+                cwd=cwd, env=_port_env(here), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+
+        procs = {"record": start(["--record-injections", name], rec_dir),
+                 "crash": start([f"--crash-rate={gold['crash_rate']}"], crash_dir)}
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        replay = start(["--replay-injections", name], rec_dir)
+        outs["replay"] = replay.communicate(timeout=600)
+        rcs = {k: p.returncode for k, p in (*procs.items(), ("replay", replay))}
+        with open(os.path.join(rec_dir, name)) as f:
+            log = f.read()
+    wall = time.perf_counter() - t0
+    off = [k for k in ("record", "replay", "crash") if outs[k][0] != gold[f"{k}_stdout"]]
+    print(f"member CLI ({' '.join(gold['args'])}: record, replay, crash-rate "
+          f"{gold['crash_rate']}): wall_s={wall:.1f} rcs={rcs} stdout_off={off} "
+          f"injection_log_equal={log == gold['injection_log']} | {card}")
+    for k, (so, se) in outs.items():
+        if rcs[k] != 0:
+            print(se[-3000:], file=sys.stderr)
+    if off or any(rcs.values()) or log != gold["injection_log"]:
+        raise SystemExit("the member CLI disagrees with the JAX CLI's goldens")
+    return {"wall_s": wall}
+
+
+def run_member_rejoin(goldens, script, card: str) -> dict:
+    """Phase 14c: crash, checkpoint, rejoin, record and replay at the
+    literal size; a checkpoint restored into the wrong geometry raises."""
+    from tpu_paxos_torch import checkpoint
+    from tpu_paxos_torch.membership import engine as meng
+
+    gold = goldens["member"]["rejoin"]
+    n_inst = goldens["member"]["config5"]["config"]["n_instances"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "rejoin.npz")
+        ms, wall, peak = _timed(lambda: script.rejoin_scenario(meng.MemberSim, checkpoint, ck,
+                                                               n_inst, device=DEV))
+        inj = os.path.join(tmp, "rejoin_injections.json")
+        ms.save_injections(inj)
+        again, replay_wall, _ = _timed(lambda: meng.MemberSim.replay(inj, device=DEV))
+        got = {"rounds": int(ms.state.t), "decision_log_sha256": _sha_text(ms.decision_log()),
+               "ops": script.rejoin_ops(ms.injections)}
+        same = again.decision_log() == ms.decision_log() and _same_member_state(again.state, ms.state)
+        wrong = meng._init(7, n_inst // 2, n_inst + 8, DEV)
+        try:
+            checkpoint.restore(ck, like=wrong)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+    print(f"member rejoin (7 nodes, I={n_inst}, crash -> checkpoint -> rejoin -> replay): "
+          f"wall_s={wall:.3f} replay_wall_s={replay_wall:.3f} rounds={got['rounds']} "
+          f"peak_gb={peak:.3f} replay_equal={same} golden_off="
+          f"{[k for k in gold if got[k] != gold[k]]} wrong_geometry_refused={'wrong config' in refused} "
+          f"| {card}")
+    if got != gold or not same:
+        raise SystemExit(f"the member rejoin disagrees with its JAX golden or its replay: "
+                         f"{_dict_diff(got, gold)}")
+    if "wrong config" not in refused:
+        raise SystemExit("a member checkpoint restored into the wrong geometry did not raise")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "replay_wall_s": replay_wall, "rounds": got["rounds"]}
+
+
+def run_member_fleet(goldens, script, card: str) -> dict:
+    """Phase 14d: 128 lanes of the member envelope ``evolve --axis member``
+    runs, against the JAX golden; then the padded menu 3/5 against the
+    bound-free runners."""
+    from tpu_paxos_torch.core import geom
+    from tpu_paxos_torch.fleet import envelope
+    from tpu_paxos_torch.fleet import member_runner as mrun
+    from tpu_paxos_torch.fleet import search
+
+    gold = goldens["member"]["fleet"]
+    c = gold["config"]
+    env = dict(max_episodes=c["max_episodes"], max_rounds=c["max_rounds"], device=DEV)
+    lanes = script.member_fleet_lanes(search, c["lanes"], c["n_nodes"], c["rng_seed"],
+                                      c["horizon"], c["max_episodes"])
+    if script.genomes_sha256(*lanes) != gold["genomes_sha256"]:
+        raise SystemExit("the member fleet's drawn genomes differ from the golden's")
+    runner = envelope.member_runner_for(c["n_nodes"], c["n_instances"], **env)
+    runner.run(*lanes)  # warm-up
+    rep = runner.run(*lanes)
+    v = rep.verdict
+    bad = [f for f in v._fields if [x.item() for x in getattr(v, f)] != gold[f]]
+    shas = [_sha_text(rep.lane_log(i)) for i in range(rep.n_lanes)]
+    off = [i for i in range(rep.n_lanes) if shas[i] != gold["decision_log_sha256"][i]]
+    it = {}
+    syncs = count_syncs(lambda: it.setdefault("rep", runner.run(*lanes)))
+    rec = {"lanes_per_sec": rep.lanes_per_sec, "seconds": rep.seconds,
+           "iterations": rep.iterations, "ms_per_round": rep.seconds / rep.iterations * 1e3,
+           "syncs_per_round": syncs / it["rep"].iterations}
+    print(f"member fleet ({c['lanes']} lanes, {c['n_nodes']} nodes, I={c['n_instances']}, "
+          f"{c['max_rounds']} rounds): lanes_per_sec={rep.lanes_per_sec:.2f} "
+          f"seconds={rep.seconds:.3f} iterations={rep.iterations} "
+          f"ms_per_round={rec['ms_per_round']:.3f} syncs_per_round={rec['syncs_per_round']:.2f} "
+          f"ok={int(v.ok.sum())}/{rep.n_lanes} verdict_fields_off={bad} decision_log_off={off} "
+          f"| {card}")
+    if bad or off:
+        raise SystemExit("the member fleet disagrees with its JAX golden")
+    menu = geom.GeometryEnvelope(((3, (0,)), (5, (0,))))
+    padded = mrun.MemberFleetRunner(5, c["n_instances"], geometry=menu, **env)
+    twins = {}
+    for n in (3, 5):
+        lanes_n = lanes if n == c["n_nodes"] else script.member_fleet_lanes(
+            search, c["lanes"], n, c["rng_seed"] + 1, c["horizon"], c["max_episodes"])
+        prep = padded.run(*lanes_n, n_nodes=n)
+        free = rep if n == c["n_nodes"] else mrun.MemberFleetRunner(
+            n, c["n_instances"], **env).run(*lanes_n)
+        diff = [i for i in range(prep.n_lanes) if prep.lane_log(i) != free.lane_log(i)
+                or any(getattr(prep.verdict, f)[i] != getattr(free.verdict, f)[i]
+                       for f in v._fields)]
+        twins[n] = {"lanes_per_sec": prep.lanes_per_sec, "differ": diff}
+        print(f"member fleet padded (menu 3/5) at {n} true nodes vs bound-free: "
+              f"lanes_per_sec={prep.lanes_per_sec:.2f} ok={int(prep.verdict.ok.sum())}/"
+              f"{prep.n_lanes} lanes_off={diff}")
+        if diff:
+            raise SystemExit(f"padded member lanes differ from their bound-free twins at {n} nodes")
+    envelope.clear_cache()
+    return {**rec, "padded": twins}
+
+
+def run_member(goldens, here: str, card: str) -> dict:
+    """Phase 14: membership on the card (none of the three kernels runs on
+    this path: the launch counts are zeroed before and printed after)."""
+    from tpu_paxos_torch.core import fastwin as fw
+    from tpu_paxos_torch.core import simkern as sk
+
+    script = _goldens_script(here)
+    t14 = time.perf_counter()
+    sk.reset_counts()
+    fw.reset_counts()
+    out = {"config5": run_member_config5(goldens, script, card)}
+    out["cli"] = run_member_cli(goldens, here, card)
+    out["rejoin"] = run_member_rejoin(goldens, script, card)
+    out["fleet"] = run_member_fleet(goldens, script, card)
+    launches = {**sk.LAUNCHES, **fw.LAUNCHES}
+    print(f"phase 14 (membership) took {time.perf_counter() - t14:.1f} s; kernel launches on "
+          f"the membership path: {json.dumps(launches, sort_keys=True)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1807,6 +2083,7 @@ def main() -> int:
     wide = run_search_wide(sk, goldens, card)
     env13 = run_envelope(sk, goldens, card)
     print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
+    run_member(goldens, here, card)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),

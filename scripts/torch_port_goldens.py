@@ -112,6 +112,34 @@ sweep and the geometry-padded envelope) holds three more entries:
 recompute just those entries of an existing ``--write`` file (about 10,
 6 and 4 min on the CPU box).
 
+Phase 14 of ``chip_smoke.py`` (membership) holds one more entry,
+``member`` (``--member-only`` recomputes just it, about 6 min on the CPU
+box):
+
+- ``config5``: BASELINE config 5 at its literal size, ``ChurnEngine(7,
+  2**20, churn=grow_shrink_schedule(7, 5, values_per_step=1),
+  max_rounds=4000).run(seed)`` at seeds 5, 6 and 7: rounds, ``done``,
+  ``injected``, the ``decision_log_of`` sha256 and the ``chosen_round``
+  sha256;
+- ``literal``: ``MemberSim(7, 2**20, seed=5)`` driven through
+  :func:`literal_scenario` (``tests/test_membership.py``'s literal-size
+  scenario): rounds, acceptors, decision-log and chosen-round sha256;
+- ``cli``: in a fresh directory, the stdout of ``python -m tpu_paxos 4 4
+  10 --engine=member --json --record-injections member_injections.json``
+  (the reference member demo workload) and the injection log's text,
+  the stdout of ``--replay-injections member_injections.json``, and the
+  stdout of the same line with ``--crash-rate=5000`` (a rate at which a
+  node crashes and the run still ends ``"ok": true``);
+- ``rejoin``: ``MemberSim(7, 2**20, seed=4)`` through
+  :func:`rejoin_scenario` (crash, checkpoint, rejoin): rounds, the
+  decision-log sha256 and the injection-log ops less the rejoin's
+  checkpoint path and hash (the file's bytes hold zip timestamps);
+- ``fleet``: 128 lanes of the member envelope ``evolve --axis member``
+  runs (3 nodes, 8 instances, 200 rounds, 4 episodes), each lane drawn by
+  :func:`member_fleet_lanes` from ``np.random.default_rng(0)`` as
+  ``evolve``'s ``fresh`` draws a genome; per lane the six verdict fields
+  and the decision-log sha256, and the sha256 of the drawn genomes.
+
 ``--instances`` shrinks the bench run (for a quick self-check); the
 committed file holds the full 2**23 run.
 """
@@ -848,6 +876,183 @@ def envelope_golden() -> dict:
     return {"config": e, "cells": cells}
 
 
+MEMBER_CONFIG5 = {"n_nodes": 7, "n_instances": 1 << 20, "grow_to": 7, "shrink_to": 5,
+                  "values_per_step": 1, "max_rounds": 4000, "seeds": [5, 6, 7]}
+MEMBER_CLI_ARGS = ["4", "4", "10", "--engine=member", "--json"]
+MEMBER_CLI_CRASH_RATE = 5000
+MEMBER_INJECTIONS = "member_injections.json"
+MEMBER_FLEET = {"n_nodes": 3, "n_instances": 8, "max_rounds": 200, "max_episodes": 4,
+                "horizon": 96, "lanes": 128, "rng_seed": 0}
+
+
+def literal_scenario(member_sim, n_instances: int = 1 << 20, **kw):
+    """BASELINE config 5 through the host driver, as
+    ``tests/test_membership.py``'s literal-size test drives it: grow
+    1 -> 7 with a value in flight before each AddAcceptor, shrink to 5,
+    Applied sequencing, then every value chosen.  ``member_sim`` is either
+    package's ``MemberSim`` (``kw`` its extra arguments)."""
+    ms = member_sim(n_nodes=7, n_instances=n_instances, seed=5, **kw)
+    vid = 100
+    for tgt in range(1, 7):
+        ms.propose(0, vid)
+        vid += 1
+        cv = ms.add_acceptor(tgt)
+        if not ms.run_until(lambda: ms.applied(cv), max_rounds=4000):
+            raise RuntimeError(f"add_acceptor({tgt}) never applied")
+    for tgt in (6, 5):
+        cv = ms.del_acceptor(tgt)
+        if not ms.run_until(lambda: ms.applied(cv), max_rounds=4000):
+            raise RuntimeError(f"del_acceptor({tgt}) never applied")
+    if not ms.run_until(lambda: all(ms.chosen(v) for v in range(100, vid)), max_rounds=4000):
+        raise RuntimeError("the literal scenario's values were not all chosen")
+    return ms
+
+
+def rejoin_scenario(member_sim, checkpoint, path: str, n_instances: int = 1 << 20, **kw):
+    """Crash-rejoin through the host driver: grow to {0, 1, 2}, choose
+    100, crash node 2, checkpoint to ``path`` (``checkpoint`` is either
+    package's module), choose 101 without node 2, rejoin it from the
+    checkpoint and run until it has applied both values."""
+    ms = member_sim(n_nodes=7, n_instances=n_instances, seed=4, **kw)
+    for tgt in (1, 2):
+        cv = ms.add_acceptor(tgt)
+        if not ms.run_until(lambda: ms.applied(cv), max_rounds=2000):
+            raise RuntimeError(f"add_acceptor({tgt}) never applied")
+    ms.propose(0, 100)
+    if not ms.run_until(lambda: ms.chosen(100)):
+        raise RuntimeError("100 was not chosen")
+    ms.crash(2)
+    checkpoint.save(path, ms.state, meta={"crashed_node": 2})
+    ms.propose(0, 101)
+    if not ms.run_until(lambda: ms.chosen(101)):
+        raise RuntimeError("101 was not chosen")
+    ms.rejoin_from_checkpoint(2, path)
+    if not ms.run_until(lambda: {100, 101} <= set(ms.applied_log(2).tolist())):
+        raise RuntimeError("node 2 did not catch up")
+    return ms
+
+
+def rejoin_ops(injections) -> list:
+    """An injection log's ops with each rejoin's checkpoint path and hash
+    left out (the checkpoint file's bytes hold zip timestamps)."""
+    return [[t, op, [args[0], args[2]["n_nodes"], args[2]["n_instances"]]] if op == "rejoin"
+            else [t, op, args] for t, op, args in injections]
+
+
+def member_fleet_lanes(search, n_lanes: int, n_nodes: int, rng_seed: int = 0,
+                       horizon: int = 96, max_episodes: int = 4):
+    """``n_lanes`` member genomes drawn as ``fleet/evolve.py``'s member
+    axis draws them (``fresh``: a churn schedule, a member-legal fault
+    schedule under the classic alphabet's member kinds, an engine seed),
+    from ``np.random.default_rng(rng_seed)``; ``search`` is either
+    package's ``fleet.search``.  Returns ``(seeds, churns, schedules)``."""
+    import numpy as np
+
+    kinds = search.Alphabet.classic().member().kinds
+    rng = np.random.default_rng(rng_seed)
+    seeds, churns, scheds = [], [], []
+    for _ in range(n_lanes):
+        churn = search.sample_churn_schedule(rng, n_nodes, horizon=horizon)
+        scheds.append(search.sample_member_schedule(
+            rng, n_nodes, churn=churn, max_episodes=max_episodes, horizon=horizon, kinds=kinds))
+        seeds.append(int(rng.integers(0, 1 << 16)))
+        churns.append(churn)
+    return seeds, churns, scheds
+
+
+def genomes_sha256(seeds, churns, scheds) -> str:
+    """The sha256 of a fleet's drawn genomes as sorted compact JSON."""
+    doc = [[s, c.to_dict() if c is not None else None, f.to_dict() if f is not None else None]
+           for s, c, f in zip(seeds, churns, scheds)]
+    return hashlib.sha256(json.dumps(doc, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
+
+
+def member_goldens() -> dict:
+    """Phase 14: the membership goldens (module doc)."""
+    import tempfile
+
+    from tpu_paxos import checkpoint
+    from tpu_paxos.fleet import envelope as env
+    from tpu_paxos.fleet import search
+    from tpu_paxos.membership import churn_table as ctm
+    from tpu_paxos.membership import engine as meng
+
+    def sha(text):
+        return hashlib.sha256(text.encode()).hexdigest()
+
+    c5 = MEMBER_CONFIG5
+    eng = meng.ChurnEngine(
+        c5["n_nodes"], c5["n_instances"],
+        churn=ctm.grow_shrink_schedule(c5["grow_to"], c5["shrink_to"], c5["values_per_step"]),
+        max_rounds=c5["max_rounds"],
+    )
+    runs = {}
+    for seed in c5["seeds"]:
+        r = eng.run(seed=seed)
+        if not r.done:
+            raise RuntimeError(f"config 5 seed {seed} did not complete")
+        runs[str(seed)] = {
+            "rounds": r.rounds, "done": r.done, "injected": r.injected,
+            "decision_log_sha256": sha(meng.decision_log_of(r.state)),
+            "chosen_round_sha256": chosen_round_sha256(r.state.chosen_round),
+        }
+    del eng
+    ms = literal_scenario(meng.MemberSim)
+    literal = {
+        "rounds": int(ms.state.t), "acceptors": sorted(ms.acceptor_set(0)),
+        "decision_log_sha256": sha(ms.decision_log()),
+        "chosen_round_sha256": chosen_round_sha256(ms.state.chosen_round),
+    }
+    del ms
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = _jax_module(["tpu_paxos", *MEMBER_CLI_ARGS, "--record-injections",
+                           MEMBER_INJECTIONS], cwd=tmp)
+        with open(os.path.join(tmp, MEMBER_INJECTIONS)) as f:
+            inj = f.read()
+        rep = _jax_module(["tpu_paxos", *MEMBER_CLI_ARGS, "--replay-injections",
+                           MEMBER_INJECTIONS], cwd=tmp)
+        crash = _jax_module(["tpu_paxos", *MEMBER_CLI_ARGS,
+                             f"--crash-rate={MEMBER_CLI_CRASH_RATE}"], cwd=tmp)
+        for name, proc in (("record", rec), ("replay", rep), ("crash", crash)):
+            if proc.returncode != 0 or not json.loads(proc.stdout.splitlines()[-1])["ok"]:
+                raise RuntimeError(f"JAX member CLI ({name}) failed: {proc.stderr[-2000:]}")
+        ms = rejoin_scenario(meng.MemberSim, checkpoint, os.path.join(tmp, "rejoin.npz"))
+        path = os.path.join(tmp, "rejoin_injections.json")
+        ms.save_injections(path)
+        again = meng.MemberSim.replay(path)
+        if again.decision_log() != ms.decision_log():
+            raise RuntimeError("the JAX rejoin replay diverged")
+        if len(ms.crashed_set()) != 0 or ms.crashed_set() != again.crashed_set():
+            raise RuntimeError("the rejoin scenario left a node crashed")
+        rejoin = {"rounds": int(ms.state.t), "decision_log_sha256": sha(ms.decision_log()),
+                  "ops": rejoin_ops(ms.injections)}
+        del ms, again
+    f = MEMBER_FLEET
+    seeds, churns, scheds = member_fleet_lanes(search, f["lanes"], f["n_nodes"], f["rng_seed"],
+                                               f["horizon"], f["max_episodes"])
+    runner = env.member_runner_for(f["n_nodes"], f["n_instances"],
+                                   max_episodes=f["max_episodes"], max_rounds=f["max_rounds"])
+    rep_f = runner.run(seeds, churns, scheds)
+    v = rep_f.verdict
+    fleet = {
+        "config": f, "genomes_sha256": genomes_sha256(seeds, churns, scheds),
+        **{k: [int(x) if k == "rounds" else bool(x) for x in getattr(v, k)] for k in v._fields},
+        "decision_log_sha256": [sha(rep_f.lane_log(i)) for i in range(rep_f.n_lanes)],
+    }
+    return {
+        "config5": {"config": c5, "runs": runs},
+        "literal": literal,
+        "cli": {
+            "args": MEMBER_CLI_ARGS, "injections": MEMBER_INJECTIONS,
+            "record_stdout": rec.stdout, "injection_log": inj,
+            "replay_stdout": rep.stdout, "crash_rate": MEMBER_CLI_CRASH_RATE,
+            "crash_stdout": crash.stdout,
+        },
+        "rejoin": rejoin,
+        "fleet": fleet,
+    }
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -869,6 +1074,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         out.update(triage_goldens(out, path))
         out["telemetry"] = telemetry_goldens(out, path)
         phase13_goldens(out, path)
+        out["member"] = member_goldens()
 
     if out_dir is not None:
         rest(out_dir)
@@ -932,6 +1138,8 @@ def main(argv=None) -> int:
                     "named) of the --write file")
     ap.add_argument("--telemetry-only", action="store_true",
                     help="recompute only the telemetry entry of the --write file")
+    ap.add_argument("--member-only", action="store_true",
+                    help="recompute only the member entry of the --write file")
     for part in ("search", "stress-fleet", "envelope"):
         ap.add_argument(f"--{part}-only", action="store_true",
                         help=f"recompute only the {part.replace('-', '_')} entry of the "
@@ -939,7 +1147,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
-    if args.fleet_only or args.triage_only is not None or args.telemetry_only or p13:
+    if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
+            or args.member_only):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -951,6 +1160,8 @@ def main(argv=None) -> int:
             out["telemetry"] = telemetry_goldens(out, out_dir)
         if p13:
             phase13_goldens(out, out_dir, p13)
+        if args.member_only:
+            out["member"] = member_goldens()
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

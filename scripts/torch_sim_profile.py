@@ -39,6 +39,19 @@ per-round read and parking test, the init and the verdict), and under
 ``torch.profiler`` the device's busy time, its idle share of the
 dispatches' wall and the top device ops.
 
+``--member {config5,fleet}`` profiles the membership engine instead:
+``config5`` is BASELINE config 5 (``ChurnEngine(7, --instances,
+churn=grow_shrink_schedule(7, 5, values_per_step=1),
+max_rounds=4000)``, default 2**20 instances), one seed-5 run of each
+driver (``run``, deciding from the tensors, and ``run_host``, deciding
+from numpy reads); ``fleet`` is ``chip_smoke.py`` phase 14d's 128-lane
+member fleet (3 nodes, 8 instances, 200 rounds, the lanes drawn from
+``default_rng(0)``).  For each it prints wall, rounds, ms and host syncs
+a round, the host's ms a round by block (the round, its two predicate
+reads and the churn loop's per-round read, the threefry draws, the churn
+injection and run-complete test) and under ``torch.profiler`` the
+device's busy time, idle share and top ops.
+
 ``--device cpu`` with a small ``--instances`` rehearses the script on a
 machine without a card; it then reports no device time.
 """
@@ -341,6 +354,95 @@ def profile_fleet(mode: str, dev, top: int) -> dict:
     return out
 
 
+def _member_cases(mode: str, n_instances: int, dev):
+    """``[(label, fn)]``: the runs ``--member`` profiles."""
+    from tpu_paxos_torch.fleet import member_runner as mrun
+    from tpu_paxos_torch.fleet import search
+    from tpu_paxos_torch.membership import churn_table as ctm
+    from tpu_paxos_torch.membership import engine as meng
+
+    if mode == "config5":
+        eng = meng.ChurnEngine(7, n_instances, churn=ctm.grow_shrink_schedule(7, 5, 1),
+                               max_rounds=4000, device=dev)
+        return [("run", lambda: eng.run(seed=5)), ("run_host", lambda: eng.run_host(seed=5))]
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_goldens", os.path.join(ROOT, "scripts", "torch_port_goldens.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    lanes = script.member_fleet_lanes(search, 128, 3)
+    runner = mrun.MemberFleetRunner(3, 8, max_episodes=4, max_rounds=200, device=dev)
+    return [("fleet", lambda: runner.run(*lanes))]
+
+
+def _member_rounds(res) -> int:
+    return res.iterations if hasattr(res, "iterations") else res.rounds
+
+
+def profile_member(mode: str, n_instances: int, dev, top: int) -> dict:
+    """Time, sync-count, block-split and profile the membership runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_paxos_torch.membership import engine as meng
+
+    out = {"mode": mode, "instances": n_instances if mode == "config5" else 8}
+    for label, fn in _member_cases(mode, n_instances, dev):
+        fn()  # warm
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        rounds = _member_rounds(res)
+        rec = {"wall_s": wall, "rounds": rounds, "ms_per_round": wall * 1e3 / rounds}
+        if dev.type == "cuda":
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            rec["syncs_per_round"] = sum("synchroniz" in str(w.message) for w in caught) / rounds
+        timer = BlockTimer()
+        timer.wrap(meng, "_lane_round", "round (less the blocks below)")
+        timer.wrap(meng, "_host", "predicate and loop reads")
+        timer.wrap(prng, "randint_lanes", "threefry draws")
+        timer.wrap(meng, "_churn_inject", "churn injection")
+        timer.wrap(meng, "_churn_done", "run-complete test")
+        timer.wrap(meng, "_ready_host", "host injection gate (run_host)")
+        timer.wrap(meng, "_done_host", "host run-complete test (run_host)")
+        try:
+            _sync(dev)
+            fn()
+            _sync(dev)
+        finally:
+            timer.restore()
+        rec["host_ms_per_round_by_block"] = {
+            k: v / rounds for k, v in sorted(timer.ms.items(), key=lambda kv: -kv[1])}
+        rec["block_calls_per_round"] = {k: v / rounds for k, v in sorted(timer.calls.items())}
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        _sync(dev)
+        with profile(activities=acts) as prof:
+            fn()
+            _sync(dev)
+        rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3)
+                for ev in prof.key_averages() if ev.device_type != DeviceType.CPU]
+        busy_ms = sum(r[2] for r in rows)
+        rows.sort(key=lambda r: -r[2])
+        rec["profile"] = {
+            "device_busy_ms_per_round": busy_ms / rounds,
+            "device_ops_per_round": sum(r[1] for r in rows) / rounds,
+            # against the unprofiled wall: the profiler slows the host only
+            "device_idle_share": (1 - busy_ms / (wall * 1e3)) if rows else None,
+            "top": [{"op": k[:90], "count": n, "self_ms": ms} for k, n, ms in rows[:top]],
+        }
+        out[label] = rec
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--instances", type=int, default=1 << 23)
@@ -348,6 +450,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--fleet", choices=("shrink", "headline"), default="",
                     help="profile fleet dispatches instead of one sim.run")
+    ap.add_argument("--member", choices=("config5", "fleet"), default="",
+                    help="profile the membership engine instead of one sim.run")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_sim_profile: CUDA is not available", file=sys.stderr)
@@ -361,6 +465,11 @@ def main(argv=None) -> int:
         ).stdout.strip().splitlines()[0]
     if args.fleet:
         out = {"device": args.device, "card": card, **profile_fleet(args.fleet, dev, args.top)}
+        print(json.dumps(out, indent=1))
+        return 0
+    if args.member:
+        n = args.instances if args.instances != 1 << 23 else 1 << 20
+        out = {"device": args.device, "card": card, **profile_member(args.member, n, dev, args.top)}
         print(json.dumps(out, indent=1))
         return 0
     cfg = bench_cfg(args.instances)

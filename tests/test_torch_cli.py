@@ -98,7 +98,9 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
 
 @pytest.mark.parametrize("argv,what", [
     (["4", "4", "10", "--engine=fast", "--mesh", "2"], "--engine=fast"),
-    (["4", "4", "10", "--engine=member"], "--engine=member"),
+    # --engine=member is ported; with --mesh it is not (kept under the case's id)
+    pytest.param(["4", "4", "10", "--engine=member", "--mesh", "2"], "--engine=member",
+                 id="argv1---engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
     # trace is ported; its serve mode is not (kept under the case's id)
     pytest.param(["trace", "--serve"], "'trace --serve'", id="argv3-'trace'"),
@@ -111,6 +113,72 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
 def test_unported_cli_surfaces_exit_2(argv, what, capsys):
     assert tcli.main(argv + ["--device", "cpu"]) == 2
     assert f"{what} is not ported yet" in capsys.readouterr().err
+
+
+def _in_dir(path):
+    """A context that runs the body with ``path`` as the working
+    directory (the member CLI's injection logs name relative paths)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def cd():
+        old = os.getcwd()
+        os.chdir(path)
+        try:
+            yield
+        finally:
+            os.chdir(old)
+
+    return cd()
+
+
+@pytest.mark.parametrize("extra", [[], ["--crash-rate=5000"], ["--crash-rate=2000", "--seed=3"]])
+def test_member_cli_equals_the_jax_cli(extra, tmp_path, capsys):
+    """``--engine=member --json``: the same stdout and exit code as the JAX
+    CLI, and the same ``--save-state`` checkpoint arrays; the first two are
+    the committed goldens the card holds."""
+    from tpu_paxos import __main__ as jcli
+
+    gold = _goldens()["member"]["cli"]
+    argv = gold["args"] + extra
+    assert jcli.main(argv + ["--save-state", str(tmp_path / "j.npz")]) == 0
+    jax_out = capsys.readouterr().out
+    assert tcli.main(argv + ["--save-state", str(tmp_path / "t.npz"), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out == jax_out
+    if not extra:
+        assert out == gold["record_stdout"]
+    elif extra == [f"--crash-rate={gold['crash_rate']}"]:
+        assert out == gold["crash_stdout"]
+    with np.load(tmp_path / "j.npz") as want, np.load(tmp_path / "t.npz") as got:
+        assert got.files == want.files
+        for k in want.files:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_member_cli_record_replay_equals_the_jax_cli(tmp_path, capsys):
+    """``--record-injections`` then ``--replay-injections``: stdouts and
+    the injection log's bytes equal the JAX CLI's and the committed golden;
+    the two flags together refuse as JAX's do."""
+    from tpu_paxos import __main__ as jcli
+
+    gold = _goldens()["member"]["cli"]
+    name = gold["injections"]
+    outs = {}
+    for pkg, main, dev in (("jax", jcli.main, []), ("port", tcli.main, ["--device", "cpu"])):
+        d = tmp_path / pkg
+        d.mkdir()
+        with _in_dir(d):
+            assert main(gold["args"] + ["--record-injections", name] + dev) == 0
+            rec = capsys.readouterr().out
+            assert main(gold["args"] + ["--replay-injections", name] + dev) == 0
+            rep = capsys.readouterr().out
+            with pytest.raises(SystemExit, match="mutually exclusive"):
+                main(gold["args"] + ["--replay-injections", name, "--record-injections", "x"] + dev)
+        outs[pkg] = (rec, rep, (d / name).read_text())
+    assert outs["port"] == outs["jax"]
+    assert outs["port"] == (gold["record_stdout"], gold["replay_stdout"], gold["injection_log"])
 
 
 def test_repro_is_ported(tmp_path, capsys):
@@ -151,6 +219,7 @@ import tpu_paxos_torch
 mods = [m.name for m in pkgutil.walk_packages(tpu_paxos_torch.__path__, "tpu_paxos_torch.")]
 for m in mods:
     importlib.import_module(m)
+import numpy as np
 import torch
 from tpu_paxos_torch import config
 from tpu_paxos_torch.core import fast, fastwin, faults, sim
@@ -213,6 +282,25 @@ with contextlib.redirect_stdout(io.StringIO()) as buf:
                          "--quiet", "--device", "cpu"])
     rc_stress = stress.main(["--fleet", "--seeds", "1", "--device", "cpu"])
 lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+from tpu_paxos_torch import checkpoint
+from tpu_paxos_torch.fleet import member_runner
+from tpu_paxos_torch.membership import MemberSim, ChurnEngine, grow_shrink_schedule
+churn = ChurnEngine(4, 16, churn=grow_shrink_schedule(4, 2), crash_rate=500, device="cpu").run(seed=1)
+ms = MemberSim(3, 16, seed=0, device="cpu")
+cv = ms.add_acceptor(1)
+member_ok = ms.run_until(lambda: ms.applied(cv), max_rounds=200)
+mfleet = envelope.member_runner_for(3, 8, max_rounds=200, device="cpu").run(
+    list(range(8)), [search.sample_churn_schedule(np.random.default_rng(i), 3) for i in range(8)],
+    [None] * 8)
+with tempfile.TemporaryDirectory() as tmp:
+    checkpoint.save(os.path.join(tmp, "m.npz"), ms.state)
+    back, _ = checkpoint.restore(os.path.join(tmp, "m.npz"), ms.state)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc_member = cli.main(["4", "4", "10", "--engine=member", "--json", "--device", "cpu",
+                              "--record-injections", os.path.join(tmp, "i.json")])
+        rc_replay = cli.main(["4", "4", "10", "--engine=member", "--json", "--device", "cpu",
+                              "--replay-injections", os.path.join(tmp, "i.json")])
+    member_lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -221,7 +309,10 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and isinstance(diag, dict) and rc_trace == 0 and trace["otherData"]["decided"] >= 1
       and bool(prep.verdict.ok.all()) and prep.cfg.n_nodes == 3 and found["lanes_total"] == 2
       and rc_fleet == rc_stress == 0
-      and [d["metric"] for d in lines] == ["fleet_search", "stress_sweep", "stress_sweep_fleet"])
+      and [d["metric"] for d in lines] == ["fleet_search", "stress_sweep", "stress_sweep_fleet"]
+      and churn.done and member_ok and bool(mfleet.verdict.ok.all()) and mfleet.n_lanes == 8
+      and bool((back.learned == ms.state.learned).all()) and rc_member == rc_replay == 0
+      and member_lines[0]["decision_log_sha256"] == member_lines[1]["decision_log_sha256"])
 print(len(mods), bool(ok), loaded)
 """
 
@@ -230,7 +321,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 38  # every module of the package was imported, telemetry/ too
+    assert int(n_mods) >= 43  # every module of the package was imported, membership/ too
     assert done == "True"
     assert loaded.strip() == "[]"
 

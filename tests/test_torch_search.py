@@ -146,11 +146,67 @@ def test_unported_search_surfaces_raise_by_name():
         tsearch.search(n_lanes=2, generations=1, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="--mesh"):
         tsearch.main(["--mesh", "2", "--device", "cpu"])
-    for name in ("sample_churn_schedule", "churn_targets", "sample_member_schedule"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(tsearch, name)(np.random.default_rng(0), 5)
-    with pytest.raises(NotImplementedError, match="member"):
-        tsearch.Alphabet.classic().member()
+    # the membership samplers are ported (test_member_samplers_equal_jax)
+    assert tsearch.churn_targets(None) == set()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 123])
+@pytest.mark.parametrize("n_nodes", [3, 5])
+def test_member_samplers_equal_jax(seed, n_nodes):
+    """The membership-axis draws equal JAX's for the same Generator seed:
+    the churn schedule, its protected targets and the member-legal fault
+    schedule, draw after draw, with the generators left in one state."""
+    jr, tr = np.random.default_rng(seed), np.random.default_rng(seed)
+    for max_events in (0, 3, 6):
+        jc = jsearch.sample_churn_schedule(jr, n_nodes, max_events=max_events, horizon=64)
+        tc = tsearch.sample_churn_schedule(tr, n_nodes, max_events=max_events, horizon=64)
+        assert (tc is None) == (jc is None)
+        if jc is not None:
+            assert tc.to_dict() == jc.to_dict()
+        assert tsearch.churn_targets(tc) == jsearch.churn_targets(jc)
+        js = jsearch.sample_member_schedule(jr, n_nodes, churn=jc, max_episodes=3, horizon=64)
+        ts = tsearch.sample_member_schedule(tr, n_nodes, churn=tc, max_episodes=3, horizon=64)
+        assert ts.to_dict() == js.to_dict()
+        assert all(e.kind != "gray" for e in ts.episodes)
+    assert tr.integers(1 << 30) == jr.integers(1 << 30)
+    gates = (0, 1, 2)
+    jc = jsearch.sample_churn_schedule(jr, n_nodes, wait_gates=gates, plain_values=4)
+    tc = tsearch.sample_churn_schedule(tr, n_nodes, wait_gates=gates, plain_values=4)
+    assert (tc.to_dict() if tc else None) == (jc.to_dict() if jc else None)
+
+
+def test_member_alphabet_equals_jax():
+    for gray, wan in ((False, False), (True, True)):
+        ja = jsearch.Alphabet.classic(gray=gray, wan=wan).member()
+        ta = tsearch.Alphabet.classic(gray=gray, wan=wan).member()
+        assert (ta.kinds, ta.wan, ta.max_episodes, ta.horizon) == (
+            ja.kinds, ja.wan, ja.max_episodes, ja.horizon)
+    with pytest.raises(ValueError, match="no member-legal kinds"):
+        tsearch.Alphabet(kinds=("gray",)).member()
+    with pytest.raises(ValueError, match="no member-legal kinds"):
+        jsearch.Alphabet(kinds=("gray",)).member()
+    assert (tsearch.CHURN_T0_GRID, tsearch.CHURN_PLAIN_VID_BASE) == (
+        jsearch.CHURN_T0_GRID, jsearch.CHURN_PLAIN_VID_BASE)
+
+
+def test_member_fleet_genomes_equal_the_golden():
+    """The card's phase-14d lanes, drawn by the port's samplers, are the
+    genomes the committed member-fleet golden was computed on."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_goldens", os.path.join(ROOT, "scripts", "torch_port_goldens.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with open(os.path.join(ROOT, "tpu_paxos_torch", "data", "goldens.json")) as f:
+        gold = json.load(f)["member"]["fleet"]
+    c = gold["config"]
+    drawn = script.member_fleet_lanes(tsearch, c["lanes"], c["n_nodes"], c["rng_seed"],
+                                      c["horizon"], c["max_episodes"])
+    assert script.genomes_sha256(*drawn) == gold["genomes_sha256"]
+    jdrawn = script.member_fleet_lanes(jsearch, 8, c["n_nodes"], c["rng_seed"], c["horizon"],
+                                       c["max_episodes"])
+    assert script.genomes_sha256(*jdrawn) == script.genomes_sha256(*[x[:8] for x in drawn])
 
 
 def test_phase13_search_goldens_are_jax_summaries():

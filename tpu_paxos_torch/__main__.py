@@ -1,17 +1,22 @@
 """``python -m tpu_paxos_torch`` — the reference CLI on the port.
 
-The ``--engine=sim`` and ``--engine=fast`` surfaces of ``python -m
-tpu_paxos``: positional ``srvcnt cltcnt idcnt [propose_interval]`` plus
-the ``--key=value`` knobs (ref multi/main.cpp:456-521, delays in
-rounds), and ``--device {cuda,cpu}`` (default cuda; there is no quiet
-fallback to the CPU).
+The ``--engine=sim``, ``--engine=fast`` and ``--engine=member``
+surfaces of ``python -m tpu_paxos``: positional ``srvcnt cltcnt idcnt
+[propose_interval]`` plus the ``--key=value`` knobs (ref
+multi/main.cpp:456-521, delays in rounds), and ``--device {cuda,cpu}``
+(default cuda; there is no quiet fallback to the CPU).
 
 Output, byte for byte as the JAX CLI prints it: for the general engine
 the decision log in the reference grammar on stdout, then one invariant
-verdict line; for the fast path the verdict line alone.  Exit code 0
-iff every invariant holds; 2 for what the port does not run yet
-(``--engine=member``, ``--mesh``, every subcommand but ``repro``,
-``trace`` and ``fleet``).
+verdict line; for the fast path the verdict line alone; for the
+membership engine (``--engine=member``: the member/ churn scenario —
+grow the acceptor set to ``srvcnt`` with ``cltcnt * idcnt`` values
+proposed meanwhile, shrink back to {0}, check prefix consistency; with
+``--crash-rate``, ``--record-injections F`` / ``--replay-injections F``
+and ``--save-state F`` writing the engine checkpoint) the verdict line,
+with the decision-log hash.  Exit code 0 iff every invariant holds; 2
+for what the port does not run yet (``--mesh``, every subcommand but
+``repro``, ``trace`` and ``fleet``).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -82,7 +87,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="emit a JSON summary instead of the verdict line")
     p.add_argument("--save-state", type=str, default="",
-                   help="dump the run's decision tensors to this .npz path")
+                   help="dump the run's decision tensors (for "
+                   "--engine=member: the engine checkpoint) to this .npz path")
+    p.add_argument("--record-injections", type=str, default="",
+                   help="--engine=member: save the run's (round, op, args) "
+                   "host-injection log here for later replay (the "
+                   "reference's indet record pass, ref member/run.sh)")
+    p.add_argument("--replay-injections", type=str, default="",
+                   help="--engine=member: instead of running the churn "
+                   "scenario, re-execute a recorded injection log; the "
+                   "emitted decision-log hash must match the recording "
+                   "run's (ref member/run.sh:10-16, member/diff.sh)")
     return p
 
 
@@ -217,6 +232,124 @@ def run_fast(args) -> int:
     return 0 if ok and n_chosen == n else 1
 
 
+def _sha16(text: str) -> str:
+    import hashlib
+
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def run_member(args) -> int:
+    """member/ churn scenario: grow the cluster from 1 to srvcnt
+    acceptors, propose cltcnt*idcnt values meanwhile, shrink back, and
+    validate prefix consistency (ref member/main.cpp:101-161, 260-265)."""
+    from tpu_paxos_torch.harness import validate
+    from tpu_paxos_torch.membership import engine as mem
+    from tpu_paxos_torch.utils import log as logm
+
+    logger = logm.get_logger("cli", logm.parse_level(args.log_level))
+    if args.replay_injections:
+        if args.record_injections:
+            raise SystemExit(
+                "--replay-injections and --record-injections are "
+                "mutually exclusive (replay re-executes an existing "
+                "log; it does not re-record)"
+            )
+        # geometry, seed and crash rate come from the log; log stamps go
+        # deterministic so byte-compares of the output are stable
+        os.environ.setdefault("TPU_PAXOS_DETERMINISTIC", "1")
+        logger.info(
+            "replaying %s: geometry/seed/crash-rate come from the log",
+            args.replay_injections,
+        )
+        sim = mem.MemberSim.replay(args.replay_injections, device=args.device)
+        _emit(args, {
+            "engine": "member",
+            "replayed_from": args.replay_injections,
+            "rounds": int(sim.state.t),
+            "injections": len(sim.injections),
+            "decision_log_sha256": _sha16(sim.decision_log()),
+            "ok": True,
+        })
+        return 0
+
+    def member_emit(sim, payload: dict) -> None:
+        # the injection log saves on every exit, and every member verdict
+        # carries the decision-log hash
+        if args.record_injections:
+            sim.save_injections(args.record_injections)
+            logger.info("injection log saved to %s", args.record_injections)
+        payload["decision_log_sha256"] = _sha16(sim.decision_log())
+        _emit(args, payload)
+
+    n = args.srvcnt
+    nvals = args.cltcnt * args.idcnt
+    sim = mem.MemberSim(n, n_instances=max(4 * (nvals + 4 * n), 64),
+                        seed=args.seed, crash_rate=args.crash_rate, device=args.device)
+    vid = 0
+    for tgt in range(1, n):
+        if tgt in sim.crashed_set():
+            logger.info("skipping crashed add target %d", tgt)
+            continue
+        cv = sim.add_acceptor(tgt)
+        if vid < nvals:
+            sim.propose(0, vid)
+            vid += 1
+        if not sim.run_until(lambda: sim.applied(cv), args.max_rounds):
+            logger.error("add_acceptor(%d) never applied", tgt)
+            member_emit(sim, {"engine": "member", "ok": False})
+            return 1
+    # propose via node 0, the one node whose proposer role survives the
+    # whole churn schedule (ref member/main.cpp:204-212)
+    while vid < nvals:
+        sim.propose(0, vid)
+        vid += 1
+        sim.run_rounds(2)
+    # shrink, crashed members first (MemberSim.next_shrink_target)
+    for _ in range(2 * n):
+        tgt = sim.next_shrink_target()
+        if tgt is None:
+            break
+        cv = sim.del_acceptor(tgt)
+        if not sim.run_until(lambda: sim.applied(cv), args.max_rounds):
+            logger.error("del_acceptor(%d) never applied", tgt)
+            member_emit(sim, {"engine": "member", "ok": False})
+            return 1
+    # drain: every proposed value applied at node 0 before the verdict
+    drained = sim.run_until(
+        lambda: set(range(nvals)) <= set(sim.applied_log(0).tolist())
+        and sim.acceptor_set() == {0},
+        args.max_rounds,
+    )
+    logs = [sim.applied_log(a) for a in range(n)]
+    ok = True
+    if not drained:
+        ok = False
+        logger.error(
+            "drain incomplete: %d/%d values applied at node 0, "
+            "acceptors=%s", len(set(logs[0].tolist()) & set(range(nvals))),
+            nvals, sorted(sim.acceptor_set()),
+        )
+    try:
+        validate.check_prefix_consistency(logs)
+    except validate.InvariantViolation as e:
+        ok = False
+        logger.error("invariant violated: %s", e)
+    if args.save_state:
+        from tpu_paxos_torch import checkpoint
+
+        checkpoint.save(args.save_state, sim.state, {"engine": "member", "seed": args.seed})
+        logger.info("member state saved to %s", args.save_state)
+    member_emit(sim, {
+        "engine": "member",
+        "rounds": int(sim.state.t),
+        "applied_node0": len(logs[0]),
+        "final_acceptors": sorted(sim.acceptor_set()),
+        "invariants": ["prefix_consistency"] if ok else [],
+        "ok": ok,
+    })
+    return 0 if ok else 1
+
+
 def run_repro(argv) -> int:
     """``python -m tpu_paxos_torch repro <artifact>``: re-execute a
     repro artifact and verify it reproduces (identical violation, equal
@@ -299,12 +432,12 @@ def main(argv=None) -> int:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
-    if args.engine == "member" or args.mesh:
-        what = "--engine=member" if args.engine == "member" else "--mesh"
-        if args.mesh and args.engine != "sim":
-            what = f"--mesh with --engine={args.engine}"
+    if args.mesh:
+        what = "--mesh" if args.engine == "sim" else f"--mesh with --engine={args.engine}"
         print(f"tpu_paxos_torch: {what} is not ported yet", file=sys.stderr)
         return 2
+    if args.engine == "member":
+        return run_member(args)
     return run_fast(args) if args.engine == "fast" else run_sim(args)
 
 

@@ -194,9 +194,72 @@ def serve_control_for(*args, **kwargs):
     raise NotImplementedError("serve_control_for is not ported yet")
 
 
-def member_envelope_key(*args, **kwargs):
-    raise NotImplementedError("member_envelope_key is not ported yet")
+def member_envelope_key(
+    n_nodes: int,
+    n_instances: int,
+    max_events: int,
+    max_episodes: int,
+    crash_rate: int,
+    max_rounds: int,
+    geometry=None,
+    device=None,
+) -> tuple:
+    """The hashable envelope of a membership fleet: the static facts a
+    member runner fixes (cluster geometry, churn-table event capacity,
+    fault-schedule episode capacity, the i.i.d. crash rate, the round
+    budget) and the device its states live on.  Seeds, churn scenarios
+    and episode mixes are per-dispatch inputs.  Under a ``geometry``
+    envelope the node count collapses to the menu."""
+    return (
+        "member",
+        int(n_nodes) if geometry is None else ("geom", geometry.menu),
+        int(n_instances),
+        int(max_events),
+        int(max_episodes),
+        int(crash_rate),
+        int(max_rounds),
+        None if device is None else str(device),
+    )
 
 
-def member_runner_for(*args, **kwargs):
-    raise NotImplementedError("member_runner_for is not ported yet")
+def member_runner_for(
+    n_nodes: int,
+    n_instances: int,
+    *,
+    max_events: int | None = None,
+    max_episodes: int = frun.MAX_EPISODES,
+    crash_rate: int = 0,
+    max_rounds: int = 2000,
+    geometry=None,
+    device="cuda",
+):
+    """The shared membership-fleet runner for this envelope on ``device``
+    (``fleet/member_runner.MemberFleetRunner``), memoized in the cache the
+    sim envelopes share.  With a ``geometry`` envelope ``n_nodes`` may be
+    any menu node count (it normalizes to the bound and is declared per
+    dispatch: ``run(n_nodes=...)``), and every geometry on the menu shares
+    one runner."""
+    global _MISSES
+    from tpu_paxos_torch.fleet import member_runner as mrun
+    from tpu_paxos_torch.membership import churn_table as ctm
+
+    if max_events is None:
+        max_events = ctm.MAX_EVENTS
+    if geometry is not None:
+        geometry.index_of_nodes(n_nodes)  # named menu/bound rejection
+        n_nodes = geometry.bound_nodes
+    dev = devm.resolve(device)
+    key = member_envelope_key(
+        n_nodes, n_instances, max_events, max_episodes, crash_rate,
+        max_rounds, geometry=geometry, device=dev,
+    )
+    runner = _CACHE.get(key)
+    if runner is None:
+        runner = mrun.MemberFleetRunner(
+            n_nodes, n_instances, max_events=max_events,
+            max_episodes=max_episodes, crash_rate=crash_rate,
+            max_rounds=max_rounds, geometry=geometry, device=dev,
+        )
+        _CACHE[key] = runner
+        _MISSES += 1
+    return runner

@@ -57,6 +57,13 @@ GENE_LAT_MAX = 4
 #: quantized slots across the first 3/4 of the horizon.
 CRASH_GRID = 8
 
+#: Churn-event injection-round grid (``sample_churn_schedule``): t0 draws
+#: quantize to this many slots.
+CHURN_T0_GRID = 8
+
+#: Plain-value vid base for churn-schedule draws.
+CHURN_PLAIN_VID_BASE = 100
+
 
 @dataclasses.dataclass(frozen=True)
 class Alphabet:
@@ -100,9 +107,16 @@ class Alphabet:
         return "gray" in self.kinds
 
     def member(self) -> "Alphabet":
-        """The member-legal subset (the membership engine is not ported
-        yet)."""
-        raise NotImplementedError("Alphabet.member (membership) is not ported yet")
+        """The member-legal subset: gray is compiled out of the membership
+        engine's synchronous network, and the membership fleet takes no
+        per-edge matrix knobs."""
+        kinds = tuple(k for k in self.kinds if k != "gray")
+        if not kinds:
+            raise ValueError(
+                "alphabet has no member-legal kinds (gray is the "
+                "only kind and the membership engine rejects it)"
+            )
+        return dataclasses.replace(self, kinds=kinds, wan=False)
 
     def protocol(self):
         """WAN alphabets scale the retry ladder to the gene RTT (one
@@ -245,19 +259,107 @@ def sample_edge_knobs(
     )
 
 
-def sample_churn_schedule(*args, **kwargs):
-    """A membership-schedule draw (waits for the membership engine)."""
-    raise NotImplementedError("sample_churn_schedule (membership) is not ported yet")
+def sample_churn_schedule(
+    rng: np.random.Generator,
+    n_nodes: int,
+    max_events: int = 3,
+    horizon: int = 96,
+    plain_values: int = 2,
+    wait_gates: tuple = (0, 2),
+):
+    """One grammar draw over the MEMBERSHIP-schedule axis: a bounded
+    sequence of ``ChurnEvent`` genes (kind — plain value / add acceptor /
+    del acceptor — x target x quantized ``t0`` x wait gate), legal by
+    construction: vids are distinct (a target is added at most once,
+    deleted at most once and only after its add), node 0 is never a
+    target, and the first event's gate is ``WAIT_NONE``.  Returns None for
+    the empty draw (a fault-only lane).  ``wait_gates`` defaults to
+    ``(WAIT_NONE, WAIT_APPLIED)``."""
+    from tpu_paxos_torch.membership import churn_table as ctm
+    from tpu_paxos_torch.membership import engine as meng
+
+    n_ev = int(rng.integers(0, max_events + 1))
+    if n_ev == 0:
+        return None
+    step = max(1, horizon // CHURN_T0_GRID)
+    events = []
+    plain_used: set = set()
+    added_ever: set = set()
+    live: set = set()
+    for j in range(n_ev):
+        t0 = int(rng.integers(0, CHURN_T0_GRID)) * step
+        wait = (
+            ctm.WAIT_NONE if j == 0
+            else int(wait_gates[int(rng.integers(len(wait_gates)))])
+        )
+        plain_avail = [i for i in range(plain_values) if i not in plain_used]
+        add_avail = [n for n in range(1, n_nodes) if n not in added_ever]
+        del_avail = sorted(live)
+        classes = (
+            (["plain"] if plain_avail else [])
+            + (["add"] if add_avail else [])
+            + (["del"] if del_avail else [])
+        )
+        if not classes:
+            break  # alphabet exhausted: a shorter schedule, still legal
+        kind = classes[int(rng.integers(len(classes)))]
+        if kind == "plain":
+            i = plain_avail[int(rng.integers(len(plain_avail)))]
+            plain_used.add(i)
+            vid = CHURN_PLAIN_VID_BASE + i
+        elif kind == "add":
+            tgt = add_avail[int(rng.integers(len(add_avail)))]
+            added_ever.add(tgt)
+            live.add(tgt)
+            vid = meng.change_vid(tgt, meng.ADD_ACCEPTOR)
+        else:
+            tgt = del_avail[int(rng.integers(len(del_avail)))]
+            live.discard(tgt)
+            vid = meng.change_vid(tgt, meng.DEL_ACCEPTOR)
+        events.append(ctm.ChurnEvent(vid=vid, t0=t0, wait=wait))
+    if not events:
+        return None
+    return ctm.ChurnSchedule(tuple(events))
 
 
-def churn_targets(*args, **kwargs):
-    """The acceptors a churn schedule names (waits for membership)."""
-    raise NotImplementedError("churn_targets (membership) is not ported yet")
+def churn_targets(churn) -> set:
+    """The acceptor nodes a churn schedule's change events name: with node
+    0, the crash-protected set (a scheduled crash inside the epoch
+    acceptor set can wedge its quorum forever)."""
+    from tpu_paxos_torch.membership import engine as meng
+
+    out: set = set()
+    if churn is None:
+        return out
+    for e in churn.events:
+        if int(e.vid) >= meng.CHANGE_BASE:
+            out.add(meng.decode_change(int(e.vid))[0])
+    return out
 
 
-def sample_member_schedule(*args, **kwargs):
-    """A member-legal fault-schedule draw (waits for membership)."""
-    raise NotImplementedError("sample_member_schedule (membership) is not ported yet")
+def sample_member_schedule(
+    rng: np.random.Generator,
+    n_nodes: int,
+    churn=None,
+    max_episodes: int = 2,
+    horizon: int = 96,
+    kinds=None,
+) -> fltm.FaultSchedule:
+    """A fault-schedule draw legal for MEMBERSHIP lanes: member-legal
+    letters only (no gray) and scheduled crashes avoid node 0 plus the
+    churn schedule's named targets (passed pre-crashed into the episode
+    sampler, so crash draws land outside the protected set)."""
+    if kinds is None:
+        kinds = tuple(k for k in KINDS if k != "gray")
+    protected = frozenset({0} | churn_targets(churn))
+    n_eps = int(rng.integers(1, max_episodes + 1))
+    eps, crashed = [], set(protected)
+    for _ in range(n_eps):
+        e = sample_episode(rng, n_nodes, horizon, crashed=crashed, kinds=kinds)
+        if e.kind == "crash":
+            crashed.update(e.nodes)
+        eps.append(e)
+    return fltm.FaultSchedule(tuple(eps))
 
 
 def lane_cause_series(rep, lanes) -> dict:

@@ -90,6 +90,16 @@ def check_in_order_clients(executed: np.ndarray, in_order_vids: list[np.ndarray]
             last = p
 
 
+def check_prefix_consistency(logs: list[np.ndarray]) -> None:
+    """member/ validation: every node's applied log is a prefix of the
+    longest one (ref member/main.cpp:260-265 checks against node 0; the
+    longest is the same invariant without privileging a node)."""
+    longest = max(logs, key=len)
+    for a, s in enumerate(logs):
+        if not np.array_equal(np.asarray(s), np.asarray(longest)[: len(s)]):
+            _fail(f"node {a} applied log is not a prefix of the longest log")
+
+
 def check_all(learned: np.ndarray, expected_vids: np.ndarray | None = None) -> list[np.ndarray]:
     check_agreement(learned)
     check_exactly_once(learned, expected_vids)

@@ -1,8 +1,8 @@
 """Carry engine state between the JAX package and the port.
 
 This system has no weights; its state is what crosses: the JAX
-package's ``SimState`` (the general engine) and ``FastState`` (the fast
-path), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
+package's ``SimState`` (the general engine), ``FastState`` (the fast
+path) and ``MemberState`` (the membership engine), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
 state)``), become the port's trees on a device and back.  Both packages'
 trees have the same field names, nesting, shapes and dtypes, so a run
 can be handed over mid-flight and resumed in either package round for
@@ -20,6 +20,7 @@ import torch
 from tpu_paxos_torch.core import fast
 from tpu_paxos_torch.core import net as netm
 from tpu_paxos_torch.core import sim
+from tpu_paxos_torch.membership import engine as meng
 from tpu_paxos_torch.utils import device as devm
 
 _SUBTREES = {
@@ -72,4 +73,19 @@ def fast_state_from_jax(np_tree, device="cuda") -> fast.FastState:
 
 def fast_state_to_numpy(state: fast.FastState) -> fast.FastState:
     """The same FastState with every leaf as a host numpy array."""
+    return _to_numpy(state)
+
+
+def member_state_from_jax(np_tree, device="cuda") -> meng.MemberState:
+    """The port's MemberState on ``device`` from a JAX ``MemberState``
+    whose leaves are numpy arrays (any object with the same attribute
+    names); a lane-stacked state keeps its lane axis."""
+    dev = devm.resolve(device)
+    return meng.MemberState(**{
+        f: _tensor(getattr(np_tree, f), dev) for f in meng.MemberState._fields
+    })
+
+
+def member_state_to_numpy(state: meng.MemberState) -> meng.MemberState:
+    """The same MemberState with every leaf as a host numpy array."""
     return _to_numpy(state)

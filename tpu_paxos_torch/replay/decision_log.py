@@ -71,9 +71,13 @@ def decision_log(
 ) -> str:
     """Render the decided log.  ``stride`` is the workload's vid stride
     (``vid = proposer * stride + seq``); ``payload`` optionally maps a
-    real vid to its payload string (default: the value-id)."""
+    real vid to its payload string (default: the value-id);
+    ``membership`` maps a membership-change vid to its ``m+id=ip:port`` /
+    ``m-id`` suffix (``membership.membership_suffix``), and vids it
+    returns None for fall through to the normal grammar."""
     if membership is not None:
-        raise NotImplementedError("decision_log membership rendering is not ported yet")
+        return _membership_log(chosen_vid, chosen_ballot, stride, n_instances, payload,
+                               membership)
     chosen_vid = np.asarray(chosen_vid).astype(np.int64)
     chosen_ballot = np.asarray(chosen_ballot).astype(np.int64)
     inst = np.flatnonzero(chosen_vid != val.NONE)
@@ -104,6 +108,31 @@ def decision_log(
         inst.size,
     )
     return text.decode("ascii")
+
+
+def _membership_log(chosen_vid, chosen_ballot, stride, n_instances, payload, membership) -> str:
+    """The log with membership-change lines, one Python line at a time.
+    A change vid encodes (target node, kind), not (proposer, seq), so its
+    line renders the change's own identity before the suffix."""
+    from tpu_paxos_torch.membership import engine as mem
+
+    lines = []
+    for i, v in enumerate(np.asarray(chosen_vid).tolist()):
+        if v == val.NONE:
+            continue
+        b = int(chosen_ballot[i])
+        if v <= val.NOOP_BASE:
+            k = val.NOOP_BASE - v
+            lines.append(f"[{i}] = <{b}>({k // n_instances}:{k % n_instances})-")
+            continue
+        m = membership(v)
+        if m is not None:
+            node, kind = mem.decode_change(v)
+            lines.append(f"[{i}] = <{b}>({node}:{kind}){m}")
+            continue
+        body = payload(v) if payload is not None else str(v % stride)
+        lines.append(f"[{i}] = <{b}>({v // stride}:{v % stride})+{body}")
+    return "\n".join(lines) + ("\n" if lines else "")
 
 
 def sha256(text: str) -> str:
