@@ -151,11 +151,12 @@ Phases (any failure exits non-zero; nothing is caught):
       timing keys (every generation's margins, causes and per-lane causes
       included) must equal JAX's and both kernels must launch on 128-lane
       operands.  Prints lanes/s, ms and host syncs a round.
-   c. ``python -m tpu_paxos_torch.harness.stress --fleet --seeds 8
-      --triage-dir DIR`` as a subprocess: both summary lines, less
-      ``seconds``, ``lanes_per_sec`` and ``compiles_per_mix``, must equal
-      JAX's (the per-mix ``telemetry`` blocks key for key).  Prints each
-      mix's lanes/s.
+   c. What ``python -m tpu_paxos_torch.harness.stress --fleet --seeds 8
+      --triage-dir DIR`` runs, in this process: the fleet sweep at 8 seeds
+      and (cut since PR 10) the host-loop sweep of the i.i.d. mixes at one
+      seed a mix; both summaries, less ``seconds``, ``lanes_per_sec`` and
+      ``compiles_per_mix``, must equal JAX's (the per-mix ``telemetry``
+      blocks key for key).  Prints the fleet's lanes/s.
    d. ``bench.py``'s geometry-padded envelope configuration (menu 3/(0,),
       5/(0,1), 7/(0,1,2); three 8-value rows on 48 instances,
       ``max_rounds`` 4000; 64 lanes; both protocol configs and both
@@ -197,6 +198,41 @@ Phases (any failure exits non-zero; nothing is caught):
       sha256 must equal JAX's; prints lanes/s, ms and host syncs a round.
       Then one ``geometry=`` padded runner on menu 3/5 at 3 and at 5 true
       nodes must equal its bound-free twin lane for lane.
+
+15. Open-loop serving on the card, against the JAX goldens (``serve``),
+   with phase 15's own seconds; every run prints its wall, ms and host
+   syncs a round, values/s (lanes/s for the fleet), peak device memory
+   and kernel launches:
+   a. ``serve_full`` (``bench.py:1229``'s record at its on-TPU size):
+      ``serve/harness.serve_run`` of 2**16 Poisson values (16000 milli,
+      seed 0) on 2**17 instances, 5 nodes, drop 500 / dup 1000 / delay
+      0-2, 2-round windows, 32 a dispatch, 128-round buckets, SLO 64
+      rounds / budget 100, with the counts zeroed before and read after:
+      every report field but the wall, the summary and SLO dicts and the
+      decision-log sha256 must equal JAX's, and both kernels must launch
+      on one-lane operands; then the first two dispatches again, with the
+      first 16 launches of each kernel held against its plain version on
+      their own operands, timed and their needed bytes counted.
+   b. ``serve_twins_4096`` (``BENCH_serve.json``'s configuration, 2**12
+      values on 2**13 instances): the pipelined run (32 windows a
+      dispatch), the sequential baseline (1) and the unwindowed plain
+      twin each equal JAX's, and ``sweep_load`` at 8000-64000 milli (less
+      the wall fields, knee included) equals JAX's.
+   c. ``serve_fleet_256`` (``bench.py:1500``'s record at its on-TPU
+      size): ``serve/fleet.serve_fleet_run`` of 256 lanes from
+      ``fleet_lanes`` (2**12 values on 2**13 instances each) at 32000 and
+      then 128000 milli: per lane the decision-log sha256, decided count,
+      breach flag and first breach dispatch, the host-confirmed verdicts
+      of the flagged lanes, rounds, dispatches and ``done`` must equal
+      JAX's, both kernels launching on 256-lane operands; the 128000 run
+      again with the first 16 launches of each kernel held against its
+      plain version; and the 1-lane zero-load fleet must make the
+      closed-loop ``sim.run``'s decision log (and JAX's).
+   d. ``python -m tpu_paxos_torch serve``, ``serve --fleet --lanes 8``,
+      ``trace --serve --stdout`` and ``trace --serve --stdout --lanes 4
+      --lane 1`` as four subprocesses started together with 15a: the
+      serve lines less the wall fields and the trace stdout's sha256 must
+      equal the JAX CLI's.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -781,13 +817,15 @@ def run_scheduled(sk, goldens, key: str) -> dict:
 
 
 @contextlib.contextmanager
-def check_launches(sk, reps: int, stats: dict, lanes: int | None = None):
-    """Every simkern launch in the block (of ``lanes`` lanes, when given)
-    is first held against its plain version on a snapshot of its
-    operands, timed on it (``reps`` launches from restored operands and a
-    cold L2) and its needed bytes counted; then the real launch goes
-    ahead.  ``stats[name]`` gathers the launches, their lane counts,
-    times, needed bytes and the largest error."""
+def check_launches(sk, reps: int, stats: dict, lanes: int | None = None,
+                   limit: int | None = None):
+    """Every simkern launch in the block (of ``lanes`` lanes, when given;
+    the first ``limit`` of each kernel, when given) is first held against
+    its plain version on a snapshot of its operands, timed on it
+    (``reps`` launches from restored operands and a cold L2) and its
+    needed bytes counted; then the real launch goes ahead.
+    ``stats[name]`` gathers the launches, their lane counts, times,
+    needed bytes and the largest error."""
     plains = {
         "store_accepts": (sk.store_accepts_plain, (0, 1)),
         "accum_acks": (sk.accum_acks_plain, (0,)),
@@ -798,6 +836,8 @@ def check_launches(sk, reps: int, stats: dict, lanes: int | None = None):
 
         def launch(*ops):
             if lanes is not None and int(ops[0].shape[0]) != lanes:
+                return kern(*ops)
+            if limit is not None and stats.get(name, {}).get("launches", 0) >= limit:
                 return kern(*ops)
             snap = [t.clone() for t in ops]
             want = plain(*snap)
@@ -1634,33 +1674,34 @@ def run_search_wide(sk, goldens, card: str) -> dict:
             "round_calls": rounds}
 
 
-def run_stress_fleet(goldens, here: str, card: str) -> dict:
-    """Phase 13c: ``stress --fleet --seeds 8`` as a subprocess."""
+def run_stress_fleet(goldens, card: str) -> dict:
+    """Phase 13c: what ``stress --fleet`` runs, in this process: the fleet
+    sweep of the episode and WAN mixes at the golden's seeds (8-lane
+    dispatches) and the host-loop sweep of the i.i.d. mixes at its
+    ``host_seeds`` (one seed a mix: the host loop's one-lane runs cost
+    2.7-3.1 s each on the card)."""
+    from tpu_paxos_torch.fleet import envelope
+    from tpu_paxos_torch.harness import stress
+
     gold = goldens["stress_fleet"]
+    envelope.clear_cache()  # runners_built then counts this sweep's builds
+    host_mixes = [m for m in stress.MIXES if "schedule" not in m[1]]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tpu_paxos_torch.harness.stress", "--fleet", "--seeds",
-             str(gold["seeds"]), "--triage-dir", tmp, "--device", DEV],
-            cwd=here, env=_port_env(here), capture_output=True, text=True, timeout=900,
-        )
+        host = stress.sweep(gold["host_seeds"], 0, verbose=False, triage_dir=tmp,
+                            mixes=host_mixes, device=DEV)
+        host_s = time.perf_counter() - t0
+        fleet = stress.sweep_fleet(gold["seeds"], 0, verbose=False, triage_dir=tmp, device=DEV)
         wall = time.perf_counter() - t0
         left = sorted(os.listdir(tmp))
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or len(lines) < 2:
-        print(proc.stderr[-3000:], file=sys.stderr)
-        raise SystemExit(f"stress --fleet exited {proc.returncode}")
-    host, fleet = (json.loads(x) for x in lines[-2:])
-    mixes = [ln[ln.index("fleet mix"):] for ln in proc.stderr.splitlines() if "fleet mix" in ln]
     hl, fl = _less_timing(host, STRESS_TIMING), _less_timing(fleet, STRESS_TIMING)
-    print(f"stress --fleet --seeds {gold['seeds']}: rc={proc.returncode} wall_s={wall:.3f} "
+    print(f"stress --fleet (fleet sweep at {gold['seeds']} seeds, host loop at "
+          f"{gold['host_seeds']}): wall_s={wall:.3f} host_s={host_s:.3f} "
           f"host_seconds={host['seconds']} fleet_seconds={fleet['seconds']} "
           f"fleet_lanes_per_sec={fleet['lanes_per_sec']} "
           f"runners_built={json.dumps(fleet['compiles_per_mix'], sort_keys=True)} "
           f"host_equal={hl == gold['host']} fleet_equal={fl == gold['fleet']} artifacts={left} "
           f"| {card}")
-    for ln in mixes:
-        print(f"stress --fleet {ln}")
     if hl != gold["host"]:
         raise SystemExit(f"stress --fleet's host sweep disagrees with JAX's: "
                          f"{_dict_diff(hl, gold['host'])}")
@@ -1671,8 +1712,8 @@ def run_stress_fleet(goldens, here: str, card: str) -> dict:
                 print(f"stress --fleet telemetry [{mix}]: {_dict_diff(got, want)}", file=sys.stderr)
         raise SystemExit(f"stress --fleet's fleet sweep disagrees with JAX's: "
                          f"{_dict_diff(fl, gold['fleet'])}")
-    return {"wall_s": wall, "host_seconds": host["seconds"], "fleet_seconds": fleet["seconds"],
-            "lanes_per_sec": fleet["lanes_per_sec"]}
+    return {"wall_s": wall, "host_s": host_s, "host_seconds": host["seconds"],
+            "fleet_seconds": fleet["seconds"], "lanes_per_sec": fleet["lanes_per_sec"]}
 
 
 def run_envelope(sk, goldens, card: str) -> dict:
@@ -2025,6 +2066,218 @@ def run_member(goldens, here: str, card: str) -> dict:
     return out
 
 
+SERVE_CHECK = 16  # launches of each kernel held against the plain version in 15a and 15c
+
+
+def start_serve_clis(gold, here: str):
+    """Phase 15d's four CLI processes, started together, each read by a
+    thread that notes when it ended."""
+    import threading
+
+    t0 = time.perf_counter()
+    procs, ended = {}, {}
+
+    def reap(key, proc):
+        ended[key] = (*proc.communicate(timeout=900), time.perf_counter() - t0)
+
+    threads = []
+    for args in gold["config"]["cli"] + gold["config"]["trace"]:
+        key = " ".join(args)
+        procs[key] = subprocess.Popen(
+            [sys.executable, "-m", "tpu_paxos_torch", *args, "--device", DEV],
+            cwd=here, env=_port_env(here), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        threads.append(threading.Thread(target=reap, args=(key, procs[key]), daemon=True))
+        threads[-1].start()
+    return procs, threads, ended
+
+
+def finish_serve_clis(gold, script, started, card: str) -> dict:
+    """Phase 15d: each CLI's stdout against the JAX CLI's."""
+    procs, threads, ended = started
+    for th in threads:
+        th.join()
+    out = {}
+    for key, proc in procs.items():
+        stdout, stderr, wall = ended[key]
+        if key in gold["cli"]:
+            want = gold["cli"][key]
+            got = script.less_wall(json.loads(stdout.strip().splitlines()[-1]))
+            ok = proc.returncode == want["rc"] and got == want["summary"]
+            detail = f"summary_equal={got == want['summary']}"
+        else:
+            sha = hashlib.sha256(stdout.encode()).hexdigest()
+            ok = proc.returncode == 0 and sha == gold["trace"][key]["stdout_sha256"]
+            detail = f"stdout_bytes={len(stdout.encode())} stdout_sha256={sha}"
+        print(f"serve CLI (python -m tpu_paxos_torch {key}): rc={proc.returncode} "
+              f"wall_s={wall:.3f} {detail} | {card}")
+        if not ok:
+            print(stderr[-3000:], file=sys.stderr)
+            for p in procs.values():
+                p.kill()
+            raise SystemExit(f"'{key}' disagrees with the JAX CLI's")
+        out[key] = wall
+    return out
+
+
+def _serve_timed(fn):
+    """``(result, wall s, syncs, peak GB)`` of ``fn()`` on the card, its
+    syncs counted in the timed run itself (about 10 us a warning)."""
+    it = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    syncs = count_syncs(lambda: it.setdefault("r", fn()))
+    torch.cuda.synchronize()
+    return it["r"], time.perf_counter() - t0, syncs, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _serve_line(label: str, rep, wall, syncs, peak, launches, card, lanes: int = 1) -> dict:
+    calls = rep.dispatches * rep.windows_per_dispatch * rep.rounds_per_window
+    rate = (f"lanes_per_sec={lanes / wall:.2f} values_per_sec={rep.values_per_sec:.1f}"
+            if lanes > 1 else f"values_per_sec={rep.values_per_sec:.1f}")
+    print(f"{label}: wall_s={wall:.3f} rounds={rep.rounds} dispatches={rep.dispatches} "
+          f"round_calls={calls} ms_per_round={wall / calls * 1e3:.3f} "
+          f"syncs_per_round={syncs / calls:.2f} {rate} peak_gb={peak:.3f} "
+          f"launches={json.dumps(launches, sort_keys=True)} | {card}")
+    return {"wall_s": wall, "round_calls": calls, "ms_per_round": wall / calls * 1e3,
+            "syncs_per_round": syncs / calls, "values_per_sec": rep.values_per_sec,
+            "peak_gb": peak, "launches": launches}
+
+
+def run_serve_full(sk, script, m, gold, card: str) -> dict:
+    """Phase 15a: the 2**16-value stream on 2**17 instances."""
+    import numpy as np
+
+    from tpu_paxos_torch.serve import driver as drv
+    from tpu_paxos_torch.utils import prng
+
+    sk.reset_counts()
+    with lane_counts(sk) as shapes:
+        rep, wall, syncs, peak = _serve_timed(lambda: script.serve_full_run(m, device=DEV))
+    launches = dict(sk.LAUNCHES)
+    rec = script.serve_report_record(m, rep)
+    out = _serve_line(f"serve_full (I={rep.cfg.n_instances}, {rep.n_values} values)", rep, wall,
+                      syncs, peak, launches, card)
+    lanes_ok = all(x == [1] * len(x) for x in shapes.values())
+    if rec != gold["full"]:
+        raise SystemExit(f"serve_full disagrees with its JAX golden: {_dict_diff(rec, gold['full'])}")
+    if min(launches.values()) < 1 or not lanes_ok:
+        raise SystemExit("serve_full: a simkern kernel did not launch on one-lane operands")
+    # the sample: the first two dispatches again, the first launches held
+    # against the plain version on their own operands
+    c = gold["config"]
+    cfg = rep.cfg
+    streams, arrs = script.serve_stream(m, c["full"]["n_values"], c["full"]["rate_milli"])
+    plan = m.arrv.ArrivalPlan(streams, arrs, c["rounds_per_window"])
+    k, s = rep.admit_width, c["windows_per_dispatch"]
+    vb = drv.vid_bound_of(streams)
+    root = prng.root_key(cfg.seed)
+    ss, qc = drv.init_serve_state(cfg, streams, vb, root, window_rounds=c["window_rounds"],
+                                  device=DEV)
+    fn = drv.window_for(cfg, qc, vb, c["rounds_per_window"], window_rounds=c["window_rounds"],
+                        device=DEV)
+    stats = {}
+    with check_launches(sk, SNAP_REPS, stats, limit=SERVE_CHECK):
+        for d in range(2):
+            blocks = [plan.block(d * s + i, k) for i in range(s)]
+            ss = fn(ss, root, np.stack([b[0] for b in blocks]), np.stack([b[1] for b in blocks]))[0]
+    out["checked"] = _summarize_checked("serve_full one-lane operands (first 2 dispatches)", stats)
+    del ss, rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve_twins(script, m, gold, card: str) -> dict:
+    """Phase 15b: the dispatch-granularity twins and the load sweep."""
+    width = script.serve_twins_width(m)
+    if width != gold["twins_admit_width"]:
+        raise SystemExit(f"serve twins: admit width {width}, JAX's {gold['twins_admit_width']}")
+    out = {}
+    for mode in script.SERVE_TWINS:
+        rep, wall, syncs, peak = _serve_timed(
+            lambda mode=mode: script.serve_twin_run(m, mode, width, device=DEV))
+        rec = script.serve_report_record(m, rep)
+        out[mode] = _serve_line(f"serve_twins_4096 [{mode}] (S={rep.windows_per_dispatch})", rep,
+                                wall, syncs, peak, {}, card)
+        if rec != gold["twins"][mode]:
+            raise SystemExit(f"serve twin [{mode}] disagrees with its JAX golden: "
+                             f"{_dict_diff(rec, gold['twins'][mode])}")
+    t0 = time.perf_counter()
+    sweep = script.serve_sweep(m, width, device=DEV)
+    wall = time.perf_counter() - t0
+    print(f"serve sweep_load {gold['config']['twins']['sweep_rates']}: wall_s={wall:.3f} "
+          f"knee={json.dumps(sweep['knee'], sort_keys=True)} equal={sweep == gold['sweep']} | {card}")
+    if sweep != gold["sweep"]:
+        raise SystemExit(f"sweep_load disagrees with its JAX golden: {_dict_diff(sweep, gold['sweep'])}")
+    out["sweep_s"] = wall
+    return out
+
+
+def run_serve_fleet(sk, script, m, gold, card: str) -> dict:
+    """Phase 15c: the 256-lane serve fleet at two rates, its kernel
+    sample and the zero-load anchor."""
+    width = script.serve_fleet_width(m)
+    lanes = gold["config"]["fleet"]["lanes"]
+    if width != gold["fleet_admit_width"]:
+        raise SystemExit(f"serve fleet: admit width {width}, JAX's {gold['fleet_admit_width']}")
+    out = {"launches": {"store_accepts": 0, "accum_acks": 0}}
+    for rate in gold["config"]["fleet"]["rates"]:
+        sk.reset_counts()
+        with lane_counts(sk) as shapes:
+            rep, wall, syncs, peak = _serve_timed(
+                lambda rate=rate: script.serve_fleet_run(m, rate, width, device=DEV))
+        launches = dict(sk.LAUNCHES)
+        rec = script.serve_fleet_record(m, rep)
+        out[str(rate)] = _serve_line(f"serve_fleet_{lanes} @ {rate} milli (I={rep.cfg.n_instances})",
+                                     rep, wall, syncs, peak, launches, card, lanes=lanes)
+        want = gold["fleet"][str(rate)]
+        print(f"serve_fleet_{lanes} @ {rate}: flagged={len(rec['flagged'])} "
+              f"lanes_off={[i for i in range(lanes) if rec['decision_log_sha256'][i] != want['decision_log_sha256'][i]]}")
+        if rec != want:
+            raise SystemExit(f"serve fleet @ {rate} disagrees with its JAX golden: "
+                             f"{_dict_diff(rec, want)}")
+        if min(launches.values()) < 1 or not all(x == [lanes] * len(x) for x in shapes.values()):
+            raise SystemExit(f"serve fleet: a simkern kernel did not launch on {lanes}-lane operands")
+        for key in out["launches"]:
+            out["launches"][key] += launches[key]
+        del rep
+    rate = gold["config"]["fleet"]["rates"][-1]
+    stats = {}
+    with check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=SERVE_CHECK):
+        rep = script.serve_fleet_run(m, rate, width, device=DEV)
+    if script.serve_fleet_record(m, rep) != gold["fleet"][str(rate)]:
+        raise SystemExit("the checked serve fleet run disagrees with its JAX golden")
+    out["checked"] = _summarize_checked(f"serve_fleet_{lanes} {lanes}-lane operands", stats)
+    del rep
+    zl = script.serve_zero_load(m, device=DEV)
+    print(f"serve fleet 1-lane zero-load vs closed-loop sim.run: fleet_sha={zl['fleet']} "
+          f"closed_sha={zl['closed']} equal={zl['fleet'] == zl['closed']} "
+          f"golden_equal={zl == gold['zero_load']}")
+    if zl != gold["zero_load"] or zl["fleet"] != zl["closed"]:
+        raise SystemExit("the 1-lane zero-load serve fleet differs from the closed-loop run")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve(goldens, here: str, card: str) -> dict:
+    """Phase 15: open-loop serving on the card."""
+    from tpu_paxos_torch.core import simkern as sk
+
+    gold = goldens["serve"]
+    script = _goldens_script(here)
+    m = script.serve_modules(port=True)
+    t15 = time.perf_counter()
+    clis = start_serve_clis(gold, here)
+    out = {"full": run_serve_full(sk, script, m, gold, card)}
+    out["twins"] = run_serve_twins(script, m, gold, card)
+    out["fleet"] = run_serve_fleet(sk, script, m, gold, card)
+    out["cli"] = finish_serve_clis(gold, script, clis, card)
+    print(f"phase 15 (serving) took {time.perf_counter() - t15:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2078,12 +2331,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # 13a's subprocess runs beside 13c's
         quick = start_fleet_quick(goldens, here, tmp)
-        run_stress_fleet(goldens, here, card)
+        run_stress_fleet(goldens, card)
         run_fleet_quick(goldens, here, card, quick, tmp)
     wide = run_search_wide(sk, goldens, card)
     env13 = run_envelope(sk, goldens, card)
     print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
     run_member(goldens, here, card)
+    serve = run_serve(goldens, here, card)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -2126,6 +2380,16 @@ def main() -> int:
             "envelope_lanes": env13["checked"][name]["lanes"][0],
             "envelope_ms": env13["checked"][name]["ms"],
             "envelope_bound_ms": env13["checked"][name]["bound_ms"],
+            "serve_launches": serve["full"]["launches"][key],
+            "serve_lanes": serve["full"]["checked"][name]["lanes"][0],
+            "serve_checked": serve["full"]["checked"][name]["launches"],
+            "serve_ms": serve["full"]["checked"][name]["ms"],
+            "serve_bound_ms": serve["full"]["checked"][name]["bound_ms"],
+            "serve_fleet_launches": serve["fleet"]["launches"][key],
+            "serve_fleet_lanes": serve["fleet"]["checked"][name]["lanes"][0],
+            "serve_fleet_checked": serve["fleet"]["checked"][name]["launches"],
+            "serve_fleet_ms": serve["fleet"]["checked"][name]["ms"],
+            "serve_fleet_bound_ms": serve["fleet"]["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

@@ -816,9 +816,9 @@ def stress_fleet_golden() -> dict:
                             str(STRESS_FLEET_SEEDS), "--triage-dir", tmp])
     if proc.returncode != 0:
         raise RuntimeError(f"JAX stress --fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
-    host, fleet = [json.loads(ln) for ln in proc.stdout.strip().splitlines()[-2:]]
-    return {"seeds": STRESS_FLEET_SEEDS,
-            "host": normalize_summary(host, STRESS_TIMING_KEYS),
+    fleet = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {"seeds": STRESS_FLEET_SEEDS, "host_seeds": STRESS_HOST_SEEDS,
+            "host": stress_host_golden(),
             "fleet": normalize_summary(fleet, STRESS_TIMING_KEYS)}
 
 
@@ -1053,6 +1053,270 @@ def member_goldens() -> dict:
     }
 
 
+STRESS_HOST_SEEDS = 1  # 13c's host-loop half, cut to one seed a mix (PR 10)
+
+
+def stress_host_golden() -> dict:
+    """Phase 13c's host-loop half: JAX's ``sweep`` over the i.i.d.-only
+    mixes (what ``stress --fleet`` runs on the host loop) at
+    :data:`STRESS_HOST_SEEDS` seeds a mix."""
+    import tempfile
+
+    from tpu_paxos.harness import stress
+
+    host_mixes = [m for m in stress.MIXES if "schedule" not in m[1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        host = stress.sweep(STRESS_HOST_SEEDS, 0, verbose=False, triage_dir=tmp,
+                            mixes=host_mixes)
+    return normalize_summary(host, STRESS_TIMING_KEYS)
+
+
+#: Phase 15 (open-loop serving), ``bench.py``'s serve records at their
+#: on-TPU sizes: ``bench_serve_record`` (:1229, 2**16 values on 2**17
+#: instances, Poisson at 16000 milli), ``BENCH_serve.json``'s
+#: configuration (2**12 values on 2**13) and ``bench_serve_fleet_record``
+#: (:1500, 256 lanes of 2**12 values on 2**13 instances).
+SERVE = {
+    "nodes": 5, "proposers": [0, 1], "seed": 0, "max_rounds": 20_000,
+    "faults": {"drop_rate": 500, "dup_rate": 1000, "max_delay": 2},
+    "rounds_per_window": 2, "windows_per_dispatch": 32, "window_rounds": 128,
+    "slo": {"latency_rounds": 64, "budget_milli": 100},
+    "stride": 64,
+    "full": {"n_values": 1 << 16, "rate_milli": 16_000},
+    "twins": {"n_values": 1 << 12, "rate_milli": 16_000,
+              "sweep_rates": [8000, 16_000, 32_000, 64_000]},
+    "fleet": {"n_values": 1 << 12, "lanes": 256, "rates": [32_000, 128_000]},
+    "cli": [["serve"], ["serve", "--fleet", "--lanes", "8"]],
+    "trace": [["trace", "--serve", "--stdout"],
+              ["trace", "--serve", "--stdout", "--lanes", "4", "--lane", "1"]],
+}
+SERVE_WALL_KEYS = ("wall_seconds", "values_per_sec", "values_per_sec_surface")
+
+
+def serve_modules(port: bool):
+    """The serving modules of one package: the port's (``port=True``;
+    the card's ``chip_smoke.py`` drives these) or the JAX package's."""
+    import types
+
+    import numpy as np
+
+    if port:
+        from tpu_paxos_torch import config as cfgm
+        from tpu_paxos_torch.core import sim
+        from tpu_paxos_torch.replay.decision_log import decision_log
+        from tpu_paxos_torch.serve import arrivals, fleet, harness
+
+        def host(x):
+            return x.cpu().numpy()
+    else:
+        from tpu_paxos import config as cfgm
+        from tpu_paxos.core import sim
+        from tpu_paxos.replay.decision_log import decision_log
+        from tpu_paxos.serve import arrivals, fleet, harness
+
+        host = np.asarray
+    return types.SimpleNamespace(cfgm=cfgm, sim=sim, decision_log=decision_log,
+                                 arrv=arrivals, sfl=fleet, sh=harness, host=host)
+
+
+def less_wall(d):
+    """A serve summary less its wall-clock fields, at every depth."""
+    if isinstance(d, list):
+        return [less_wall(x) for x in d]
+    if not isinstance(d, dict):
+        return d
+    return {k: less_wall(v) for k, v in d.items() if k not in SERVE_WALL_KEYS}
+
+
+def serve_cfg(m, n_values: int):
+    return m.cfgm.SimConfig(
+        n_nodes=SERVE["nodes"], n_instances=2 * n_values, proposers=tuple(SERVE["proposers"]),
+        seed=SERVE["seed"], max_rounds=SERVE["max_rounds"],
+        faults=m.cfgm.FaultConfig(**SERVE["faults"]),
+    )
+
+
+def serve_stream(m, n_values: int, rate_milli: int):
+    import numpy as np
+
+    vids = np.arange(n_values, dtype=np.int32)
+    rounds = m.arrv.poisson_rounds(n_values, rate_milli, SERVE["seed"])
+    return m.arrv.split_round_robin(vids, rounds, len(SERVE["proposers"]))
+
+
+def serve_slo(m):
+    return m.sh.ServeSLO(**SERVE["slo"])
+
+
+def _log_sha(m, cv, cb) -> str:
+    text = m.decision_log(cv, cb, stride=SERVE["stride"], n_instances=len(cv))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def serve_report_record(m, rep) -> dict:
+    """What a ``serve_run`` report must reproduce: every field but the
+    wall clock, the summary and SLO dicts whole, and the decision-log
+    sha256."""
+    return {
+        "rounds": rep.rounds, "dispatches": rep.dispatches, "windows": rep.windows_count,
+        "done": rep.done, "decided": rep.decided_values, "backlog": rep.backlog,
+        "p50": rep.p50, "p99": rep.p99, "p999": rep.p999, "latency_max": rep.latency_max,
+        "admit_width": rep.admit_width, "window_decided": rep.window_decided,
+        "summary": rep.summary, "slo": rep.slo,
+        "slo_first_breach_dispatch": rep.slo_first_breach_dispatch,
+        "decision_log_sha256": _log_sha(m, rep.chosen_vid, rep.chosen_ballot),
+    }
+
+
+def serve_full_run(m, **dev):
+    """15a: the 2**16-value stream on 2**17 instances, pipelined, at the
+    plan's ``max_block``; returns the report."""
+    f = SERVE["full"]
+    cfg = serve_cfg(m, f["n_values"])
+    streams, arrs = serve_stream(m, f["n_values"], f["rate_milli"])
+    return m.sh.serve_run(
+        cfg, streams, arrs, rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=SERVE["windows_per_dispatch"],
+        window_rounds=SERVE["window_rounds"], slo=serve_slo(m), **dev,
+    )
+
+
+def serve_twins_width(m) -> int:
+    """15b's one admit width: the main stream's and every sweep rate's
+    ``max_block``, as ``bench_serve_record`` takes it."""
+    t = SERVE["twins"]
+    width = 1
+    for rate in [t["rate_milli"]] + t["sweep_rates"]:
+        streams, arrs = serve_stream(m, t["n_values"], rate)
+        width = max(width, m.arrv.ArrivalPlan(streams, arrs, SERVE["rounds_per_window"]).max_block)
+    return width
+
+
+#: 15b's three dispatch modes of one stream: (windows per dispatch,
+#: pipelined, windowed plane and SLO armed)
+SERVE_TWINS = {"pipelined": (32, True, True), "sequential": (1, False, True),
+               "plain": (32, True, False)}
+
+
+def serve_twin_run(m, mode: str, width: int, **dev):
+    """15b: one dispatch mode of the 2**12-value stream; the report."""
+    t = SERVE["twins"]
+    s, pipelined, armed = SERVE_TWINS[mode]
+    cfg = serve_cfg(m, t["n_values"])
+    streams, arrs = serve_stream(m, t["n_values"], t["rate_milli"])
+    return m.sh.serve_run(
+        cfg, streams, arrs, rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=s, admit_width=width, pipelined=pipelined,
+        window_rounds=SERVE["window_rounds"] if armed else 0,
+        slo=serve_slo(m) if armed else None, **dev,
+    )
+
+
+def serve_sweep(m, width: int, **dev) -> dict:
+    """15b's ``sweep_load`` at the four rates bracketing the knee, less
+    the wall fields."""
+    t = SERVE["twins"]
+    out = m.sh.sweep_load(
+        serve_cfg(m, t["n_values"]), t["n_values"], t["sweep_rates"], seed=SERVE["seed"],
+        rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=SERVE["windows_per_dispatch"], admit_width=width,
+        window_rounds=SERVE["window_rounds"], slo=serve_slo(m), **dev,
+    )
+    return less_wall(out)
+
+
+def serve_fleet_width(m) -> int:
+    f = SERVE["fleet"]
+    return m.sfl.grid_admit_width(
+        serve_cfg(m, f["n_values"]), f["n_values"], [f["lanes"]], f["rates"],
+        seed=SERVE["seed"], rounds_per_window=SERVE["rounds_per_window"],
+    )
+
+
+def serve_fleet_record(m, rep) -> dict:
+    """What one 256-lane serve fleet run must reproduce: the dispatch and
+    round counts, every lane's decided count, breach flag, first breach
+    dispatch and decision-log sha256, the flagged lanes' host-confirmed
+    verdicts (whole for the first, sha256 of the sorted JSON of all)."""
+    met = rep.final.sim.met
+    cv, cb = m.host(met.chosen_vid), m.host(met.chosen_ballot)
+    slo = {str(k): v for k, v in sorted((rep.slo or {}).items())}
+    flagged = sorted(int(k) for k in slo)
+    return {
+        "lanes": rep.n_lanes, "dispatches": rep.dispatches, "rounds": rep.rounds,
+        "done": rep.done, "admit_width": rep.admit_width,
+        "decided": [int(x) for x in rep.decided],
+        "breach": [bool(x) for x in rep.breach],
+        "first_breach_dispatch": list(rep.first_breach_dispatch),
+        "flagged": flagged,
+        "slo_sha256": hashlib.sha256(json.dumps(slo, sort_keys=True).encode()).hexdigest(),
+        "slo_first": slo[str(flagged[0])] if flagged else None,
+        "decision_log_sha256": [_log_sha(m, cv[i], cb[i]) for i in range(rep.n_lanes)],
+    }
+
+
+def serve_fleet_run(m, rate_milli: int, width: int, **dev):
+    """15c: the 256-lane fleet at ``rate_milli``; the report."""
+    f = SERVE["fleet"]
+    cfg = serve_cfg(m, f["n_values"])
+    lanes = m.sfl.fleet_lanes(cfg, f["lanes"], f["n_values"], rate_milli, SERVE["seed"])
+    return m.sfl.serve_fleet_run(
+        cfg, lanes, rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=SERVE["windows_per_dispatch"], admit_width=width,
+        window_rounds=SERVE["window_rounds"], slo=serve_slo(m), **dev,
+    )
+
+
+def serve_zero_load(m, **dev) -> dict:
+    """15c's parity anchor: a 1-lane zero-load fleet and the closed-loop
+    ``sim.run`` of the same streams; their decision-log sha256."""
+    import numpy as np
+
+    f = SERVE["fleet"]
+    cfg = serve_cfg(m, f["n_values"])
+    vids = np.arange(f["n_values"], dtype=np.int32)
+    streams, _ = m.arrv.split_round_robin(vids, m.arrv.immediate_rounds(f["n_values"]), 2)
+    zarrs = [np.zeros(len(s), np.int32) for s in streams]
+    rep = m.sfl.serve_fleet_run(
+        cfg, [m.sfl.ServeLane(streams, zarrs, SERVE["seed"])],
+        rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=SERVE["windows_per_dispatch"], **dev,
+    )
+    closed = m.sim.run(cfg, streams, **dev)
+    cv, cb = rep.lane_chosen(0)
+    return {"fleet": _log_sha(m, cv, cb),
+            "closed": _log_sha(m, closed.chosen_vid, closed.chosen_ballot),
+            "rounds": rep.rounds, "closed_rounds": int(closed.rounds)}
+
+
+def serve_goldens() -> dict:
+    """Every phase-15 golden, from the JAX package on the CPU."""
+    m = serve_modules(port=False)
+    full = serve_report_record(m, serve_full_run(m))
+    width = serve_twins_width(m)
+    twins = {mode: serve_report_record(m, serve_twin_run(m, mode, width)) for mode in SERVE_TWINS}
+    fwidth = serve_fleet_width(m)
+    fleet = {str(rate): serve_fleet_record(m, serve_fleet_run(m, rate, fwidth))
+             for rate in SERVE["fleet"]["rates"]}
+    cli = {}
+    for args in SERVE["cli"]:
+        proc = _jax_module(["tpu_paxos", *args])
+        cli[" ".join(args)] = {"rc": proc.returncode,
+                               "summary": less_wall(json.loads(proc.stdout.strip().splitlines()[-1]))}
+    trace = {}
+    for args in SERVE["trace"]:
+        proc = _jax_module(["tpu_paxos", *args])
+        if proc.returncode != 0:
+            raise RuntimeError(f"JAX {' '.join(args)} exited {proc.returncode}")
+        trace[" ".join(args)] = {"stdout_sha256": hashlib.sha256(proc.stdout.encode()).hexdigest(),
+                                 "bytes": len(proc.stdout)}
+    return {
+        "config": SERVE, "full": full, "twins_admit_width": width, "twins": twins,
+        "sweep": serve_sweep(m, width), "fleet_admit_width": fwidth, "fleet": fleet,
+        "zero_load": serve_zero_load(m), "cli": cli, "trace": trace,
+    }
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -1075,6 +1339,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         out["telemetry"] = telemetry_goldens(out, path)
         phase13_goldens(out, path)
         out["member"] = member_goldens()
+        out["serve"] = serve_goldens()
 
     if out_dir is not None:
         rest(out_dir)
@@ -1140,6 +1405,9 @@ def main(argv=None) -> int:
                     help="recompute only the telemetry entry of the --write file")
     ap.add_argument("--member-only", action="store_true",
                     help="recompute only the member entry of the --write file")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="recompute only the serve entry (phase 15) and the host-loop "
+                    "half of the stress_fleet entry of the --write file")
     for part in ("search", "stress-fleet", "envelope"):
         ap.add_argument(f"--{part}-only", action="store_true",
                         help=f"recompute only the {part.replace('-', '_')} entry of the "
@@ -1148,7 +1416,7 @@ def main(argv=None) -> int:
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
     if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
-            or args.member_only):
+            or args.member_only or args.serve_only):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -1162,6 +1430,9 @@ def main(argv=None) -> int:
             phase13_goldens(out, out_dir, p13)
         if args.member_only:
             out["member"] = member_goldens()
+        if args.serve_only:
+            out["serve"] = serve_goldens()
+            out["stress_fleet"].update(host_seeds=STRESS_HOST_SEEDS, host=stress_host_golden())
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

@@ -52,6 +52,17 @@ reads and the churn loop's per-round read, the threefry draws, the churn
 injection and run-complete test) and under ``torch.profiler`` the
 device's busy time, idle share and top ops.
 
+``--serve {full,fleet}`` profiles open-loop serving instead
+(``serve/driver.py``): ``full`` the first ``--dispatches`` dispatches
+(default 8, 512 round calls) of ``chip_smoke.py`` phase 15a's stream
+(2**16 Poisson values at 16000 milli on 2**17 instances, 2-round
+windows, 32 a dispatch, 128-round buckets), ``fleet`` those of phase
+15c's 256-lane serve fleet at 32000 milli.  It prints the wall, ms and
+host syncs a round, the host's ms a round by block (the round's blocks
+as for ``--fleet``, the ingest stamp, ``admit_block`` and the dispatch
+epilogue) and under ``torch.profiler`` the device's busy time, idle
+share and top ops.
+
 ``--device cpu`` with a small ``--instances`` rehearses the script on a
 machine without a card; it then reports no device time.
 """
@@ -354,6 +365,142 @@ def profile_fleet(mode: str, dev, top: int) -> dict:
     return out
 
 
+def _goldens_script():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_goldens", os.path.join(ROOT, "scripts", "torch_port_goldens.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+def _serve_dispatches(mode: str, n_disp: int, dev):
+    """A callable running the first ``n_disp`` dispatches of phase 15a's
+    stream (``full``: the driver's window, as ``serve_run`` calls it) or
+    of 15c's 256-lane fleet at 32000 milli (``fleet``: the fleet runner's
+    dispatch) from a fresh state, each with its harvest read; it returns
+    the round calls.  Also returns the lane count."""
+    import numpy as np
+
+    from tpu_paxos_torch.fleet import envelope
+    from tpu_paxos_torch.serve import driver as drv
+    from tpu_paxos_torch.serve import fleet as sfl
+    from tpu_paxos_torch.serve import harness as sh
+
+    script = _goldens_script()
+    m = script.serve_modules(port=True)
+    c = script.SERVE
+    r, s, ww = c["rounds_per_window"], c["windows_per_dispatch"], c["window_rounds"]
+    slo = script.serve_slo(m)
+    part = c["full"] if mode == "full" else c["fleet"]
+    cfg = script.serve_cfg(m, part["n_values"])
+    if mode == "full":
+        lanes = [sfl.ServeLane(*script.serve_stream(m, part["n_values"], part["rate_milli"]),
+                               cfg.seed)]
+    else:
+        lanes = m.sfl.fleet_lanes(cfg, part["lanes"], part["n_values"], part["rates"][0], c["seed"])
+    plans = [m.arrv.ArrivalPlan(ln.workload, ln.arrivals, r) for ln in lanes]
+    k = max(pl.max_block for pl in plans)
+    qc = max(sim.prepare_queues(cfg, ln.workload)[3] for ln in lanes)
+    vb = max(drv.vid_bound_of(ln.workload) for ln in lanes)
+    n, p = len(lanes), len(cfg.proposers)
+    blocks = [
+        tuple(np.stack([np.stack([pl.block(d * s + i, k)[j] for i in range(s)]) for pl in plans])
+              for j in (0, 1))
+        for d in range(n_disp)
+    ]
+    if mode == "full":
+        root = prng.root_key(cfg.seed)
+        fn = drv.window_for(cfg, qc, vb, r, window_rounds=ww, device=dev)
+
+        def run():
+            ss, _ = drv.init_serve_state(cfg, lanes[0].workload, vb, root, window_rounds=ww,
+                                         device=dev)
+            for adm, arr in blocks:
+                out = fn(ss, root, adm[0], arr[0])
+                ss = out[0]
+                sh._read(out, slo, ww)
+            return n_disp * s * r
+        return run, n
+
+    runner = envelope.serve_fleet_for(cfg, qc, vb, r, window_rounds=ww, device=dev)
+    roots = prng.root_keys([ln.seed for ln in lanes])
+    width = qc + cfg.assign_window
+    slo_args = sfl._slo_args(slo, ())
+    tabs = torch.zeros((n, cfg.n_nodes + vb), dtype=torch.int32, device=dev)
+
+    def run():
+        st = runner._init(np.full((n, p, width), -1, np.int32),
+                          np.full((n, p, width), -1, np.int32), np.zeros((n, p), np.int32), roots)
+        for adm, arr in blocks:
+            out = runner._fn(st, roots, *drv.upload_blocks(adm, arr, dev),
+                             tabs[:, cfg.n_nodes:], tabs[:, :cfg.n_nodes], *slo_args)
+            st = out[0]
+            torch.stack([x.reshape(n).to(torch.int32) for x in out[1:5]]).cpu()
+        return n_disp * s * r
+    return run, n
+
+
+def profile_serve(mode: str, n_disp: int, dev, top: int) -> dict:
+    """Time, sync-count, block-split and profile the serve dispatches
+    (the fleet runner's dispatch, which a single stream runs at one
+    lane as ``serve_run`` does through the driver)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_paxos_torch.serve import driver as drv
+
+    run, lanes = _serve_dispatches(mode, n_disp, dev)
+    run()  # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    rounds = run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    out = {"mode": mode, "lanes": lanes, "dispatches": n_disp, "round_calls": rounds,
+           "wall_s": wall, "ms_per_round": wall * 1e3 / rounds}
+    if dev.type == "cuda":
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        out["syncs_per_round"] = sum("synchroniz" in str(w.message) for w in caught) / rounds
+    timer = BlockTimer()
+    _wrap_round_blocks(timer)
+    timer.wrap(drv, "_stamp", "ingest stamp")
+    timer.wrap(sim, "admit_block", "admit_block")
+    timer.wrap(drv, "epilogue", "dispatch epilogue")
+    timer.wrap(drv, "upload_blocks", "block upload")
+    try:
+        run()
+        _sync(dev)
+    finally:
+        timer.restore()
+    out["host_ms_per_round_by_block"] = {
+        k: v / rounds for k, v in sorted(timer.ms.items(), key=lambda kv: -kv[1])}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    _sync(dev)
+    with profile(activities=acts) as prof:
+        run()
+        _sync(dev)
+    rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3)
+            for ev in prof.key_averages() if ev.device_type != DeviceType.CPU]
+    busy_ms = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[2])
+    out["profile"] = {
+        "device_busy_ms_per_round": busy_ms / rounds,
+        "device_ops_per_round": sum(r[1] for r in rows) / rounds,
+        # against the unprofiled wall: the profiler slows the host only
+        "device_idle_share": (1 - busy_ms / (wall * 1e3)) if rows else None,
+        "top": [{"op": k[:90], "count": n, "self_ms": ms} for k, n, ms in rows[:top]],
+    }
+    return out
+
+
 def _member_cases(mode: str, n_instances: int, dev):
     """``[(label, fn)]``: the runs ``--member`` profiles."""
     from tpu_paxos_torch.fleet import member_runner as mrun
@@ -452,6 +599,10 @@ def main(argv=None) -> int:
                     help="profile fleet dispatches instead of one sim.run")
     ap.add_argument("--member", choices=("config5", "fleet"), default="",
                     help="profile the membership engine instead of one sim.run")
+    ap.add_argument("--serve", choices=("full", "fleet"), default="",
+                    help="profile open-loop serving dispatches instead of one sim.run")
+    ap.add_argument("--dispatches", type=int, default=8,
+                    help="--serve: the dispatches profiled")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_sim_profile: CUDA is not available", file=sys.stderr)
@@ -463,6 +614,11 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
+    if args.serve:
+        out = {"device": args.device, "card": card,
+               **profile_serve(args.serve, args.dispatches, dev, args.top)}
+        print(json.dumps(out, indent=1))
+        return 0
     if args.fleet:
         out = {"device": args.device, "card": card, **profile_fleet(args.fleet, dev, args.top)}
         print(json.dumps(out, indent=1))

@@ -16,7 +16,8 @@ import pytest
 from tpu_paxos_torch import __main__ as tcli
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDENS = os.path.join(ROOT, "tpu_paxos_torch", "data", "goldens.json")
+GOLDENS_DIR = os.path.join(ROOT, "tpu_paxos_torch", "data")
+GOLDENS = os.path.join(GOLDENS_DIR, "goldens.json")
 DEBUG_ARGS = ["4", "4", "10", "--seed=0", "--net-drop-rate=500",
               "--net-dup-rate=1000", "--net-max-delay=2"]
 
@@ -96,23 +97,86 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
     assert capsys.readouterr().out == gold["stdout"]
 
 
+_SERVE_ART = "{serve_artifact}"  # replaced by a written serve-engine artifact
+_CONTROLLER = "engine 'serve' artifacts (the serve admission controller)"
+
+
 @pytest.mark.parametrize("argv,what", [
     (["4", "4", "10", "--engine=fast", "--mesh", "2"], "--engine=fast"),
     # --engine=member is ported; with --mesh it is not (kept under the case's id)
     pytest.param(["4", "4", "10", "--engine=member", "--mesh", "2"], "--engine=member",
                  id="argv1---engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
-    # trace is ported; its serve mode is not (kept under the case's id)
-    pytest.param(["trace", "--serve"], "'trace --serve'", id="argv3-'trace'"),
+    # trace and its serve mode are ported; trace of a serve controller's
+    # artifact is not (kept under the case's id)
+    pytest.param(["trace", _SERVE_ART, "--stdout"], f"trace of {_CONTROLLER}", id="argv3-'trace'"),
     # fleet is ported; lint is not (kept under the case's id)
     pytest.param(["lint"], "'lint'", id="argv4-'fleet'"),
-    (["serve", "--values", "8"], "'serve'"),
+    # serve is ported; its admission controller is not (kept under the case's id)
+    pytest.param(["serve", "--values", "8", "--control"], "'serve --control'", id="argv5-'serve'"),
     (["evolve"], "'evolve'"),
     (["mc", "--scope", "quick"], "'mc'"),
+    (["serve", "--fleet", "--mesh", "2"], "'serve --fleet --mesh'"),
+    (["serve", "--fleet", "--control", "--slo-latency", "8"], "'serve --fleet --control'"),
+    (["serve", "--control-ab", "--slo-latency", "8"], "'serve --control-ab'"),
+    (["serve", "--save-artifact", "a.json"], "'serve --save-artifact'"),
+    (["repro", _SERVE_ART], f"repro of {_CONTROLLER}"),
 ])
-def test_unported_cli_surfaces_exit_2(argv, what, capsys):
+def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path):
+    if _SERVE_ART in argv:
+        with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
+            art = json.load(f)
+        art["engine"] = "serve"
+        path = str(tmp_path / "serve.json")
+        with open(path, "w") as f:
+            json.dump(art, f)
+        argv = [path if a == _SERVE_ART else a for a in argv]
     assert tcli.main(argv + ["--device", "cpu"]) == 2
-    assert f"{what} is not ported yet" in capsys.readouterr().err
+    out = capsys.readouterr()
+    assert f"{what} is not ported yet" in out.err and out.out == ""
+
+
+#: The serve CLIs of the card's phase 15d, less the wall fields.
+_SERVE_CLIS = [
+    ["serve"],
+    ["serve", "--fleet", "--lanes", "8"],
+    ["serve", "--values", "48", "--rate-milli", "3000", "--nodes", "3", "--slo-latency", "8",
+     "--sequential"],
+    ["serve", "--values", "40", "--sweep", "2000,8000,32000", "--slo-latency", "16"],
+    ["serve", "--fleet", "--lanes", "2", "--lane-counts", "1,2", "--sweep", "2000,8000",
+     "--values", "32", "--slo-latency", "16"],
+]
+
+
+def less_wall(d):
+    """A serve summary less its wall-clock fields, at every depth."""
+    if isinstance(d, list):
+        return [less_wall(x) for x in d]
+    if not isinstance(d, dict):
+        return d
+    return {k: less_wall(v) for k, v in d.items()
+            if k not in ("wall_seconds", "values_per_sec", "values_per_sec_surface")}
+
+
+@pytest.mark.parametrize("argv", _SERVE_CLIS, ids=lambda a: " ".join(a[:4]))
+def test_serve_cli_equals_the_jax_cli(argv, capsys):
+    """``serve`` and ``serve --fleet``: the same exit code and the same
+    JSON line as the JAX CLI, less the wall fields (a single stream at
+    the defaults and sequentially with an SLO, the load sweep, the fleet
+    and its (lanes x rates) surface); the first two are the committed
+    goldens the card holds."""
+    from tpu_paxos import __main__ as jcli
+
+    rc_j = jcli.main(argv + ["--backend", "cpu"])
+    want = json.loads(capsys.readouterr().out.splitlines()[-1])
+    rc_t = tcli.main(argv + ["--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rc_t == rc_j
+    assert less_wall(got) == less_wall(want)
+    gold = _goldens().get("serve", {}).get("cli", {})
+    key = " ".join(argv)
+    if key in gold:
+        assert less_wall(got) == gold[key]["summary"]
 
 
 def _in_dir(path):
@@ -301,6 +365,17 @@ with tempfile.TemporaryDirectory() as tmp:
         rc_replay = cli.main(["4", "4", "10", "--engine=member", "--json", "--device", "cpu",
                               "--replay-injections", os.path.join(tmp, "i.json")])
     member_lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+bufs = [io.StringIO() for _ in range(3)]
+with contextlib.redirect_stdout(bufs[0]):
+    rc_serve = cli.main(["serve", "--values", "24", "--rate-milli", "3000", "--nodes", "3",
+                         "--slo-latency", "16", "--device", "cpu"])
+with contextlib.redirect_stdout(bufs[1]):
+    rc_sfleet = cli.main(["serve", "--fleet", "--lanes", "2", "--values", "16", "--nodes", "3",
+                          "--device", "cpu"])
+with contextlib.redirect_stdout(bufs[2]):
+    rc_tserve = cli.main(["trace", "--serve", "--stdout", "--values", "16", "--nodes", "3",
+                          "--lanes", "2", "--lane", "1", "--device", "cpu"])
+serve_out = [json.loads(b.getvalue()) for b in bufs]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -312,7 +387,11 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and [d["metric"] for d in lines] == ["fleet_search", "stress_sweep", "stress_sweep_fleet"]
       and churn.done and member_ok and bool(mfleet.verdict.ok.all()) and mfleet.n_lanes == 8
       and bool((back.learned == ms.state.learned).all()) and rc_member == rc_replay == 0
-      and member_lines[0]["decision_log_sha256"] == member_lines[1]["decision_log_sha256"])
+      and member_lines[0]["decision_log_sha256"] == member_lines[1]["decision_log_sha256"]
+      and rc_serve == rc_sfleet == rc_tserve == 0
+      and [serve_out[0]["metric"], serve_out[1]["metric"]] == ["serve", "serve_fleet"]
+      and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
+      and serve_out[2]["otherData"]["engine"] == "serve_fleet")
 print(len(mods), bool(ok), loaded)
 """
 
@@ -321,7 +400,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 43  # every module of the package was imported, membership/ too
+    assert int(n_mods) >= 48  # every module of the package was imported, serve/ too
     assert done == "True"
     assert loaded.strip() == "[]"
 

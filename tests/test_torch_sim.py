@@ -395,8 +395,20 @@ def test_unported_build_flags_raise_by_name(flag):
 
 
 def test_admit_block_is_not_ported():
-    with pytest.raises(NotImplementedError, match="admit_block"):
-        tsim.admit_block(None, None)
+    """``admit_block`` once raised by name; it is ported now (serving,
+    tests/test_torch_serve.py), and here two appends onto a fresh state's
+    empty queues, the second wider than the first, give JAX's state
+    leaf for leaf (the test keeps its name)."""
+    jc, tc = _cfgs(n_nodes=3, n_instances=16, proposers=(0, 1))
+    pend, gate, tail, _ = jsim.prepare_queues(jc, jsim.default_workload(jc))
+    empty = np.full_like(pend, -1)
+    jst = jsim.init_state(jc, empty, gate, np.zeros_like(tail), jprng.root_key(0))
+    tst = tsim.init_state(tc, empty, gate, np.zeros_like(tail), tprng.root_key(0), device="cpu")
+    for blk in ([[5, 6, -1], [9, -1, -1]], [[7, -1, -1, -1, -1], [10, 11, 12, 13, -1]]):
+        blk = np.asarray(blk, np.int32)
+        jst, tst = jsim.admit_block(jst, jnp.asarray(blk)), tsim.admit_block(tst, blk)
+    assert_same_state(interop.sim_state_to_numpy(tst), jax.tree.map(np.asarray, jst))
+    assert tst.prop.tail.tolist() == [3, 5]
 
 
 def test_empty_schedule_runs_like_none():

@@ -201,14 +201,15 @@ def test_stress_fleet_cli_prints_jax_lines(monkeypatch, capsys):
 
 
 def test_stress_fleet_golden_is_jax_summary():
-    """The committed ``stress_fleet`` golden (``stress --fleet --seeds 8``,
-    the card's phase 13c) holds JAX's two green summaries: 6 i.i.d. mixes
-    on the host loop, 4 episode and 2 WAN mixes as fleet lanes."""
+    """The committed ``stress_fleet`` golden (the card's phase 13c) holds
+    JAX's two green summaries: the fleet sweep of ``stress --fleet --seeds
+    8`` (4 episode and 2 WAN mixes as fleet lanes) and its host-loop half
+    over the 6 i.i.d. mixes, cut to one seed a mix."""
     with open(os.path.join(ROOT, "tpu_paxos_torch", "data", "goldens.json")) as f:
         gold = json.load(f)["stress_fleet"]
     host, fleet = gold["host"], gold["fleet"]
-    assert gold["seeds"] == 8
-    assert host == {"metric": "stress_sweep", "runs": 48, "mixes": 6, "seeds_per_mix": 8,
+    assert (gold["seeds"], gold["host_seeds"]) == (8, 1)
+    assert host == {"metric": "stress_sweep", "runs": 6, "mixes": 6, "seeds_per_mix": 1,
                     "failures": [], "ok": True}
     assert (fleet["metric"], fleet["runs"], fleet["lanes"], fleet["ok"]) == \
         ("stress_sweep_fleet", 48, 48, True)

@@ -3,8 +3,10 @@ exporter (tpu_paxos_torch/telemetry/export.py) against the JAX
 package's: the trace JSON of both committed repro artifacts equals JAX's
 ``trace_artifact`` of the same path from the same directory, byte for
 byte, and leaves the artifact untouched; a crafted run renders the same
-events; ``--serve`` and sharded artifacts exit 2 by name, and malformed
-or missing artifacts give JAX's exit-2 schema JSON."""
+events; ``trace --serve`` (single stream, a fleet lane, a WAN preset)
+prints JAX's stdout; artifacts of engines whose replay is not ported
+(sharded, serve, mc-control) exit 2 by name, and malformed or missing
+artifacts give JAX's exit-2 schema JSON."""
 
 import contextlib
 import hashlib
@@ -85,13 +87,55 @@ def test_trace_writes_the_file_beside_the_artifact(tmp_path):
     assert status["decided"] == trace["otherData"]["decided"] > 0
 
 
-@pytest.mark.parametrize("argv", [
-    ["--serve"],
-    ["--serve", "--values", "24", "--rate-milli", "16000", "--stdout"],
+# ``trace --serve`` is ported (test_trace_serve_stdout_equals_jax); what
+# still exits 2 by name is the trace of a serve controller's artifact and
+# of the controller model checker's (the cases keep their ids)
+@pytest.mark.parametrize("engine", [
+    pytest.param("serve", id="argv0"),
+    pytest.param("mc-control", id="argv1"),
 ])
-def test_trace_serve_exits_2_by_name(argv):
-    rc, _, err = _cli(["trace"] + argv + ["--device", "cpu"])
-    assert rc == 2 and "'trace --serve' is not ported yet" in err
+def test_trace_serve_exits_2_by_name(engine, tmp_path):
+    with open(os.path.join(DATA, "repro_culprit.json")) as f:
+        art = json.load(f)
+    art["engine"] = engine
+    path = str(tmp_path / f"{engine}.json")
+    with open(path, "w") as f:
+        json.dump(art, f)
+    rc, out, err = _cli(["trace", path, "--stdout", "--device", "cpu"])
+    assert rc == 2 and out == ""
+    assert f"trace of engine '{engine}' artifacts" in err and "not ported yet" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--values", "24", "--rate-milli", "16000"],
+    ["--values", "24", "--rate-milli", "3000", "--lanes", "3", "--lane", "1",
+     "--slo-latency", "8", "--preset", "wan-3region"],
+    ["--values", "16", "--rate-milli", "0", "--nodes", "3", "--drop-rate", "500",
+     "--slo-latency", "4"],
+])
+def test_trace_serve_stdout_equals_jax(argv):
+    """``trace --serve --stdout`` on the CPU prints JAX's trace JSON byte
+    for byte: a single stream, a serve-fleet lane under a WAN preset with
+    an SLO, and a zero-load stream."""
+    from tpu_paxos.telemetry import export as jexport
+
+    jbuf, tbuf = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(jbuf):
+        assert jexport.main(["--serve", "--stdout", "--backend", "cpu"] + argv) == 0
+    with contextlib.redirect_stdout(tbuf):
+        assert tex.main(["--serve", "--stdout", "--device", "cpu"] + argv) == 0
+    assert tbuf.getvalue() == jbuf.getvalue()
+    assert json.loads(tbuf.getvalue())["otherData"]["decided"] > 0
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--serve", "art.json"], ["--serve", "--lanes", "2", "--lane", "2"],
+    ["--serve", "--values", "0"], ["--serve", "--preset", "mars"],
+])
+def test_trace_argument_errors_exit_2(argv):
+    with pytest.raises(SystemExit) as e:
+        tex.main(argv + ["--device", "cpu"])
+    assert e.value.code == 2
 
 
 def test_trace_of_a_sharded_artifact_exits_2_by_name(tmp_path):

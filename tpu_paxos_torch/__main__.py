@@ -16,7 +16,7 @@ proposed meanwhile, shrink back to {0}, check prefix consistency; with
 and ``--save-state F`` writing the engine checkpoint) the verdict line,
 with the decision-log hash.  Exit code 0 iff every invariant holds; 2
 for what the port does not run yet (``--mesh``, every subcommand but
-``repro``, ``trace`` and ``fleet``).
+``repro``, ``trace``, ``fleet`` and ``serve``).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -34,6 +34,13 @@ and renders it as a Chrome-trace/Perfetto timeline
 S] [--gray] [--wan] [--triage-dir D] [--device {cuda,cpu}] ...`` runs
 the device-batched schedule search (``fleet/search.py``) and prints its
 one JSON summary line.
+
+``python -m tpu_paxos_torch serve [--values N] [--rate-milli R]
+[--sweep R1,R2,...] [--slo-latency L] [--device {cuda,cpu}] ...`` serves
+an open-loop value stream (``serve/harness.py``) and ``serve --fleet
+[--lanes N] ...`` a fleet of tenant streams (``serve/fleet.py``), each
+printing one JSON summary line; the admission controller (``--control``)
+and ``--mesh`` exit 2.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import json
 import os
 import sys
 
-_SUBCOMMANDS = ("serve", "evolve", "mc", "lint", "audit")
+_SUBCOMMANDS = ("evolve", "mc", "lint", "audit")
 
 #: Artifact engines whose replay is not ported yet, and what replays them.
 _UNPORTED_ENGINES = {
@@ -422,6 +429,18 @@ def main(argv=None) -> int:
         from tpu_paxos_torch.telemetry import export
 
         return export.main(argv[1:])
+    if argv and argv[0] == "serve":
+        if "--fleet" in argv[1:]:
+            # fleet serving: many tenant streams per dispatch, on-device
+            # per-lane SLO verdicts (serve/fleet.py)
+            from tpu_paxos_torch.serve import fleet as serve_fleet
+
+            return serve_fleet.main([a for a in argv[1:] if a != "--fleet"])
+        # open-loop serving: arrivals admitted between dispatch windows;
+        # latency at load and the knee sweep (serve/harness.py)
+        from tpu_paxos_torch.serve import harness as serve_harness
+
+        return serve_harness.main(argv[1:])
     if argv and argv[0] == "fleet":
         # device-batched schedule search: (seed x schedule) lanes a
         # dispatch, wedges shrunk to repro artifacts

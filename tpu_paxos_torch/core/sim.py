@@ -67,8 +67,8 @@ How the port runs what JAX compiles:
   geometry is made at the entry's true shape and padded, as JAX's
   ``lax.switch`` branches draw (:func:`_draws`).
 
-Not ported yet (each raises ``NotImplementedError`` naming itself):
-``admit_block`` and the sharded build.
+Not ported yet (raises ``NotImplementedError`` naming itself): the
+sharded build.
 """
 
 from __future__ import annotations
@@ -1516,8 +1516,42 @@ def _record(b, st: SimState, new: SimState, rec: dict, tele, t: int):
 
 
 def admit_block(st: SimState, admit, keep=None) -> SimState:
-    """Open-loop admission (the serve harness's per-window upload)."""
-    raise NotImplementedError("admit_block is not ported yet")
+    """Open-loop admission: append one NONE-padded block of fresh vids
+    per proposer at the queue tail (the serve driver's per-window
+    upload, between windows of rounds; ``tpu_paxos/core/sim.py:2186``).
+
+    ``admit`` is ``[..., P, K]`` int32 with the state's leading axes (a
+    lane-stacked state takes ``[L, P, K]``), each row a value PREFIX
+    padded with NONE.  ``keep`` (same shape, bool, or None) is the
+    admission controller's shed mask: masked values become NONE, and a
+    stable sort by "not kept" compacts the survivors to the front in
+    plan order, so the row stays a prefix.
+
+    Slots at and past the tail are NONE invariantly, so the block's
+    padding overwrites NONE with NONE.  The write goes through a
+    K-padded row, so its start never clamps, for any block width (a
+    clamped start would rewrite live entries below the tail); real
+    values never pass the row end by the capacity proof of
+    :func:`prepare_queues`, so only padding is cut off.  Gates are
+    untouched (serve traffic is ungated)."""
+    pr = st.prop
+    dev = pr.pend.device
+    if not isinstance(admit, torch.Tensor):
+        admit = torch.from_numpy(np.ascontiguousarray(admit, np.int32))
+    admit = admit.to(device=dev, dtype=_I32)
+    if keep is not None:
+        if not isinstance(keep, torch.Tensor):
+            keep = torch.from_numpy(np.ascontiguousarray(keep, bool))
+        kept = keep.to(dev).bool() & (admit != val.NONE)
+        # stable: survivors keep their plan order ahead of the dropped
+        order = torch.sort((~kept).to(torch.int8), dim=-1, stable=True).indices
+        admit = torch.where(kept.gather(-1, order), admit.gather(-1, order), val.NONE)
+    k = admit.shape[-1]
+    width = pr.pend.shape[-1]
+    pad = torch.full((*pr.pend.shape[:-1], k), val.NONE, dtype=_I32, device=dev)
+    pend = _window_write(torch.cat([pr.pend, pad], dim=-1), admit, pr.tail)[..., :width]
+    counts = _sum32(admit != val.NONE, dim=-1)
+    return st._replace(prop=pr._replace(pend=pend, tail=pr.tail + counts))
 
 
 def default_workload(cfg: SimConfig) -> list[np.ndarray]:

@@ -21,6 +21,9 @@ implicit ones.
 Under a geometry envelope (``core/geom.GeometryEnvelope``) the key
 collapses over the menu and the protocol knobs: every true geometry
 under the bound, with any protocol mix, shares one padded runner.
+
+The serve fleet (``serve_fleet_for``) and the membership fleet
+(``member_runner_for``) memoize their runners in the same cache.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from tpu_paxos_torch.utils import device as devm
 MAX_DELAY_BOUND = 8
 
 _CACHE: dict = {}
-_MISSES = 0  # runners built by runner_for since import
+_MISSES = 0  # runners built by the *_for builders since import
 
 
 def clear_cache() -> None:
@@ -50,8 +53,9 @@ def clear_cache() -> None:
 
 
 def cache_misses() -> int:
-    """The runners ``runner_for`` has built since import (cache misses):
-    the port's count of what JAX's compile census counts for a fleet."""
+    """The runners ``runner_for``, ``serve_fleet_for`` and
+    ``member_runner_for`` have built since import (cache misses): the
+    port's count of what JAX's compile census counts for a fleet."""
     return _MISSES
 
 
@@ -182,12 +186,83 @@ def runner_for(
     return runner
 
 
-def serve_envelope_key(*args, **kwargs):
-    raise NotImplementedError("serve_envelope_key is not ported yet")
+def serve_envelope_key(
+    cfg: SimConfig,
+    queue_cap: int,
+    vid_bound: int,
+    rounds_per_window: int,
+    window_rounds: int,
+    mesh=None,
+    device=None,
+) -> tuple:
+    """The hashable envelope of a serve FLEET: the engine's build-time
+    facts (from the serve driver's one list,
+    ``serve/driver.engine_static_key``, shared with its ``window_for``),
+    the queue capacity and ingest-table vid bound, the admission-window
+    span, the windowed-plane bucket width, the mesh (None: the port has
+    no mesh tile yet) and the device.  Lane count, windows per dispatch
+    and admit width are call shapes, not key parts; seeds, arrivals and
+    SLOs are per-dispatch data."""
+    import importlib
+
+    # imported late: the serve stack stays out of the import closure of
+    # the triage modules that use this cache
+    sdrv = importlib.import_module("tpu_paxos_torch.serve.driver")
+    if mesh is not None:
+        raise NotImplementedError("serve_envelope_key mesh= is not ported yet")
+    return (
+        "serve",
+        sdrv.engine_static_key(cfg),
+        int(queue_cap),
+        int(vid_bound),
+        int(rounds_per_window),
+        int(window_rounds),
+        None,
+        None if device is None else str(device),
+    )
 
 
-def serve_fleet_for(*args, **kwargs):
-    raise NotImplementedError("serve_fleet_for is not ported yet")
+def serve_fleet_for(
+    cfg: SimConfig,
+    queue_cap: int,
+    vid_bound: int,
+    rounds_per_window: int,
+    *,
+    window_rounds: int,
+    mesh=None,
+    device="cuda",
+):
+    """The shared fleet-serving runner for this envelope on ``device``
+    (``serve/fleet.ServeFleetRunner``), memoized in the cache the sim and
+    membership envelopes share and counted in :func:`cache_misses`:
+    every tenant mix, offered rate and SLO of a geometry then costs
+    dispatches, not builds."""
+    global _MISSES
+    import importlib
+
+    sflt = importlib.import_module("tpu_paxos_torch.serve.fleet")
+    if mesh is not None:
+        raise NotImplementedError("serve_fleet_for mesh= is not ported yet")
+    if cfg.faults.schedule is not None:
+        # checked here: the key ignores the schedule, so a
+        # schedule-bearing cfg would otherwise hit a warm cache and
+        # silently drop its correlated faults
+        raise ValueError(
+            "serve engines take no fault schedule (correlated-fault "
+            "serving rides the stress fleet envelope, not this driver)"
+        )
+    dev = devm.resolve(device)
+    key = serve_envelope_key(
+        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+    )
+    runner = _CACHE.get(key)
+    if runner is None:
+        runner = sflt.ServeFleetRunner(
+            cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+        )
+        _CACHE[key] = runner
+        _MISSES += 1
+    return runner
 
 
 def serve_control_for(*args, **kwargs):

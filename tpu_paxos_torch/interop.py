@@ -2,7 +2,8 @@
 
 This system has no weights; its state is what crosses: the JAX
 package's ``SimState`` (the general engine), ``FastState`` (the fast
-path) and ``MemberState`` (the membership engine), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
+path), ``MemberState`` (the membership engine) and ``ServeLoopState``
+(a serve run's loop state: engine, recorder and ingest table), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
 state)``), become the port's trees on a device and back.  Both packages'
 trees have the same field names, nesting, shapes and dtypes, so a run
 can be handed over mid-flight and resumed in either package round for
@@ -21,6 +22,8 @@ from tpu_paxos_torch.core import fast
 from tpu_paxos_torch.core import net as netm
 from tpu_paxos_torch.core import sim
 from tpu_paxos_torch.membership import engine as meng
+from tpu_paxos_torch.serve import driver as sdrv
+from tpu_paxos_torch.telemetry import recorder as telem
 from tpu_paxos_torch.utils import device as devm
 
 _SUBTREES = {
@@ -54,7 +57,7 @@ def sim_state_from_jax(np_tree, device="cuda") -> sim.SimState:
 def _to_numpy(node):
     if isinstance(node, torch.Tensor):
         return node.detach().cpu().numpy()
-    return type(node)(*[_to_numpy(x) for x in node])
+    return sim._rebuild(node, [_to_numpy(x) for x in node])
 
 
 def sim_state_to_numpy(state: sim.SimState) -> sim.SimState:
@@ -88,4 +91,32 @@ def member_state_from_jax(np_tree, device="cuda") -> meng.MemberState:
 
 def member_state_to_numpy(state: meng.MemberState) -> meng.MemberState:
     """The same MemberState with every leaf as a host numpy array."""
+    return _to_numpy(state)
+
+
+def serve_state_from_jax(np_tree, device="cuda") -> sdrv.ServeLoopState:
+    """The port's ServeLoopState on ``device`` from a JAX
+    ``ServeLoopState`` whose leaves are numpy arrays: the engine state,
+    the recorder (a ``Telemetry``, or the windowed ``(Telemetry,
+    TelemetryWindows)`` pair) and the ingest table.  A fleet's
+    lane-stacked state keeps its lane axis."""
+    dev = devm.resolve(device)
+    tele = np_tree.tele
+    windowed = isinstance(tele, tuple) and not hasattr(tele, "_fields")
+
+    def rec(node, cls):
+        return cls(**{f: _tensor(getattr(node, f), dev) for f in cls._fields})
+
+    return sdrv.ServeLoopState(
+        sim=sim_state_from_jax(np_tree.sim, device=dev),
+        tele=(
+            (rec(tele[0], telem.Telemetry), rec(tele[1], telem.TelemetryWindows))
+            if windowed else rec(tele, telem.Telemetry)
+        ),
+        ingest=_tensor(np_tree.ingest, dev),
+    )
+
+
+def serve_state_to_numpy(state: sdrv.ServeLoopState) -> sdrv.ServeLoopState:
+    """The same ServeLoopState with every leaf as a host numpy array."""
     return _to_numpy(state)

@@ -25,9 +25,11 @@ One simulated round maps to one trace millisecond (``ROUND_US``).
 ``python -m tpu_paxos_torch trace <repro-artifact>`` renders a repro
 artifact: the telemetry is recomputed at replay on ``--device`` (the
 artifact schema is closed; no recorder field is stored), and the
-artifact is never modified.  Not ported yet: ``--serve`` (an open-loop
-serving run) and artifacts of the sharded engine, whose replay is not
-ported; each exits 2 by name.
+artifact is never modified.  ``trace --serve`` runs an open-loop
+serving stream (or one lane of a serve fleet) and renders its timeline
+(:func:`trace_serve`).  Artifacts of engines whose replay is not ported
+yet (the sharded engine, the serve admission controller, the controller
+model checker) exit 2 by name.
 """
 
 from __future__ import annotations
@@ -470,29 +472,221 @@ def trace_artifact(
     return trace
 
 
+def _serve_ledger(tele_pair, ingest, chosen_vid) -> dict:
+    """The phase-ledger dict for one serve stream (host numpy, in JAX's
+    key order): admission from the INGEST table (the serving queue's
+    real wait; ``recorder.serve_admit_rounds`` owns the hole-fill and
+    out-of-table rules), batch/learned/committed from the recorder's
+    in-loop stamps.  ``tele_pair`` is one stream's (Telemetry,
+    TelemetryWindows) pair of tensors without a lane axis."""
+    from tpu_paxos_torch.telemetry import recorder as telem
+
+    base = tele_pair[0]
+    return {
+        "admit_round": telem.serve_admit_rounds(ingest, chosen_vid).cpu().numpy(),
+        "batch_round": base.admit_round.cpu().numpy(),
+        "learned_round": base.learned_round.cpu().numpy(),
+        "committed_round": base.committed_round.cpu().numpy(),
+    }
+
+
 def trace_serve(args) -> dict:
-    """``trace --serve``: an open-loop serving run's timeline."""
-    raise NotImplementedError("'trace --serve' is not ported yet")
+    """``python -m tpu_paxos_torch trace --serve``: run an open-loop
+    serve (or serve-fleet) stream on ``args.device`` and render its
+    windowed series, phase flow spans and breach-attribution
+    annotations as a Perfetto timeline."""
+    import types
+
+    from tpu_paxos_torch.config import FaultConfig, SimConfig
+    from tpu_paxos_torch.core import sim as simm
+    from tpu_paxos_torch.core import wan as wanm
+    from tpu_paxos_torch.serve import arrivals as arrv
+    from tpu_paxos_torch.serve import harness as sh
+    from tpu_paxos_torch.telemetry import diagnose as diag
+
+    preset = wanm.PRESETS[args.preset] if args.preset else None
+    if preset is not None:
+        faults = wanm.wan_fault_config(preset, args.nodes)
+        region_map = wanm.node_regions(preset, args.nodes)
+        region_names = preset.regions
+    else:
+        faults = FaultConfig(
+            drop_rate=args.drop_rate, dup_rate=args.dup_rate,
+            max_delay=args.max_delay, crash_rate=args.crash_rate,
+        )
+        region_map, region_names = None, ()
+    n_values = int(args.values)
+    cfg = SimConfig(
+        n_nodes=args.nodes,
+        n_instances=max(64, 2 * n_values),
+        proposers=tuple(range(args.proposers)),
+        seed=args.seed,
+        max_rounds=args.max_rounds,
+        faults=faults,
+    )
+    slo = (
+        sh.ServeSLO(latency_rounds=args.slo_latency,
+                    budget_milli=args.slo_budget_milli)
+        if args.slo_latency else None
+    )
+    rate = int(args.rate_milli)
+    if args.lanes > 1:
+        from tpu_paxos_torch.serve import fleet as sfleet
+
+        lanes = sfleet.fleet_lanes(
+            cfg, args.lanes, n_values, rate, args.seed, args.arrivals
+        )
+        frep = sfleet.serve_fleet_run(
+            cfg, lanes,
+            rounds_per_window=args.rounds_per_window,
+            windows_per_dispatch=args.windows_per_dispatch,
+            slo=slo,
+            region_map=region_map, region_names=region_names,
+            device=args.device,
+        )
+        li = int(args.lane)
+        if not 0 <= li < frep.n_lanes:
+            raise SystemExit(
+                f"--lane {li} out of range for --lanes {frep.n_lanes}"
+            )
+        sd = frep.lane_summary(li)
+        tele_pair = simm.lane_of(frep.final.tele, li)
+        ingest = frep.final.ingest[li]
+        met = frep.final.sim.met
+        chosen_vid = met.chosen_vid[li]
+        result = types.SimpleNamespace(
+            chosen_vid=chosen_vid.cpu().numpy(),
+            chosen_round=met.chosen_round[li].cpu().numpy(),
+            chosen_ballot=met.chosen_ballot[li].cpu().numpy(),
+            rounds=frep.rounds, done=frep.done,
+        )
+        verdict = (frep.slo or {}).get(li)
+        diagnosis = (verdict or {}).get("diagnosis")
+        region_series = frep.lane_region_windows(li)
+        label = f"serve fleet lane {li}/{frep.n_lanes} @ {rate}/1000"
+        extra = {
+            "engine": "serve_fleet", "lane": li,
+            "lanes": frep.n_lanes,
+            "breach_lanes": [
+                int(i) for i in np.flatnonzero(frep.breach)
+            ],
+        }
+    else:
+        vids = np.arange(n_values, dtype=np.int32)
+        if rate <= 0:
+            rounds = arrv.immediate_rounds(n_values)
+        else:
+            rounds = arrv.ARRIVAL_BUILDERS[args.arrivals](
+                n_values, rate, args.seed
+            )
+        streams, arrs = arrv.split_round_robin(
+            vids, rounds, args.proposers
+        )
+        rep = sh.serve_run(
+            cfg, streams, arrs,
+            rounds_per_window=args.rounds_per_window,
+            windows_per_dispatch=args.windows_per_dispatch,
+            slo=slo,
+            region_map=region_map, region_names=region_names,
+            keep_state=True,
+            device=args.device,
+        )
+        ss = rep.final_state
+        sd = rep.summary
+        tele_pair = ss.tele
+        ingest = ss.ingest
+        chosen_vid = ss.sim.met.chosen_vid
+        result = types.SimpleNamespace(
+            chosen_vid=rep.chosen_vid,
+            chosen_round=ss.sim.met.chosen_round.cpu().numpy(),
+            chosen_ballot=rep.chosen_ballot,
+            rounds=rep.rounds, done=rep.done,
+        )
+        diagnosis = (rep.slo or {}).get("diagnosis")
+        region_series = rep.region_windows
+        label = f"serve @ {rate}/1000 ({args.arrivals})"
+        extra = {"engine": "serve", "slo_ok": (
+            rep.slo["ok"] if rep.slo is not None else None
+        )}
+    if diagnosis is None and sd.get("windows") is not None:
+        # no SLO (or no breach): annotate notable windows anyway
+        diagnosis = diag.diagnose_series(
+            sd["windows"],
+            region_map=region_map, region_names=tuple(region_names),
+            region_pairs=sd.get("region_pairs"),
+            region_series=region_series,
+        )
+    ledger = _serve_ledger(tele_pair, ingest, chosen_vid)
+    trace = chrome_trace(
+        cfg, result, sd, label=label,
+        max_decision_events=args.max_decision_events,
+        phase_ledger=ledger,
+        diagnosis=diagnosis,
+        max_flow_instances=args.max_flow_instances,
+    )
+    trace["otherData"].update(extra)
+    trace["otherData"]["rate_milli"] = rate
+    trace["otherData"]["arrivals"] = args.arrivals
+    if args.preset:
+        trace["otherData"]["preset"] = args.preset
+    return trace
 
 
 def main(argv=None) -> int:
     """``python -m tpu_paxos_torch trace <artifact>`` — render a repro
     artifact as a Chrome-trace JSON timeline (open in
-    https://ui.perfetto.dev or chrome://tracing).  Exit 0 on a rendered
-    trace; 2 for a malformed artifact (a summary naming the field), for
-    ``--serve`` and for sharded artifacts (not ported yet)."""
+    https://ui.perfetto.dev or chrome://tracing).  ``--serve`` runs an
+    open-loop serving stream instead (``--lanes N --lane i`` a serve
+    fleet's lane) and renders its windowed series, phase spans and
+    diagnosis annotations.  Exit 0 on a rendered trace; 2 for a
+    malformed artifact (a summary naming the field) and for artifacts of
+    engines the port does not replay yet."""
     ap = argparse.ArgumentParser(
         prog="python -m tpu_paxos_torch trace",
-        description="render a stress-triage repro artifact as a "
+        description="render a stress-triage repro artifact — or, with "
+        "--serve, a fresh open-loop serving run — as a "
         "Chrome-trace/Perfetto timeline (telemetry recomputed at "
         "replay; artifacts are never modified)",
     )
     ap.add_argument("artifact", nargs="?", default="",
                     help="path to a repro .json (written by the "
-                    "stress sweep's --triage-dir)")
+                    "stress sweep's --triage-dir); omit with --serve")
     ap.add_argument("--serve", action="store_true",
-                    help="serve mode (an open-loop serving run): not "
-                    "ported yet")
+                    help="serve mode: run an open-loop stream "
+                    "(serve/harness.py; --lanes N for a fleet "
+                    "lane) and export ITS timeline instead of "
+                    "replaying an artifact")
+    ap.add_argument("--values", type=int, default=128,
+                    help="[serve] values in the arriving stream")
+    ap.add_argument("--rate-milli", type=int, default=2000,
+                    help="[serve] offered load (values/1000 rounds; "
+                    "0 = everything at round 0)")
+    ap.add_argument("--arrivals", type=str, default="poisson",
+                    help="[serve] arrival process (serve/arrivals.py)")
+    ap.add_argument("--nodes", type=int, default=5)
+    ap.add_argument("--proposers", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-rounds", type=int, default=20_000)
+    ap.add_argument("--rounds-per-window", type=int, default=8)
+    ap.add_argument("--windows-per-dispatch", type=int, default=8)
+    ap.add_argument("--slo-latency", type=int, default=0,
+                    help="[serve] latency SLO in rounds (arms the "
+                    "burn-rate monitor + breach attribution)")
+    ap.add_argument("--slo-budget-milli", type=int, default=100)
+    ap.add_argument("--preset", type=str, default="",
+                    help="[serve] WAN topology preset (core/wan.py: "
+                    "wan-3region / wan-5region) — arms the per-edge "
+                    "fault matrices, the region map, and region-named "
+                    "breach attribution")
+    ap.add_argument("--lanes", type=int, default=1,
+                    help="[serve] >1: run a serve FLEET of this many "
+                    "tenant lanes and export --lane's timeline")
+    ap.add_argument("--lane", type=int, default=0,
+                    help="[serve] which fleet lane to export")
+    ap.add_argument("--drop-rate", type=int, default=0)
+    ap.add_argument("--dup-rate", type=int, default=0)
+    ap.add_argument("--max-delay", type=int, default=0)
+    ap.add_argument("--crash-rate", type=int, default=0)
     ap.add_argument("--max-flow-instances", type=int,
                     default=MAX_FLOW_INSTANCES,
                     help="cap on flow-linked per-instance phase-span "
@@ -513,44 +707,68 @@ def main(argv=None) -> int:
                     help="emit a JSON status line instead of the "
                     "verdict line")
     ap.add_argument("--log-level", type=str, default="INFO")
-    args, rest = ap.parse_known_args(argv)
-    if args.serve:
-        print("tpu_paxos_torch: 'trace --serve' is not ported yet", file=sys.stderr)
-        return 2
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if not args.artifact:
-        ap.error("exactly one of <artifact> or --serve required")
+    args = ap.parse_args(argv)
     import os
 
+    if bool(args.serve) == bool(args.artifact):
+        ap.error("exactly one of <artifact> or --serve required")
+    if args.serve:
+        # fail at the argparse boundary, not as an engine traceback
+        for flag, v, floor in (
+            ("--values", args.values, 1),
+            ("--rounds-per-window", args.rounds_per_window, 1),
+            ("--windows-per-dispatch", args.windows_per_dispatch, 1),
+            ("--lanes", args.lanes, 1),
+            ("--rate-milli", args.rate_milli, 0),
+            ("--slo-latency", args.slo_latency, 0),
+        ):
+            if v < floor:
+                ap.error(f"{flag} must be >= {floor} (got {v})")
+        if not 0 <= args.lane < args.lanes:
+            ap.error(
+                f"--lane {args.lane} out of range for "
+                f"--lanes {args.lanes}"
+            )
+    if args.preset:
+        from tpu_paxos_torch.core import wan as wanm
+
+        if args.preset not in wanm.PRESETS:
+            ap.error(
+                f"unknown --preset {args.preset!r} "
+                f"(have: {', '.join(sorted(wanm.PRESETS))})"
+            )
     # same determinism surface as `repro`: replay output must not
     # capture wall clock
     os.environ.setdefault("TPU_PAXOS_DETERMINISTIC", "1")
-    from tpu_paxos_torch.__main__ import _emit
+    from tpu_paxos_torch.__main__ import _UNPORTED_ENGINES, _emit
     from tpu_paxos_torch.analysis.artifact_schema import ArtifactSchemaError
     from tpu_paxos_torch.utils import log as logm
 
     logger = logm.get_logger("trace", logm.parse_level(args.log_level))
-    # Peek the engine before loading: sharded artifacts exit 2 by name.
-    # Unreadable or malformed files fall through to load_artifact's
-    # field-named schema error.
+    if not args.serve:
+        # Peek the engine before loading: artifacts of engines the port
+        # does not replay yet exit 2 by name.  Unreadable or malformed
+        # files fall through to load_artifact's field-named schema error.
+        try:
+            with open(args.artifact) as f:
+                hdr = json.load(f)
+            engine = hdr.get("engine", "sim") if isinstance(hdr, dict) else "sim"
+        except (OSError, ValueError):
+            engine = "sim"
+        if isinstance(engine, str) and engine in _UNPORTED_ENGINES:
+            print(f"tpu_paxos_torch: trace of engine '{engine}' artifacts "
+                  f"({_UNPORTED_ENGINES[engine]}) is not ported yet", file=sys.stderr)
+            return 2
     try:
-        with open(args.artifact) as f:
-            hdr = json.load(f)
-        engine = hdr.get("engine", "sim") if isinstance(hdr, dict) else "sim"
-    except (OSError, ValueError):
-        engine = "sim"
-    if engine == "sharded":
-        print("tpu_paxos_torch: trace of engine 'sharded' artifacts (the "
-              "instance-sharded engine) is not ported yet", file=sys.stderr)
-        return 2
-    try:
-        trace = trace_artifact(
-            args.artifact,
-            max_decision_events=args.max_decision_events,
-            max_flow_instances=args.max_flow_instances,
-            device=args.device,
-        )
+        if args.serve:
+            trace = trace_serve(args)
+        else:
+            trace = trace_artifact(
+                args.artifact,
+                max_decision_events=args.max_decision_events,
+                max_flow_instances=args.max_flow_instances,
+                device=args.device,
+            )
     except ArtifactSchemaError as e:
         logger.error("%s", e)
         _emit(args, {
@@ -562,7 +780,10 @@ def main(argv=None) -> int:
     if args.stdout:
         sys.stdout.write(text + "\n")
         return 0
-    out = args.out or (args.artifact + ".trace.json")
+    out = args.out or (
+        (args.artifact + ".trace.json") if args.artifact
+        else "serve.trace.json"
+    )
     tmp = out + ".tmp"
     with open(tmp, "w") as f:
         f.write(text + "\n")

@@ -392,18 +392,75 @@ def lane(tree, i: int):
 
 
 def serve_admit_rounds(ingest, chosen_vid):
-    """Ingest-time admission of the open-loop serving harness."""
-    raise NotImplementedError("recorder.serve_admit_rounds is not ported yet (serving)")
+    """Ingest-time admission of the open-loop serving harness
+    (``serve/``): every lane's per-instance admission rounds gathered
+    from its per-vid ``ingest`` table (``[L, V]`` int32, each value's
+    arrival round, stamped at INGEST time where the closed loop stamps
+    the first accept batch), for ``chosen_vid [L, I]``.  Substituted for
+    ``Telemetry.admit_round`` before :func:`summarize`, so the same
+    reduction measures arrival-to-commit latency, queueing included.
+    No-op fills (negative vids) and out-of-table vids give NONE, which
+    every latency series leaves out.  Without a lane axis (``[V]`` and
+    ``[I]``) the result has none either."""
+    v = ingest.shape[-1]
+    ok = (chosen_vid >= 0) & (chosen_vid < v)
+    adm = ingest.gather(-1, chosen_vid.clamp(0, v - 1).long())
+    return torch.where(ok, adm, val.NONE)
 
 
 def region_window_hist(admit_round, chosen_vid, chosen_round, vid_region, window_rounds: int):
-    """Per-region windowed commit-latency histograms of a serve stream."""
-    raise NotImplementedError("recorder.region_window_hist is not ported yet (serving)")
+    """Per-REGION windowed commit-latency histograms, on the device:
+    ``[L, NUM_REGIONS, NUM_WINDOWS, NUM_LAT_BUCKETS]`` int32, every
+    lane's windowed latency series split by the region of each decided
+    value's owner (``vid_region [L, V]``: the region of the proposer
+    that serves vid ``v``, clamped into the region bound).  The
+    bucketing is :func:`summarize_windows`'s (the decision round picks
+    the window, the ingest-stamped latency the bucket), so summing over
+    the region axis gives back the global windowed histogram: the
+    regions partition it.  No-op fills and out-of-table vids are left
+    out (their admission stamp is NONE)."""
+    none = val.NONE
+    b, w = NUM_LAT_BUCKETS, NUM_WINDOWS
+    decided_mask = chosen_vid != none  # [L, I]
+    lat_ok = decided_mask & (admit_round != none)
+    lat = torch.where(lat_ok, torch.clamp(chosen_round - admit_round, min=0), 0)
+    wb = window_bucket(torch.where(decided_mask, chosen_round, 0), window_rounds).long()
+    lb = torch.bucketize(lat, _edges(chosen_vid.device))  # the edges strictly below
+    v = vid_region.shape[-1]
+    reg_tab = torch.clamp(vid_region.to(torch.int64), 0, NUM_REGIONS - 1)  # [L, V]
+    in_tab = (chosen_vid >= 0) & (chosen_vid < v)
+    reg = torch.where(in_tab, reg_tab.gather(-1, chosen_vid.clamp(0, v - 1).long()), 0)
+    lanes = chosen_vid.shape[0]
+    cell = (reg * w + wb) * b + lb
+    return _lane_counts(cell, lat_ok & in_tab, NUM_REGIONS * w * b).reshape(
+        lanes, NUM_REGIONS, w, b)
 
 
 def region_window_hist_host(ingest, chosen_vid, chosen_round, vid_region, window_rounds: int):
-    """Host twin of :func:`region_window_hist` for the serve harness."""
-    raise NotImplementedError("recorder.region_window_hist_host is not ported yet (serving)")
+    """Host twin of :func:`region_window_hist` for the single-stream serve
+    harness, in numpy (one lane, no lane axis): the same per-region
+    windowed latency histograms recomputed after the clock stops from
+    the harness's own ingest table (``[V]`` arrival round per vid) and
+    the final decision arrays."""
+    ingest = np.asarray(ingest, np.int64)
+    chosen_vid = np.asarray(chosen_vid, np.int64)
+    chosen_round = np.asarray(chosen_round, np.int64)
+    vid_region = np.asarray(vid_region, np.int64)
+    v = len(ingest)
+    in_tab = (chosen_vid >= 0) & (chosen_vid < v)
+    adm = np.where(in_tab, ingest[np.clip(chosen_vid, 0, v - 1)], int(val.NONE))
+    lat_ok = in_tab & (adm != int(val.NONE))
+    lat = np.where(lat_ok, np.maximum(chosen_round - adm, 0), 0)
+    wb = np.minimum(
+        np.where(lat_ok, chosen_round, 0) // int(window_rounds), NUM_WINDOWS - 1,
+    )
+    edges = np.asarray(LAT_EDGES, np.int64)
+    lb = (lat[:, None] > edges[None, :]).sum(axis=1)
+    reg_tab = np.clip(vid_region, 0, NUM_REGIONS - 1)
+    reg = np.where(in_tab, reg_tab[np.clip(chosen_vid, 0, v - 1)], 0)
+    hist = np.zeros((NUM_REGIONS, NUM_WINDOWS, NUM_LAT_BUCKETS), np.int32)
+    np.add.at(hist, (reg[lat_ok], wb[lat_ok], lb[lat_ok]), 1)
+    return hist
 
 
 # ---------------- host-side rendering ----------------
