@@ -234,6 +234,37 @@ Phases (any failure exits non-zero; nothing is caught):
       serve lines less the wall fields and the trace stdout's sha256 must
       equal the JAX CLI's.
 
+16. The admission controller on the card, against the JAX goldens
+   (``control``), with phase 16's own seconds:
+   a. ``control_ab_bench``: ``serve/control.spike_ab`` at ``bench.py``'s
+      ``bench_serve_control_record`` configuration (3 nodes, 2048
+      instances, assign_window 8, 1000 values at 2000 milli spiked 4x over
+      the middle half, arrivals at seed 0 on an engine at seed 3, 4-round
+      windows, 2 a dispatch, 32-round buckets, SLO 16 rounds / budget 150),
+      run twice with the saved artifact replayed: the second run builds no
+      runner (``envelope.cache_misses``), and its off and on points,
+      breach windows, sheds, decisions, gray-shed violations and replay
+      sha256 equal the committed ``BENCH_serve_control.json``.
+   b. ``control_spike_full``: one armed ``controlled_serve_run`` at 15a's
+      width (2**16 values from ``spike_rounds`` at 16000 milli, factor 4,
+      on 2**17 instances; ``spike_ab``'s shed-only policy), with the counts
+      zeroed before and read after: the report, its decisions, shed
+      records (sha256), summary, SLO dict and combined decision-log sha256
+      equal JAX's, both kernels launch on one-lane operands; then the
+      first two dispatches again with the first 16 launches of each kernel
+      held against the plain version.
+   c. ``control_fleet_256``: ``controlled_fleet_run`` at 15c's 128000-milli
+      cell (256 lanes, 2**12 values on 2**13 instances each): per lane the
+      decisions, sheds, breach flags and combined decision-log sha256
+      equal JAX's, both kernels launch on 256-lane operands; then the run
+      again with the first 16 launches of each kernel held.
+   d. ``serve --control --save-artifact``, ``serve --control-ab`` and
+      ``serve --fleet --lanes 8 --control`` (with SLOs) as subprocesses in
+      one directory, started together with ``repro`` and ``trace`` of the
+      committed ``artifacts/serve_control_spike.json``: the serve lines
+      less the wall fields, the saved artifact's bytes and each stdout's
+      sha256 equal the JAX CLI's; then ``repro`` of the saved artifact.
+
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -2278,6 +2309,232 @@ def run_serve(goldens, here: str, card: str) -> dict:
     return out
 
 
+def start_control_clis(gold, here: str, tmp: str):
+    """Phase 16d's CLI processes, started together: the controller's
+    three CLIs in ``tmp`` (the first saves the artifact there) and the
+    committed spike artifact's ``repro`` and ``trace`` from the checkout,
+    each read by a thread that notes when it ended."""
+    import threading
+
+    t0 = time.perf_counter()
+    procs, ended, threads = {}, {}, []
+
+    def reap(key, proc):
+        ended[key] = (*proc.communicate(timeout=900), time.perf_counter() - t0)
+
+    committed = gold["committed"]
+    runs = [(args, tmp) for args in gold["config"]["cli"]]
+    runs += [(committed["repro"]["args"], here), (committed["trace"]["args"], here)]
+    for args, cwd in runs:
+        key = " ".join(args)
+        procs[key] = subprocess.Popen(
+            [sys.executable, "-m", "tpu_paxos_torch", *args, "--device", DEV],
+            cwd=cwd, env=_port_env(here), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        threads.append(threading.Thread(target=reap, args=(key, procs[key]), daemon=True))
+        threads[-1].start()
+    return procs, threads, ended
+
+
+def finish_control_clis(gold, script, here: str, tmp: str, started, card: str) -> dict:
+    """Phase 16d: each CLI's stdout against the JAX CLI's, the saved
+    artifact's bytes against JAX's, then ``repro`` of the saved artifact."""
+    procs, threads, ended = started
+    for th in threads:
+        th.join()
+    committed = gold["committed"]
+    out = {}
+
+    def fail(key, stderr):
+        print(stderr[-3000:], file=sys.stderr)
+        for p in procs.values():
+            p.kill()
+        raise SystemExit(f"'{key}' disagrees with the JAX CLI's")
+
+    for key, proc in procs.items():
+        stdout, stderr, wall = ended[key]
+        sha = hashlib.sha256(stdout.encode()).hexdigest()
+        if key in gold["cli"]:
+            want = gold["cli"][key]
+            got = script.less_wall(json.loads(stdout.strip().splitlines()[-1]))
+            ok = proc.returncode == want["rc"] and got == want["summary"]
+            detail = f"summary_equal={got == want['summary']}"
+        else:
+            want = committed["repro" if key.startswith("repro") else "trace"]
+            ok = proc.returncode == want["rc"] and sha == want["stdout_sha256"]
+            detail = f"stdout_bytes={len(stdout.encode())} stdout_sha256={sha}"
+        print(f"control CLI (python -m tpu_paxos_torch {key}): rc={proc.returncode} "
+              f"wall_s={wall:.3f} {detail} | {card}")
+        if not ok:
+            fail(key, stderr)
+        out[key] = wall
+    art = _file_sha256(os.path.join(tmp, gold["config"]["artifact"]))
+    if art != gold["cli"]["artifact_sha256"]:
+        raise SystemExit(f"serve --control --save-artifact wrote {art}, JAX "
+                         f"{gold['cli']['artifact_sha256']}")
+    if _file_sha256(os.path.join(here, gold["config"]["committed_artifact"])) != committed[
+            "artifact_sha256"]:
+        raise SystemExit("the committed spike artifact changed under repro/trace")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_paxos_torch", *gold["config"]["repro"], "--device", DEV],
+        cwd=tmp, env=_port_env(here), capture_output=True, text=True, timeout=900)
+    sha = hashlib.sha256(proc.stdout.encode()).hexdigest()
+    key = " ".join(gold["config"]["repro"])
+    print(f"control CLI (python -m tpu_paxos_torch {key}): rc={proc.returncode} "
+          f"wall_s={time.perf_counter() - t0:.3f} artifact_sha256={art} stdout_sha256={sha} | {card}")
+    if proc.returncode != gold["cli"]["repro"]["rc"] or sha != gold["cli"]["repro"]["stdout_sha256"]:
+        print(proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"'{key}' disagrees with the JAX CLI's")
+    return out
+
+
+def run_control_ab(script, m, gold, here: str, tmp: str, card: str) -> dict:
+    """Phase 16a: ``spike_ab`` at ``bench.py``'s configuration, twice (the
+    second counting runner builds), held against the committed
+    ``BENCH_serve_control.json`` and the JAX golden."""
+    from tpu_paxos_torch.fleet import envelope as envm
+
+    with open(os.path.join(here, "BENCH_serve_control.json")) as f:
+        bench = json.load(f)
+    path = os.path.join(tmp, "spike_ab.json")
+    t0 = time.perf_counter()
+    first = script.control_ab(m, artifact_path=path, device=DEV)
+    first_s = time.perf_counter() - t0
+    before = envm.cache_misses()
+    ab, wall, syncs, peak = _serve_timed(
+        lambda: script.control_ab(m, artifact_path=path, device=DEV))
+    builds = envm.cache_misses() - before
+    a = gold["config"]["ab"]
+    calls = (ab["off"]["dispatches"] + 2 * ab["on"]["dispatches"]) * a["windows_per_dispatch"] \
+        * a["rounds_per_window"]
+    print(f"control_ab_bench (I={a['n_instances']}, {a['n_values']} values, off + on + replay): "
+          f"wall_s={wall:.3f} (first {first_s:.3f}) round_calls={calls} "
+          f"ms_per_round={wall / calls * 1e3:.3f} syncs_per_round={syncs / calls:.2f} "
+          f"peak_gb={peak:.3f} runner_builds_measured={builds} "
+          f"breach_windows off={ab['off']['breach_windows']} on={ab['on']['breach_windows']} "
+          f"sheds={ab['sheds']} decisions={ab['decisions']} "
+          f"replay={ab['replay']['decision_log_sha256'][:8]} match={ab['replay']['match']} | {card}")
+    checks = {
+        "off": ab["off"] == bench["off"],
+        "on": ab["on"] == bench["on"],
+        "breach_windows": (ab["off"]["breach_windows"], ab["on"]["breach_windows"]) == (
+            bench["breach_windows_off"], bench["breach_windows_on"]),
+        "sheds": (ab["sheds"], ab["decisions"]) == (bench["sheds"], bench["decisions"]),
+        "gray": ab["gray_shed_violations"] == bench["gray_shed_violations"] == [],
+        "replay": ab["replay"]["match"] and ab["replay"]["decision_log_sha256"] == bench[
+            "replay"]["decision_log_sha256"],
+        "warm": builds == bench["warm_compiles_measured"] == 0,
+        "golden": script.less_wall({k: v for k, v in ab.items() if k != "replay"}) == gold["ab"],
+        "twice": ab == first,
+        "ok": ab["ok"],
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"control_ab_bench disagrees with BENCH_serve_control.json: {checks}")
+    return {"wall_s": wall, "round_calls": calls, "ms_per_round": wall / calls * 1e3,
+            "syncs_per_round": syncs / calls, "runner_builds": builds}
+
+
+def run_control_full(sk, script, m, gold, card: str) -> dict:
+    """Phase 16b: one armed controlled run at 15a's full width."""
+    import numpy as np
+
+    from tpu_paxos_torch.serve import control as ctl
+    from tpu_paxos_torch.serve import driver as drv
+    from tpu_paxos_torch.utils import prng
+
+    sk.reset_counts()
+    with lane_counts(sk) as shapes:
+        rep, wall, syncs, peak = _serve_timed(lambda: script.control_full_run(m, device=DEV))
+    launches = dict(sk.LAUNCHES)
+    rec = script.control_report_record(rep)
+    f = gold["config"]["full"]
+    out = _serve_line(f"control_spike_full (I={rep.cfg.n_instances}, {rep.n_values} values, "
+                      f"spike x{f['spike_factor']})", rep, wall, syncs, peak, launches, card)
+    out.update(sheds=rep.shed_count, decisions=len(rep.decisions))
+    print(f"control_spike_full: sheds={rep.shed_count} decisions="
+          f"{[(d['dispatch'], d['action']) for d in rep.decisions]} "
+          f"breach_windows={rep.slo['breach_windows']} | {card}")
+    if rec != gold["full"]:
+        raise SystemExit(f"control_spike_full disagrees with its JAX golden: "
+                         f"{_dict_diff(rec, gold['full'])}")
+    if min(launches.values()) < 1 or not all(x == [1] * len(x) for x in shapes.values()):
+        raise SystemExit("control_spike_full: a simkern kernel did not launch on one-lane operands")
+    # the sample: the first two dispatches again, the first launches held
+    # against the plain version on their own operands
+    sc = script.SERVE
+    streams, arrs, prios = script.control_full_inputs(m)
+    plan = ctl.ControlledPlan(streams, arrs, prios, sc["rounds_per_window"])
+    k, s = rep.admit_width, sc["windows_per_dispatch"]
+    vb = drv.vid_bound_of(streams)
+    root = prng.root_key(rep.cfg.seed)
+    cs, qc = ctl.init_control_state(rep.cfg, streams, vb, root, window_rounds=sc["window_rounds"],
+                                    device=DEV)
+    fn = ctl.control_window_for(rep.cfg, qc, vb, sc["rounds_per_window"], sc["window_rounds"],
+                                device=DEV)
+    stats = {}
+    with check_launches(sk, SNAP_REPS, stats, limit=SERVE_CHECK):
+        for d in range(2):
+            blocks = [plan.take(d * s + i, k) for i in range(s)]
+            cs = fn(cs, root, *(np.stack([b[j] for b in blocks]) for j in range(3)))[0]
+    out["checked"] = _summarize_checked("control_spike_full one-lane operands (first 2 dispatches)",
+                                        stats)
+    del cs, rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_control_fleet(sk, script, m, gold, card: str) -> dict:
+    """Phase 16c: the controlled 256-lane fleet at 15c's 128000-milli cell
+    and its kernel sample."""
+    lanes = gold["config"]["fleet"]["lanes"]
+    sk.reset_counts()
+    with lane_counts(sk) as shapes:
+        rep, wall, syncs, peak = _serve_timed(lambda: script.control_fleet_run(m, device=DEV))
+    launches = dict(sk.LAUNCHES)
+    rec = script.control_fleet_record(m, rep)
+    out = _serve_line(f"control_fleet_{lanes} @ {gold['config']['fleet']['rate_milli']} milli "
+                      f"(I={rep.cfg.n_instances})", rep, wall, syncs, peak, launches, card,
+                      lanes=lanes)
+    want = gold["fleet"]
+    print(f"control_fleet_{lanes}: flagged={len(rec['flagged'])} shed={rec['shed_total']} "
+          f"decisions={sum(rec['lane_decisions'])} lanes_off="
+          f"{[i for i in range(lanes) if rec['decision_log_sha256'][i] != want['decision_log_sha256'][i]]}")
+    if rec != want:
+        raise SystemExit(f"control fleet disagrees with its JAX golden: {_dict_diff(rec, want)}")
+    if min(launches.values()) < 1 or not all(x == [lanes] * len(x) for x in shapes.values()):
+        raise SystemExit(f"control fleet: a simkern kernel did not launch on {lanes}-lane operands")
+    del rep
+    stats = {}
+    with check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=SERVE_CHECK):
+        rep = script.control_fleet_run(m, device=DEV)
+    if script.control_fleet_record(m, rep) != want:
+        raise SystemExit("the checked control fleet run disagrees with its JAX golden")
+    out["checked"] = _summarize_checked(f"control_fleet_{lanes} {lanes}-lane operands", stats)
+    del rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_control(goldens, here: str, card: str) -> dict:
+    """Phase 16: the admission controller on the card."""
+    from tpu_paxos_torch.core import simkern as sk
+
+    gold = goldens["control"]
+    script = _goldens_script(here)
+    m = script.serve_modules(port=True)
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        clis = start_control_clis(gold, here, tmp)
+        out = {"ab": run_control_ab(script, m, gold, here, tmp, card)}
+        out["full"] = run_control_full(sk, script, m, gold, card)
+        out["fleet"] = run_control_fleet(sk, script, m, gold, card)
+        out["cli"] = finish_control_clis(gold, script, here, tmp, clis, card)
+    print(f"phase 16 (admission controller) took {time.perf_counter() - t16:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2338,6 +2595,7 @@ def main() -> int:
     print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
     run_member(goldens, here, card)
     serve = run_serve(goldens, here, card)
+    control = run_control(goldens, here, card)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -2390,6 +2648,16 @@ def main() -> int:
             "serve_fleet_checked": serve["fleet"]["checked"][name]["launches"],
             "serve_fleet_ms": serve["fleet"]["checked"][name]["ms"],
             "serve_fleet_bound_ms": serve["fleet"]["checked"][name]["bound_ms"],
+            "control_launches": control["full"]["launches"][key],
+            "control_lanes": control["full"]["checked"][name]["lanes"][0],
+            "control_checked": control["full"]["checked"][name]["launches"],
+            "control_ms": control["full"]["checked"][name]["ms"],
+            "control_bound_ms": control["full"]["checked"][name]["bound_ms"],
+            "control_fleet_launches": control["fleet"]["launches"][key],
+            "control_fleet_lanes": control["fleet"]["checked"][name]["lanes"][0],
+            "control_fleet_checked": control["fleet"]["checked"][name]["launches"],
+            "control_fleet_ms": control["fleet"]["checked"][name]["ms"],
+            "control_fleet_bound_ms": control["fleet"]["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

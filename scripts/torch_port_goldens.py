@@ -1104,7 +1104,7 @@ def serve_modules(port: bool):
         from tpu_paxos_torch import config as cfgm
         from tpu_paxos_torch.core import sim
         from tpu_paxos_torch.replay.decision_log import decision_log
-        from tpu_paxos_torch.serve import arrivals, fleet, harness
+        from tpu_paxos_torch.serve import arrivals, control, fleet, harness
 
         def host(x):
             return x.cpu().numpy()
@@ -1112,11 +1112,11 @@ def serve_modules(port: bool):
         from tpu_paxos import config as cfgm
         from tpu_paxos.core import sim
         from tpu_paxos.replay.decision_log import decision_log
-        from tpu_paxos.serve import arrivals, fleet, harness
+        from tpu_paxos.serve import arrivals, control, fleet, harness
 
         host = np.asarray
     return types.SimpleNamespace(cfgm=cfgm, sim=sim, decision_log=decision_log,
-                                 arrv=arrivals, sfl=fleet, sh=harness, host=host)
+                                 arrv=arrivals, sfl=fleet, sh=harness, ctl=control, host=host)
 
 
 def less_wall(d):
@@ -1317,6 +1317,202 @@ def serve_goldens() -> dict:
     }
 
 
+#: Phase 16 (the admission controller).  ``ab``: ``bench.py``'s
+#: ``bench_serve_control_record`` (``bench.py:1765-1860``), held against
+#: the committed ``BENCH_serve_control.json``; ``full``: one armed
+#: controlled run at phase 15a's width under a spike; ``fleet``: the
+#: controlled 256-lane fleet at 15c's 128000-milli cell; ``cli``: the
+#: controller's CLIs at small sizes (``serve-control-quick``'s, the
+#: ``serve-control`` A/B, a controlled 8-lane fleet and ``repro`` of the
+#: saved artifact).
+CONTROL = {
+    "ab": {"n_nodes": 3, "n_instances": 2048, "proposers": [0, 1], "seed": 3,
+           "max_rounds": 8000, "assign_window": 8, "n_values": 1000, "rate_milli": 2000,
+           "arrival_seed": 0, "rounds_per_window": 4, "windows_per_dispatch": 2,
+           "window_rounds": 32, "spike_factor": 4, "spike_start_frac": 0.25,
+           "spike_len_frac": 0.5, "slo": {"latency_rounds": 16, "budget_milli": 150}},
+    "full": {"n_values": 1 << 16, "rate_milli": 16_000, "spike_factor": 4,
+             "spike_start_frac": 0.375, "spike_len_frac": 0.25},
+    "fleet": {"n_values": 1 << 12, "lanes": 256, "rate_milli": 128_000},
+    "artifact": "serve_control.json",
+    "cli": [
+        ["serve", "--nodes", "3", "--values", "60", "--rate-milli", "2000", "--slo-latency", "16",
+         "--slo-budget-milli", "150", "--control", "--rounds-per-window", "4",
+         "--windows-per-dispatch", "2", "--window-rounds", "32", "--max-rounds", "4000",
+         "--save-artifact", "serve_control.json"],
+        ["serve", "--control-ab", "--nodes", "3", "--values", "1000", "--rate-milli", "2000",
+         "--spike-factor", "4", "--spike-start-frac", "0.25", "--spike-len-frac", "0.5",
+         "--slo-latency", "16", "--slo-budget-milli", "150", "--rounds-per-window", "4",
+         "--windows-per-dispatch", "2", "--window-rounds", "32", "--instances", "2048",
+         "--assign-window", "8", "--max-rounds", "8000", "--seed", "3", "--arrival-seed", "0"],
+        ["serve", "--fleet", "--lanes", "8", "--control", "--slo-latency", "16",
+         "--slo-budget-milli", "150", "--rate-milli", "16000"],
+    ],
+    "repro": ["repro", "serve_control.json", "--json"],
+    "committed_artifact": "artifacts/serve_control_spike.json",
+}
+
+
+def control_policy(m):
+    """``spike_ab``'s default shed-only policy."""
+    return m.ctl.ControlPolicy(n_tiers=3, defer_tier=2, shed_tier=2)
+
+
+def control_ab(m, artifact_path=None, **dev) -> dict:
+    """16a: ``spike_ab`` at ``bench_serve_control_record``'s configuration."""
+    a = CONTROL["ab"]
+    cfg = m.cfgm.SimConfig(
+        n_nodes=a["n_nodes"], n_instances=a["n_instances"], proposers=tuple(a["proposers"]),
+        seed=a["seed"], max_rounds=a["max_rounds"], assign_window=a["assign_window"],
+    )
+    return m.ctl.spike_ab(
+        cfg, a["n_values"], a["rate_milli"], slo=m.sh.ServeSLO(**a["slo"]),
+        seed=a["arrival_seed"], rounds_per_window=a["rounds_per_window"],
+        windows_per_dispatch=a["windows_per_dispatch"], spike_factor=a["spike_factor"],
+        spike_start_frac=a["spike_start_frac"], spike_len_frac=a["spike_len_frac"],
+        window_rounds=a["window_rounds"], artifact_path=artifact_path, **dev,
+    )
+
+
+def control_full_inputs(m):
+    """16b's stream: ``spike_rounds`` at phase 15a's size, split round
+    robin over the proposers with ``spike_ab``'s priority tiers."""
+    import numpy as np
+
+    f = CONTROL["full"]
+    n = f["n_values"]
+    rounds = m.arrv.spike_rounds(n, f["rate_milli"], SERVE["seed"], factor=f["spike_factor"],
+                                 start_frac=f["spike_start_frac"], len_frac=f["spike_len_frac"])
+    vids = np.arange(n, dtype=np.int32)
+    n_prop = len(SERVE["proposers"])
+    streams, arrs = m.arrv.split_round_robin(vids, rounds, n_prop)
+    prios = m.arrv.tier_priorities(vids, 3)
+    return streams, arrs, [prios[p::n_prop] for p in range(n_prop)]
+
+
+def control_full_run(m, **dev):
+    """16b: one armed ``controlled_serve_run`` at 15a's full width."""
+    streams, arrs, prios = control_full_inputs(m)
+    return m.ctl.controlled_serve_run(
+        serve_cfg(m, CONTROL["full"]["n_values"]), streams, arrs, priorities=prios,
+        control=control_policy(m), rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=SERVE["windows_per_dispatch"],
+        window_rounds=SERVE["window_rounds"], slo=serve_slo(m), **dev,
+    )
+
+
+def _json_sha(x) -> str:
+    return hashlib.sha256(json.dumps(x, sort_keys=True).encode()).hexdigest()
+
+
+def control_report_record(rep) -> dict:
+    """What a ``controlled_serve_run`` report must reproduce: every field
+    but the wall clock, the summary and SLO dicts whole, the decisions,
+    the shed records' sha256 and the combined decision-log sha256."""
+    return {
+        "rounds": rep.rounds, "dispatches": rep.dispatches, "done": rep.done,
+        "decided": rep.decided_values, "shed": rep.shed_count, "backlog": rep.backlog,
+        "p50": rep.p50, "p99": rep.p99, "latency_max": rep.latency_max,
+        "admit_width": rep.admit_width, "window_decided": rep.window_decided,
+        "summary": rep.summary, "slo": rep.slo,
+        "slo_first_breach_dispatch": rep.slo_first_breach_dispatch,
+        "decisions": rep.decisions, "sheds_sha256": _json_sha(rep.sheds),
+        "decision_log_sha256": rep.decision_log_sha256,
+    }
+
+
+def control_fleet_run(m, **dev):
+    """16c: the controlled 256-lane fleet at 15c's 128000-milli cell."""
+    f = CONTROL["fleet"]
+    cfg = serve_cfg(m, f["n_values"])
+    lanes = m.sfl.fleet_lanes(cfg, f["lanes"], f["n_values"], f["rate_milli"], SERVE["seed"])
+    return m.ctl.controlled_fleet_run(
+        cfg, lanes, control=control_policy(m), rounds_per_window=SERVE["rounds_per_window"],
+        windows_per_dispatch=SERVE["windows_per_dispatch"],
+        window_rounds=SERVE["window_rounds"], slo=serve_slo(m), **dev,
+    )
+
+
+def control_fleet_record(m, rep) -> dict:
+    """What the controlled fleet must reproduce: per lane the decided
+    count, breach flag, first breach dispatch, shed count, decisions and
+    combined decision-log sha256 (the protocol log plus the lane's
+    control trail), the flagged lanes' verdicts (sha256 of the sorted
+    JSON), and the dispatch and round counts."""
+    met = rep.final.serve.sim.met
+    cv, cb = m.host(met.chosen_vid), m.host(met.chosen_ballot)
+    by_lane = [[] for _ in range(rep.n_lanes)]
+    for dc in rep.decisions:
+        by_lane[dc["lane"]].append({k: dc[k] for k in sorted(dc) if k != "lane"})
+    slo = {str(k): v for k, v in sorted((rep.slo or {}).items())}
+    return {
+        "lanes": rep.n_lanes, "dispatches": rep.dispatches, "rounds": rep.rounds,
+        "done": rep.done, "admit_width": rep.admit_width,
+        "decided": [int(x) for x in rep.decided],
+        "breach": [bool(x) for x in rep.breach],
+        "first_breach_dispatch": list(rep.first_breach_dispatch),
+        "lane_shed": list(rep.lane_shed), "shed_total": rep.shed_total,
+        "lane_decisions": [len(x) for x in by_lane],
+        "decisions_sha256": _json_sha(rep.decisions),
+        "sheds_sha256": _json_sha(rep.sheds),
+        "flagged": sorted(int(k) for k in slo),
+        "slo_sha256": _json_sha(slo),
+        "decision_log_sha256": [
+            hashlib.sha256(m.ctl.decision_log_text(cv[i], cb[i], by_lane[i]).encode()).hexdigest()
+            for i in range(rep.n_lanes)
+        ],
+    }
+
+
+def control_cli_goldens(run) -> dict:
+    """16d: ``run(args, cwd)`` of each controller CLI in one fresh
+    directory (the saved artifact's path is relative, so ``repro`` prints
+    the same name in either package): the summary less the wall fields
+    and the exit code, the saved artifact's sha256, and the ``repro``
+    stdout's sha256."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for args in CONTROL["cli"]:
+            proc = run(args, tmp)
+            out[" ".join(args)] = {"rc": proc.returncode,
+                                   "summary": less_wall(json.loads(proc.stdout.strip().splitlines()[-1]))}
+        out["artifact_sha256"] = _file_sha256(os.path.join(tmp, CONTROL["artifact"]))
+        proc = run(CONTROL["repro"], tmp)
+        out["repro"] = {"rc": proc.returncode,
+                        "stdout_sha256": hashlib.sha256(proc.stdout.encode()).hexdigest()}
+    return out
+
+
+def control_committed_goldens() -> dict:
+    """``repro ... --json`` and ``trace ... --stdout`` of the committed
+    spike artifact, run from the repo root: the exit code and the
+    stdout's sha256 (JAX's trace of a serve artifact replays its config
+    and workload closed-loop, recorder-free)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    art = CONTROL["committed_artifact"]
+    out = {"artifact_sha256": _file_sha256(os.path.join(root, art))}
+    for key, args in (("repro", ["repro", art, "--json"]), ("trace", ["trace", art, "--stdout"])):
+        proc = _jax_module(["tpu_paxos", *args])
+        out[key] = {"args": args, "rc": proc.returncode,
+                    "stdout_sha256": hashlib.sha256(proc.stdout.encode()).hexdigest()}
+    return out
+
+
+def control_goldens() -> dict:
+    """Every phase-16 golden, from the JAX package on the CPU."""
+    m = serve_modules(port=False)
+    return {
+        "config": CONTROL,
+        "ab": less_wall(control_ab(m)),
+        "full": control_report_record(control_full_run(m)),
+        "fleet": control_fleet_record(m, control_fleet_run(m)),
+        "cli": control_cli_goldens(lambda args, cwd: _jax_module(["tpu_paxos", *args], cwd=cwd)),
+        "committed": control_committed_goldens(),
+    }
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -1340,6 +1536,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         phase13_goldens(out, path)
         out["member"] = member_goldens()
         out["serve"] = serve_goldens()
+        out["control"] = control_goldens()
 
     if out_dir is not None:
         rest(out_dir)
@@ -1405,6 +1602,8 @@ def main(argv=None) -> int:
                     help="recompute only the telemetry entry of the --write file")
     ap.add_argument("--member-only", action="store_true",
                     help="recompute only the member entry of the --write file")
+    ap.add_argument("--control-only", action="store_true",
+                    help="recompute only the control entry (phase 16) of the --write file")
     ap.add_argument("--serve-only", action="store_true",
                     help="recompute only the serve entry (phase 15) and the host-loop "
                     "half of the stress_fleet entry of the --write file")
@@ -1416,7 +1615,7 @@ def main(argv=None) -> int:
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
     if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
-            or args.member_only or args.serve_only):
+            or args.member_only or args.serve_only or args.control_only):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -1433,6 +1632,8 @@ def main(argv=None) -> int:
         if args.serve_only:
             out["serve"] = serve_goldens()
             out["stress_fleet"].update(host_seeds=STRESS_HOST_SEEDS, host=stress_host_golden())
+        if args.control_only:
+            out["control"] = control_goldens()
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

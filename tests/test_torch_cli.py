@@ -97,8 +97,12 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
     assert capsys.readouterr().out == gold["stdout"]
 
 
-_SERVE_ART = "{serve_artifact}"  # replaced by a written serve-engine artifact
-_CONTROLLER = "engine 'serve' artifacts (the serve admission controller)"
+#: Placeholders replaced by a written artifact of that engine.
+_MC_ART = "{mc-control artifact}"
+_SHARDED_ART = "{sharded artifact}"
+_ARTS = {_MC_ART: "mc-control", _SHARDED_ART: "sharded"}
+_MC = "engine 'mc-control' artifacts (the controller model checker)"
+_SHARDED = "engine 'sharded' artifacts (the instance-sharded engine)"
 
 
 @pytest.mark.parametrize("argv,what", [
@@ -107,33 +111,92 @@ _CONTROLLER = "engine 'serve' artifacts (the serve admission controller)"
     pytest.param(["4", "4", "10", "--engine=member", "--mesh", "2"], "--engine=member",
                  id="argv1---engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
-    # trace and its serve mode are ported; trace of a serve controller's
-    # artifact is not (kept under the case's id)
-    pytest.param(["trace", _SERVE_ART, "--stdout"], f"trace of {_CONTROLLER}", id="argv3-'trace'"),
+    # trace, its serve mode and the trace of a serve controller's artifact
+    # are ported; the trace of a controller model checker's is not (kept
+    # under the case's id)
+    pytest.param(["trace", _MC_ART, "--stdout"], f"trace of {_MC}", id="argv3-'trace'"),
     # fleet is ported; lint is not (kept under the case's id)
     pytest.param(["lint"], "'lint'", id="argv4-'fleet'"),
-    # serve is ported; its admission controller is not (kept under the case's id)
-    pytest.param(["serve", "--values", "8", "--control"], "'serve --control'", id="argv5-'serve'"),
+    # serve and its admission controller are ported; audit is not (kept
+    # under the case's id)
+    pytest.param(["audit"], "'audit'", id="argv5-'serve'"),
     (["evolve"], "'evolve'"),
     (["mc", "--scope", "quick"], "'mc'"),
     (["serve", "--fleet", "--mesh", "2"], "'serve --fleet --mesh'"),
-    (["serve", "--fleet", "--control", "--slo-latency", "8"], "'serve --fleet --control'"),
-    (["serve", "--control-ab", "--slo-latency", "8"], "'serve --control-ab'"),
-    (["serve", "--save-artifact", "a.json"], "'serve --save-artifact'"),
-    (["repro", _SERVE_ART], f"repro of {_CONTROLLER}"),
+    # the controller's surfaces below are ported (tests/test_torch_control.py
+    # and test_serve_control_cli_equals_the_jax_cli); their cases keep their
+    # ids on what still refuses: the controlled fleet's mesh and the replay
+    # of sharded and controller-model-checker artifacts
+    pytest.param(["serve", "--fleet", "--mesh", "2", "--control", "--slo-latency", "8"],
+                 "'serve --fleet --mesh'", id="argv9-'serve --fleet --control'"),
+    pytest.param(["repro", _SHARDED_ART], f"repro of {_SHARDED}",
+                 id="argv10-'serve --control-ab'"),
+    pytest.param(["trace", _SHARDED_ART, "--stdout"], f"trace of {_SHARDED}",
+                 id="argv11-'serve --save-artifact'"),
+    pytest.param(["repro", _MC_ART], f"repro of {_MC}",
+                 id="argv12-repro of engine 'serve' artifacts (the serve admission controller)"),
 ])
 def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path):
-    if _SERVE_ART in argv:
-        with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
-            art = json.load(f)
-        art["engine"] = "serve"
-        path = str(tmp_path / "serve.json")
-        with open(path, "w") as f:
-            json.dump(art, f)
-        argv = [path if a == _SERVE_ART else a for a in argv]
+    for key, engine in sorted(_ARTS.items()):
+        if key in argv:
+            with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
+                art = json.load(f)
+            art["engine"] = engine
+            path = str(tmp_path / f"{engine}.json")
+            with open(path, "w") as f:
+                json.dump(art, f)
+            argv = [path if a == key else a for a in argv]
     assert tcli.main(argv + ["--device", "cpu"]) == 2
     out = capsys.readouterr()
     assert f"{what} is not ported yet" in out.err and out.out == ""
+
+
+def _control_gold():
+    return _goldens()["control"]
+
+
+def _cli_in(cwd, argv, capsys):
+    """``tcli.main(argv)`` on the CPU with ``cwd`` as the working
+    directory; returns (exit code, stdout)."""
+    with _in_dir(cwd):
+        rc = tcli.main(argv + ["--device", "cpu"])
+    return rc, capsys.readouterr().out
+
+
+@pytest.mark.parametrize("i", range(3), ids=["control-save-artifact", "control-ab", "fleet-control"])
+def test_serve_control_cli_equals_the_jax_cli(i, tmp_path, capsys):
+    """``serve --control --save-artifact``, ``serve --control-ab`` (the
+    committed spike A/B) and ``serve --fleet --control``: the exit code
+    and the JSON line, less the wall fields, equal the JAX CLI's
+    (``goldens.json``'s ``control.cli``, the card's phase 16d); the saved
+    artifact's bytes equal JAX's."""
+    gold = _control_gold()
+    argv = gold["config"]["cli"][i]
+    rc, out = _cli_in(tmp_path, argv, capsys)
+    want = gold["cli"][" ".join(argv)]
+    assert rc == want["rc"]
+    assert less_wall(json.loads(out.strip().splitlines()[-1])) == want["summary"]
+    if "--save-artifact" in argv:
+        with open(tmp_path / gold["config"]["artifact"], "rb") as f:
+            assert hashlib.sha256(f.read()).hexdigest() == gold["cli"]["artifact_sha256"]
+
+
+def test_repro_of_serve_artifacts_equals_the_jax_cli(tmp_path, capsys):
+    """``repro`` of a controlled-serve artifact: the one ``serve --control
+    --save-artifact`` writes and the committed spike artifact both replay
+    (``match``) with the JAX CLI's stdout, byte for byte."""
+    gold = _control_gold()
+    _cli_in(tmp_path, gold["config"]["cli"][0], capsys)
+    rc, out = _cli_in(tmp_path, gold["config"]["repro"], capsys)
+    assert rc == gold["cli"]["repro"]["rc"] == 0
+    assert hashlib.sha256(out.encode()).hexdigest() == gold["cli"]["repro"]["stdout_sha256"]
+    assert json.loads(out.strip().splitlines()[-1])["match"]
+    committed = gold["committed"]
+    rc, out = _cli_in(ROOT, committed["repro"]["args"], capsys)
+    assert rc == committed["repro"]["rc"] == 0
+    assert hashlib.sha256(out.encode()).hexdigest() == committed["repro"]["stdout_sha256"]
+    with open(os.path.join(ROOT, gold["config"]["committed_artifact"]), "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == committed["artifact_sha256"]
 
 
 #: The serve CLIs of the card's phase 15d, less the wall fields.
@@ -376,6 +439,19 @@ with contextlib.redirect_stdout(bufs[2]):
     rc_tserve = cli.main(["trace", "--serve", "--stdout", "--values", "16", "--nodes", "3",
                           "--lanes", "2", "--lane", "1", "--device", "cpu"])
 serve_out = [json.loads(b.getvalue()) for b in bufs]
+from tpu_paxos_torch.serve import arrivals, control, harness
+spike = arrivals.spike_rounds(200, 2000, 0, factor=4, start_frac=0.25, len_frac=0.5)
+c_streams, c_arrs = arrivals.split_round_robin(np.arange(200, dtype=np.int32), spike, 2)
+ctl = control.controlled_serve_run(
+    config.SimConfig(n_nodes=3, n_instances=512, proposers=(0, 1), seed=3, assign_window=8),
+    c_streams, c_arrs, priorities=[arrivals.tier_priorities(s) for s in c_streams],
+    control=control.ControlPolicy(ladder=(1, 2)), slo=harness.ServeSLO(latency_rounds=16),
+    rounds_per_window=4, window_rounds=32, device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "serve.json")
+    control.save_artifact(path, ctl)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_ctl = cli.main(["repro", path, "--device", "cpu"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -391,7 +467,8 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and rc_serve == rc_sfleet == rc_tserve == 0
       and [serve_out[0]["metric"], serve_out[1]["metric"]] == ["serve", "serve_fleet"]
       and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
-      and serve_out[2]["otherData"]["engine"] == "serve_fleet")
+      and serve_out[2]["otherData"]["engine"] == "serve_fleet"
+      and ctl.done and ctl.backlog == 0 and rc_ctl == 0)
 print(len(mods), bool(ok), loaded)
 """
 

@@ -367,12 +367,12 @@ def test_envelope_cache_identity_and_keying():
                 lambda: t1.run([0], [None], workloads=[(WL, None)]))
     _same_error(lambda: j1.run([0], [None], knobs=[jcfg.FaultConfig()]),
                 lambda: t1.run([0], [None], knobs=[tcfg.FaultConfig()]))
-    # member_runner_for and serve_fleet_for are ported
-    # (tests/test_torch_member_fleet.py, test_torch_serve_fleet.py); the
-    # serve controller's runner is not
-    for name in ("serve_control_for",):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(tenv, name)()
+    # member_runner_for, serve_fleet_for and serve_control_for are ported
+    # (tests/test_torch_member_fleet.py, test_torch_serve_fleet.py,
+    # test_torch_control.py); their mesh tile is not
+    for name in ("serve_control_for", "serve_fleet_for"):
+        with pytest.raises(NotImplementedError, match=f"{name} mesh="):
+            getattr(tenv, name)(tc, 64, 30, 8, window_rounds=32, mesh=object(), device="cpu")
     tenv.clear_cache()
     jenv.clear_cache()
 

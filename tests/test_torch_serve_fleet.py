@@ -7,7 +7,8 @@ per-region series equal the single harness's host twin; the on-device
 SLO verdict is a superset of the host judge and equals JAX's exactly;
 flagged lanes are confirmed and named per region as JAX names them; the
 envelope cache keys and refuses as JAX's; lane validation messages are
-JAX's.  ``mesh=`` and the controller raise by name.
+JAX's.  ``mesh=`` raises by name (the controller is
+tests/test_torch_control.py's).
 
 The module shares one JAX fleet shape (2 lanes, S = 2, K = 10) and one
 JAX ``serve_run`` shape, as test_serve_fleet.py does.
@@ -279,12 +280,12 @@ def test_envelope_cache_identity_and_schedule_rejection():
     for call, name in (
         (lambda: tenv.serve_fleet_for(tc, c, 30, R_WINDOW, window_rounds=32, mesh=object(),
                                       device="cpu"), "serve_fleet_for mesh="),
-        (lambda: tenv.serve_control_for(tc, c, 30, R_WINDOW, window_rounds=32),
-         "serve_control_for"),
+        (lambda: tenv.serve_control_for(tc, c, 30, R_WINDOW, window_rounds=32, mesh=object(),
+                                        device="cpu"), "serve_control_for mesh="),
         (lambda: tfl.ServeFleetRunner(tc, c, 30, R_WINDOW, 32, mesh=object(), device="cpu"),
          "ServeFleetRunner mesh="),
-        (lambda: tfl.sweep_fleet_load(tc, 8, [1], [1000], control=object(), device="cpu"),
-         "sweep_fleet_load control="),
+        (lambda: tfl.sweep_fleet_load(tc, 8, [1], [1000], mesh=object(), device="cpu"),
+         "serve_fleet_run mesh="),
     ):
         with pytest.raises(NotImplementedError, match=name):
             call()

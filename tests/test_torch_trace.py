@@ -4,9 +4,10 @@ package's: the trace JSON of both committed repro artifacts equals JAX's
 ``trace_artifact`` of the same path from the same directory, byte for
 byte, and leaves the artifact untouched; a crafted run renders the same
 events; ``trace --serve`` (single stream, a fleet lane, a WAN preset)
-prints JAX's stdout; artifacts of engines whose replay is not ported
-(sharded, serve, mc-control) exit 2 by name, and malformed or missing
-artifacts give JAX's exit-2 schema JSON."""
+prints JAX's stdout; the committed controlled-serve artifact prints JAX's
+stdout; artifacts of engines whose replay is not ported (sharded,
+mc-control) exit 2 by name, and malformed or missing artifacts give JAX's
+exit-2 schema JSON."""
 
 import contextlib
 import hashlib
@@ -87,11 +88,13 @@ def test_trace_writes_the_file_beside_the_artifact(tmp_path):
     assert status["decided"] == trace["otherData"]["decided"] > 0
 
 
-# ``trace --serve`` is ported (test_trace_serve_stdout_equals_jax); what
-# still exits 2 by name is the trace of a serve controller's artifact and
-# of the controller model checker's (the cases keep their ids)
+# ``trace --serve`` and the trace of a serve controller's artifact are
+# ported (test_trace_serve_stdout_equals_jax,
+# test_trace_of_the_committed_serve_artifact_equals_jax); what still exits
+# 2 by name is the trace of a sharded and of a controller model checker's
+# artifact (the cases keep their ids)
 @pytest.mark.parametrize("engine", [
-    pytest.param("serve", id="argv0"),
+    pytest.param("sharded", id="argv0"),
     pytest.param("mc-control", id="argv1"),
 ])
 def test_trace_serve_exits_2_by_name(engine, tmp_path):
@@ -126,6 +129,22 @@ def test_trace_serve_stdout_equals_jax(argv):
         assert tex.main(["--serve", "--stdout", "--device", "cpu"] + argv) == 0
     assert tbuf.getvalue() == jbuf.getvalue()
     assert json.loads(tbuf.getvalue())["otherData"]["decided"] > 0
+
+
+def test_trace_of_the_committed_serve_artifact_equals_jax(monkeypatch):
+    """``trace artifacts/serve_control_spike.json --stdout`` does what
+    JAX's does: exit 0 with the same stdout, byte for byte (the config and
+    workload replayed closed-loop, recorder-free; pinned from JAX's CLI in
+    ``goldens.json``), and the artifact stays unchanged."""
+    with open(os.path.join(DATA, "goldens.json")) as f:
+        gold = json.load(f)["control"]["committed"]
+    monkeypatch.chdir(os.path.dirname(os.path.dirname(DATA)))
+    rc, out, _ = _cli(gold["trace"]["args"] + ["--device", "cpu"])
+    assert rc == gold["trace"]["rc"] == 0
+    assert hashlib.sha256(out.encode()).hexdigest() == gold["trace"]["stdout_sha256"]
+    trace = json.loads(out)
+    assert trace["otherData"]["engine"] == "serve" and trace["otherData"]["decided"] > 0
+    assert _sha(gold["trace"]["args"][1]) == gold["artifact_sha256"]
 
 
 @pytest.mark.parametrize("argv", [

@@ -39,8 +39,9 @@ one JSON summary line.
 [--sweep R1,R2,...] [--slo-latency L] [--device {cuda,cpu}] ...`` serves
 an open-loop value stream (``serve/harness.py``) and ``serve --fleet
 [--lanes N] ...`` a fleet of tenant streams (``serve/fleet.py``), each
-printing one JSON summary line; the admission controller (``--control``)
-and ``--mesh`` exit 2.
+printing one JSON summary line; ``--control``, ``--control-ab`` and
+``--save-artifact`` arm the admission controller (``serve/control.py``),
+whose artifacts ``repro`` replays; ``--mesh`` exits 2.
 """
 
 from __future__ import annotations
@@ -55,7 +56,6 @@ _SUBCOMMANDS = ("evolve", "mc", "lint", "audit")
 #: Artifact engines whose replay is not ported yet, and what replays them.
 _UNPORTED_ENGINES = {
     "sharded": "the instance-sharded engine",
-    "serve": "the serve admission controller",
     "mc-control": "the controller model checker",
 }
 
@@ -391,7 +391,14 @@ def run_repro(argv) -> int:
               f"({_UNPORTED_ENGINES[engine]}) is not ported yet", file=sys.stderr)
         return 2
     from tpu_paxos_torch.analysis.artifact_schema import ArtifactSchemaError
-    from tpu_paxos_torch.harness import shrink as shr
+
+    if engine == "serve":
+        # controlled-serve artifacts replay through the admission
+        # controller: the same schema surface, the decision log extended
+        # with the control trail
+        from tpu_paxos_torch.serve import control as shr
+    else:
+        from tpu_paxos_torch.harness import shrink as shr
 
     try:
         rep = shr.reproduce(args.artifact, device=args.device)

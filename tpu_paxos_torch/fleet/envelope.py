@@ -22,8 +22,9 @@ Under a geometry envelope (``core/geom.GeometryEnvelope``) the key
 collapses over the menu and the protocol knobs: every true geometry
 under the bound, with any protocol mix, shares one padded runner.
 
-The serve fleet (``serve_fleet_for``) and the membership fleet
-(``member_runner_for``) memoize their runners in the same cache.
+The serve fleet (``serve_fleet_for``), the controlled serve fleet
+(``serve_control_for``) and the membership fleet (``member_runner_for``)
+memoize their runners in the same cache.
 """
 
 from __future__ import annotations
@@ -53,10 +54,26 @@ def clear_cache() -> None:
 
 
 def cache_misses() -> int:
-    """The runners ``runner_for``, ``serve_fleet_for`` and
-    ``member_runner_for`` have built since import (cache misses): the
-    port's count of what JAX's compile census counts for a fleet."""
+    """The runners ``runner_for``, ``serve_fleet_for``,
+    ``serve_control_for`` and ``member_runner_for`` (and the controlled
+    serve windows of ``serve/control.control_window_for``) have built
+    since import (cache misses): the port's count of what JAX's compile
+    census counts."""
     return _MISSES
+
+
+def memo(key, build, cache: dict | None = None):
+    """``cache[key]``, built by ``build()`` and counted in
+    :func:`cache_misses` on a miss; ``cache`` defaults to this module's
+    shared runner cache."""
+    global _MISSES
+    cache = _CACHE if cache is None else cache
+    obj = cache.get(key)
+    if obj is None:
+        obj = build()
+        cache[key] = obj
+        _MISSES += 1
+    return obj
 
 
 def envelope_key(
@@ -139,7 +156,6 @@ def runner_for(
     bound, and every such geometry and protocol mix shares the one
     runner.  Dispatch with ``run(geometry=(n_nodes, proposers),
     protocol=...)``."""
-    global _MISSES
     if mesh is not None:
         raise NotImplementedError("runner_for mesh= is not ported yet")
     if delay_bound is None:
@@ -168,8 +184,8 @@ def runner_for(
     dev = devm.resolve(device)
     key = envelope_key(cfg, workload, gates, max_episodes, delay_bound, dev,
                        telemetry=telemetry, geometry=geometry)
-    runner = _CACHE.get(key)
-    if runner is None:
+
+    def build():
         base = dataclasses.replace(
             cfg, seed=0, faults=FaultConfig(
                 max_delay=delay_bound,
@@ -181,9 +197,9 @@ def runner_for(
             telemetry=telemetry, geometry=geometry,
         )
         runner.explicit_inputs_only = True
-        _CACHE[key] = runner
-        _MISSES += 1
-    return runner
+        return runner
+
+    return memo(key, build)
 
 
 def serve_envelope_key(
@@ -237,7 +253,6 @@ def serve_fleet_for(
     membership envelopes share and counted in :func:`cache_misses`:
     every tenant mix, offered rate and SLO of a geometry then costs
     dispatches, not builds."""
-    global _MISSES
     import importlib
 
     sflt = importlib.import_module("tpu_paxos_torch.serve.fleet")
@@ -255,18 +270,47 @@ def serve_fleet_for(
     key = serve_envelope_key(
         cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
     )
-    runner = _CACHE.get(key)
-    if runner is None:
-        runner = sflt.ServeFleetRunner(
-            cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+    return memo(key, lambda: sflt.ServeFleetRunner(
+        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+    ))
+
+
+def serve_control_for(
+    cfg: SimConfig,
+    queue_cap: int,
+    vid_bound: int,
+    rounds_per_window: int,
+    *,
+    window_rounds: int,
+    mesh=None,
+    device="cuda",
+):
+    """The shared CONTROLLED fleet-serving runner for this envelope on
+    ``device`` (``serve/control.ControlFleetRunner``), the adaptive-
+    admission twin of :func:`serve_fleet_for` in the same cache under its
+    own tag.  Policies, priority tiers and SLO thresholds are per-dispatch
+    data, so a controlled (lanes x rates) sweep builds one runner."""
+    import importlib
+
+    sctl = importlib.import_module("tpu_paxos_torch.serve.control")
+    if mesh is not None:
+        raise NotImplementedError("serve_control_for mesh= is not ported yet")
+    if cfg.faults.schedule is not None:
+        # checked here like serve_fleet_for: the key ignores the schedule
+        raise ValueError(
+            "serve engines take no fault schedule (correlated-fault "
+            "serving rides the stress fleet envelope, not this driver)"
         )
-        _CACHE[key] = runner
-        _MISSES += 1
-    return runner
-
-
-def serve_control_for(*args, **kwargs):
-    raise NotImplementedError("serve_control_for is not ported yet")
+    dev = devm.resolve(device)
+    key = (
+        "serve_control",
+        *serve_envelope_key(
+            cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+        )[1:],
+    )
+    return memo(key, lambda: sctl.ControlFleetRunner(
+        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+    ))
 
 
 def member_envelope_key(
@@ -314,7 +358,6 @@ def member_runner_for(
     any menu node count (it normalizes to the bound and is declared per
     dispatch: ``run(n_nodes=...)``), and every geometry on the menu shares
     one runner."""
-    global _MISSES
     from tpu_paxos_torch.fleet import member_runner as mrun
     from tpu_paxos_torch.membership import churn_table as ctm
 
@@ -328,13 +371,8 @@ def member_runner_for(
         n_nodes, n_instances, max_events, max_episodes, crash_rate,
         max_rounds, geometry=geometry, device=dev,
     )
-    runner = _CACHE.get(key)
-    if runner is None:
-        runner = mrun.MemberFleetRunner(
-            n_nodes, n_instances, max_events=max_events,
-            max_episodes=max_episodes, crash_rate=crash_rate,
-            max_rounds=max_rounds, geometry=geometry, device=dev,
-        )
-        _CACHE[key] = runner
-        _MISSES += 1
-    return runner
+    return memo(key, lambda: mrun.MemberFleetRunner(
+        n_nodes, n_instances, max_events=max_events,
+        max_episodes=max_episodes, crash_rate=crash_rate,
+        max_rounds=max_rounds, geometry=geometry, device=dev,
+    ))

@@ -2,8 +2,10 @@
 
 This system has no weights; its state is what crosses: the JAX
 package's ``SimState`` (the general engine), ``FastState`` (the fast
-path), ``MemberState`` (the membership engine) and ``ServeLoopState``
-(a serve run's loop state: engine, recorder and ingest table), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
+path), ``MemberState`` (the membership engine), ``ServeLoopState``
+(a serve run's loop state: engine, recorder and ingest table) and
+``ControlLoopState`` (a controlled serve run's: that plus the shed and
+admit counters), converted to numpy arrays (e.g. with ``jax.tree.map(np.asarray,
 state)``), become the port's trees on a device and back.  Both packages'
 trees have the same field names, nesting, shapes and dtypes, so a run
 can be handed over mid-flight and resumed in either package round for
@@ -119,4 +121,23 @@ def serve_state_from_jax(np_tree, device="cuda") -> sdrv.ServeLoopState:
 
 def serve_state_to_numpy(state: sdrv.ServeLoopState) -> sdrv.ServeLoopState:
     """The same ServeLoopState with every leaf as a host numpy array."""
+    return _to_numpy(state)
+
+
+def control_state_from_jax(np_tree, device="cuda"):
+    """The port's ``serve/control.ControlLoopState`` on ``device`` from a
+    JAX ``ControlLoopState`` whose leaves are numpy arrays: the serve loop
+    state (:func:`serve_state_from_jax`) and the ``ctl`` counter leaf
+    (``[2]``, or ``[L, 2]`` on fleet lanes)."""
+    from tpu_paxos_torch.serve import control as sctl
+
+    dev = devm.resolve(device)
+    return sctl.ControlLoopState(
+        serve=serve_state_from_jax(np_tree.serve, device=dev),
+        ctl=_tensor(np_tree.ctl, dev),
+    )
+
+
+def control_state_to_numpy(state):
+    """The same ControlLoopState with every leaf as a host numpy array."""
     return _to_numpy(state)

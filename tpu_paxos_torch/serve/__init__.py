@@ -1,5 +1,5 @@
 """Open-loop serving on the port: consensus as a traffic-serving service
-(port of ``tpu_paxos/serve/``, without the admission controller).
+(port of ``tpu_paxos/serve/``).
 
 Values *arrive* on the virtual clock (Poisson, heavy-tailed, bursty,
 diurnal or replayed from a trace), are admitted into the general
@@ -12,10 +12,12 @@ package: ``arrivals`` the arrival processes and the admission plan
 (numpy only), ``driver`` the dispatch window over the engine's round,
 ``harness`` the host loop, the load sweep and the ``serve`` CLI, and
 ``fleet`` the multi-tenant serve lanes with on-device per-lane SLO
-verdicts (``serve --fleet``).
+verdicts (``serve --fleet``), and ``control`` the cause-aware admission
+controller (``serve --control``, ``--control-ab``, ``serve --fleet
+--control``) with its repro artifacts.
 """
 
-_SUBMODULES = ("arrivals", "driver", "fleet", "harness")
+_SUBMODULES = ("arrivals", "control", "driver", "fleet", "harness")
 
 
 def __getattr__(name):

@@ -132,16 +132,24 @@ def _stamp(ingest: torch.Tensor, admit: torch.Tensor, arr: torch.Tensor, v_bound
 
 
 def run_window_lanes(round_fn, roots, st, tl, ingest, admits, arrs, rounds_per_window: int,
-                     v_bound: int, geom=None, pknobs=None):
+                     v_bound: int, geom=None, pknobs=None, keeps=None):
     """One dispatch's rounds over a leading lane axis: ``st``/``tl``/
     ``ingest`` lane-stacked, ``admits``/``arrs`` ``[L, S, P, K]`` on the
     state's device, ``roots`` ``[L, 2]``.  Every lane runs every round of
-    the span (one round counter, read once).  Returns ``(st, tl,
+    the span (one round counter, read once).  ``keeps`` (``[L, S, P, K]``
+    bool, the admission controller's shed mask) admits only the kept
+    values, and only they stamp ingest: a shed value never enters the
+    engine, so it must not enter the latency ledger.  Returns ``(st, tl,
     ingest)``."""
     t = int(st.t.reshape(-1)[0])
     for i in range(admits.shape[1]):
-        ingest = _stamp(ingest, admits[:, i], arrs[:, i], v_bound)
-        st = simm.admit_block(st, admits[:, i])
+        if keeps is None:
+            ingest = _stamp(ingest, admits[:, i], arrs[:, i], v_bound)
+            st = simm.admit_block(st, admits[:, i])
+        else:
+            kept = torch.where(keeps[:, i], admits[:, i], val.NONE)
+            ingest = _stamp(ingest, kept, arrs[:, i], v_bound)
+            st = simm.admit_block(st, admits[:, i], keep=keeps[:, i])
         for _ in range(int(rounds_per_window)):
             st, tl = round_fn.lanes(roots, st, t, tele=tl, geom=geom, pknobs=pknobs)
             t += 1

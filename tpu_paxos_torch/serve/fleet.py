@@ -1,6 +1,7 @@
 """Fleet serving: many tenant value streams per dispatch, with per-lane
 SLO verdicts reduced on the device (port of ``tpu_paxos/serve/fleet.py``,
-without the admission controller and the mesh tile).
+without the mesh tile; the per-lane admission controller is
+``serve/control.controlled_fleet_run``).
 
 JAX ``vmap``s the serve driver's whole dispatch window over a
 ``[lanes]`` axis.  The port runs the same dispatch over the lane-axis
@@ -192,14 +193,15 @@ class ServeFleetRunner:
         )
 
     def _fn(self, sss, roots, admits, arrs, vid_regions, rmaps,
-            slo_k, region_k, budget_milli, burn_milli):
+            slo_k, region_k, budget_milli, burn_milli, keeps=None):
         """One dispatch of every lane: ``(sss, done, t, decided, breach,
         summary, windows, region_windows)``, all ``[lanes, ...]`` device
-        tensors; ``sss`` is consumed."""
+        tensors; ``sss`` is consumed.  ``keeps`` is the admission
+        controller's ``[L, S, P, K]`` shed mask (``serve/control.py``)."""
         ww = self.window_rounds
         st, tl, ingest = drv.run_window_lanes(
             self.round_fn, roots, sss.sim, sss.tele, sss.ingest, admits, arrs,
-            self.rounds_per_window, self.vid_bound,
+            self.rounds_per_window, self.vid_bound, keeps=keeps,
         )
         summ, wsum, adm = drv.epilogue(st, tl, ingest, ww, region_map=rmaps)
         rw = telem.region_window_hist(
@@ -307,6 +309,83 @@ def _check_lane(cfg: SimConfig, lane: ServeLane, li: int):
     return ServeLane(wl, list(lane.arrivals), int(lane.seed))
 
 
+class _FleetInputs(NamedTuple):
+    """A fleet run's per-lane inputs: the runner, the empty queue arrays
+    (numpy), the roots, the node->region map and, on the device, the
+    per-lane maps, vid->region tables and SLO thresholds."""
+
+    runner: object
+    pend: np.ndarray
+    gate: np.ndarray
+    tail: np.ndarray
+    roots: np.ndarray
+    rmap: np.ndarray
+    rmaps: torch.Tensor
+    vid_regions: torch.Tensor
+    slo_args: tuple
+
+
+def _fleet_inputs(runner_for, cfg: SimConfig, lanes, rounds_per_window: int, ww: int,
+                  slo, region_map, region_names, dev) -> _FleetInputs:
+    """The envelope shapes (queue capacity and vid bound cover every
+    lane), ``runner_for(cfg, c, v_bound, rounds_per_window,
+    window_rounds=ww, device=dev)``'s runner, and the lanes' inputs."""
+    n_lanes = len(lanes)
+    c = max(simm.prepare_queues(cfg, ln.workload)[3] for ln in lanes)
+    v_bound = max(drv.vid_bound_of(ln.workload) for ln in lanes)
+    runner = runner_for(cfg, c, v_bound, rounds_per_window, window_rounds=ww, device=dev)
+    p = len(cfg.proposers)
+    width = c + cfg.assign_window
+    a = cfg.n_nodes
+    if region_map is None:
+        rmap = np.zeros((a,), np.int32)
+    else:
+        rmap = np.asarray(region_map, np.int32).reshape(a)
+    rmaps = np.broadcast_to(rmap, (n_lanes, a))
+    vid_regions = np.zeros((n_lanes, v_bound), np.int32)
+    for li, ln in enumerate(lanes):
+        for node, stream in zip(cfg.proposers, ln.workload):
+            vid_regions[li, stream] = rmap[node]
+    slo_k, region_k, budget_milli, burn_milli = _slo_args(slo, region_names)
+    lane_tabs = devm.to_device(torch.from_numpy(
+        np.concatenate([rmaps, vid_regions], axis=1)), dev)
+    return _FleetInputs(
+        runner,
+        np.full((n_lanes, p, width), int(val.NONE), np.int32),
+        np.full((n_lanes, p, width), int(val.NONE), np.int32),
+        np.zeros((n_lanes, p), np.int32),
+        prng.root_keys([ln.seed for ln in lanes]),
+        rmap, lane_tabs[:, :a], lane_tabs[:, a:],
+        (_on(slo_k, dev), _on(region_k, dev), budget_milli, burn_milli),
+    )
+
+
+def _confirm_flagged(flagged, slo, ww: int, rmap, region_names, summaries, windows,
+                     region_windows) -> dict:
+    """Host-confirmed verdicts for the flagged lanes ONLY: ``{lane:
+    slo_windows verdict}`` naming (lane, region) breach windows with their
+    diagnosis; everything else stays on the device."""
+    from tpu_paxos_torch.telemetry import diagnose as diag
+
+    out = {}
+    for i in np.flatnonzero(flagged):
+        i = int(i)
+        lane_s, lane_w = _lane_host(i, summaries, windows)
+        sd_i = telem.summary_to_dict(lane_s, lane_w, ww, region_names=tuple(region_names))
+        wd_i = sd_i["windows"]
+        lane_rw = region_windows[i].cpu().numpy()
+        verdict = sh.slo_windows(wd_i, slo, region_series=lane_rw, region_names=region_names)
+        diag.attach_diagnosis(
+            verdict, wd_i,
+            region_map=np.asarray(rmap),
+            region_names=tuple(region_names),
+            region_pairs=sd_i.get("region_pairs"),
+            region_series=lane_rw,
+        )
+        out[i] = verdict
+    return out
+
+
 def serve_fleet_run(
     cfg: SimConfig,
     lanes,
@@ -369,30 +448,9 @@ def serve_fleet_run(
             "window_rounds=0 disarms it"
         )
     dev = devm.resolve(device)
-    # envelope shapes: queue capacity and vid bound cover every lane
-    c = max(simm.prepare_queues(cfg, ln.workload)[3] for ln in lanes)
-    v_bound = max(drv.vid_bound_of(ln.workload) for ln in lanes)
-    runner = envm.serve_fleet_for(
-        cfg, c, v_bound, rounds_per_window, window_rounds=ww, device=dev,
-    )
+    fi = _fleet_inputs(envm.serve_fleet_for, cfg, lanes, rounds_per_window, ww, slo,
+                       region_map, region_names, dev)
     p = len(cfg.proposers)
-    width = c + cfg.assign_window
-    pend = np.full((n_lanes, p, width), int(val.NONE), np.int32)
-    gate = np.full((n_lanes, p, width), int(val.NONE), np.int32)
-    tail = np.zeros((n_lanes, p), np.int32)
-    roots = prng.root_keys([ln.seed for ln in lanes])
-    a = cfg.n_nodes
-    if region_map is None:
-        rmap = np.zeros((a,), np.int32)
-    else:
-        rmap = np.asarray(region_map, np.int32).reshape(a)
-    rmaps = np.broadcast_to(rmap, (n_lanes, a))
-    vid_regions = np.zeros((n_lanes, v_bound), np.int32)
-    for li, ln in enumerate(lanes):
-        for node, stream in zip(cfg.proposers, ln.workload):
-            vid_regions[li, stream] = rmap[node]
-    slo_k, region_k, budget_milli, burn_milli = _slo_args(slo, region_names)
-    slo_args = (_on(slo_k, dev), _on(region_k, dev), budget_milli, burn_milli)
     n_disp_admit = max((pl.n_windows + s - 1) // s for pl in plans)
     disp_cap = max(
         cfg.round_budget // (rounds_per_window * s) + 1, n_disp_admit
@@ -401,9 +459,6 @@ def serve_fleet_run(
         np.full((n_lanes, s, p, k), int(val.NONE), np.int32),
         np.zeros((n_lanes, s, p, k), np.int32), dev,
     )
-    lane_tabs = devm.to_device(torch.from_numpy(
-        np.concatenate([rmaps, vid_regions], axis=1)), dev)
-    rmaps_d, vid_regions_d = lane_tabs[:, :a], lane_tabs[:, a:]
 
     def super_block(d):
         """Dispatch ``d``'s S admission windows for every lane ([lanes,
@@ -441,10 +496,10 @@ def serve_fleet_run(
     last_dev = None
     d = harvested = 0
     t0 = time.perf_counter()
-    sss = runner._init(pend, gate, tail, roots)
+    sss = fi.runner._init(fi.pend, fi.gate, fi.tail, fi.roots)
     while True:
         blk = super_block(d) if d < n_disp_admit else empty
-        out = runner._fn(sss, roots, *blk, vid_regions_d, rmaps_d, *slo_args)
+        out = fi.runner._fn(sss, fi.roots, *blk, fi.vid_regions, fi.rmaps, *fi.slo_args)
         sss = out[0]
         vecs = read(out)
         d += 1
@@ -469,35 +524,8 @@ def serve_fleet_run(
     wall = time.perf_counter() - t0
 
     summaries, windows, region_windows = last_dev
-    # Host-confirmed verdicts for the flagged lanes ONLY: the named
-    # (lane, region) breach windows; everything else stays on the card.
-    slo_dict = None
-    if slo is not None:
-        slo_dict = {}
-        from tpu_paxos_torch.telemetry import diagnose as diag
-
-        for i in np.flatnonzero(last_breach):
-            i = int(i)
-            lane_s, lane_w = _lane_host(i, summaries, windows)
-            sd_i = telem.summary_to_dict(
-                lane_s, lane_w, ww, region_names=tuple(region_names)
-            )
-            wd_i = sd_i["windows"]
-            lane_rw = region_windows[i].cpu().numpy()
-            verdict = sh.slo_windows(
-                wd_i,
-                slo,
-                region_series=lane_rw,
-                region_names=region_names,
-            )
-            diag.attach_diagnosis(
-                verdict, wd_i,
-                region_map=np.asarray(rmap),
-                region_names=tuple(region_names),
-                region_pairs=sd_i.get("region_pairs"),
-                region_series=lane_rw,
-            )
-            slo_dict[i] = verdict
+    slo_dict = None if slo is None else _confirm_flagged(
+        last_breach, slo, ww, fi.rmap, region_names, summaries, windows, region_windows)
     return ServeFleetReport(
         cfg=cfg,
         n_lanes=n_lanes,
@@ -650,11 +678,22 @@ def sweep_fleet_load(
     at ``rate_milli``; every cell of a lane count shares the envelope's
     one cached runner (the admit width is the max over the whole grid),
     and the knee per lane count is ``harness.judge_knee`` over that
-    row.  ``control`` (the admission controller) is not ported yet."""
-    if control is not None:
-        raise NotImplementedError("sweep_fleet_load control= is not ported yet")
+    row.
+
+    ``control`` (a ``serve/control.ControlPolicy``; requires ``slo``)
+    arms the per-lane admission controller in EVERY cell: points then
+    carry their shed and decision ledgers, and the exit verdict
+    (:func:`sweep_verdict`) refuses a floor-rate cell that only drained by
+    shedding."""
     lane_counts = [int(x) for x in lane_counts]
     rates = sorted(int(x) for x in rates_milli)
+    if control is not None:
+        from tpu_paxos_torch.serve import control as ctlm
+
+        if slo is None:
+            raise ValueError(
+                "a controlled sweep reads SLO verdicts; declare an slo"
+            )
     # an explicit admit_width is authoritative (the caller computed it
     # with grid_admit_width); a too-narrow width fails loudly per run
     width = (
@@ -671,8 +710,7 @@ def sweep_fleet_load(
         points = []
         for rm in rates:
             lanes = fleet_lanes(cfg, lc, n_values, rm, seed, arrivals)
-            rep = serve_fleet_run(
-                cfg, lanes,
+            kw = dict(
                 rounds_per_window=rounds_per_window,
                 windows_per_dispatch=windows_per_dispatch,
                 admit_width=width,
@@ -683,7 +721,16 @@ def sweep_fleet_load(
                 mesh=mesh,
                 device=device,
             )
-            points.append(_fleet_point(rm, rep))
+            if control is not None:
+                rep = ctlm.controlled_fleet_run(cfg, lanes, control=control, **kw)
+            else:
+                rep = serve_fleet_run(cfg, lanes, **kw)
+            pt = _fleet_point(rm, rep)
+            if control is not None:
+                pt["shed"] = rep.shed_total
+                pt["lane_shed"] = rep.lane_shed
+                pt["control_decisions"] = len(rep.decisions)
+            points.append(pt)
         knee = sh.judge_knee(points, knee_factor)
         cells[str(lc)] = {"points": points, "knee": knee}
         knee_surface.append({"lanes": lc, **knee})
@@ -702,24 +749,42 @@ def sweep_fleet_load(
         "values_per_sec_surface": surface,
         "cells": cells,
         "knee_surface": knee_surface,
+        **({
+            "control": ctlm.policy_to_dict(control)
+        } if control is not None else {}),
     }
 
 
 def sweep_verdict(summary: dict) -> bool:
     """The sweep's exit verdict: every lane count's FLOOR-rate cell must
     drain (a fleet that saturates at the floor rate is broken no matter
-    how the single-lane row looks), and any host-confirmed breach in any
-    cell reds the whole surface.  (JAX judges controller-armed sweeps by
-    a floor rule of their own; the controller is not ported yet.)"""
+    how the single-lane row looks).
+
+    Controller-armed sweeps (``summary["control"]``) are judged HARDER at
+    the floor: the floor cell must drain with ZERO sheds and no
+    host-confirmed floor breach (a controller that sheds its way to zero
+    backlog at the floor rate is masking saturation); their higher-rate
+    cells are exploratory.  Uncontrolled sweeps red the whole surface on
+    any host-confirmed breach in any cell."""
     cells = summary.get("cells", {})
     if not cells:
         return False
+    controlled = "control" in summary
     for c in cells.values():
-        if not c["points"][0]["sustained"]:
+        floor = c["points"][0]
+        if not floor["sustained"]:
             return False
-        for pt in c["points"]:
-            if pt.get("slo") and not all(v["ok"] for v in pt["slo"].values()):
+        if controlled:
+            if floor.get("shed", 0):
                 return False
+            if floor.get("slo") and not all(
+                v["ok"] for v in floor["slo"].values()
+            ):
+                return False
+        else:
+            for pt in c["points"]:
+                if pt.get("slo") and not all(v["ok"] for v in pt["slo"].values()):
+                    return False
     return True
 
 
@@ -762,8 +827,13 @@ def main(argv=None) -> int:
                     "per-lane burn-rate verdict (0 = no SLO)")
     ap.add_argument("--slo-budget-milli", type=int, default=100)
     ap.add_argument("--control", action="store_true",
-                    help="the per-lane admission controller: not ported "
-                    "yet (exits 2)")
+                    help="arm the per-lane admission controller "
+                    "(serve/control.py) in every cell; requires "
+                    "--slo-latency.  The sweep verdict then refuses "
+                    "a floor-rate cell that only drained by shedding")
+    ap.add_argument("--priority-tiers", type=int, default=3,
+                    help="declared per-value priority tiers for "
+                    "--control (tier 0 = always admit)")
     ap.add_argument("--instances", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-rounds", type=int, default=20_000)
@@ -776,10 +846,9 @@ def main(argv=None) -> int:
                     "yet (exits 2)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    for flag, on in (("--mesh", args.mesh > 1), ("--control", args.control)):
-        if on:
-            print(f"tpu_paxos_torch: 'serve --fleet {flag}' is not ported yet", file=sys.stderr)
-            return 2
+    if args.mesh > 1:
+        print("tpu_paxos_torch: 'serve --fleet --mesh' is not ported yet", file=sys.stderr)
+        return 2
     n_inst = args.instances or max(64, 2 * args.values)
     cfg = SimConfig(
         n_nodes=args.nodes,
@@ -800,6 +869,20 @@ def main(argv=None) -> int:
                     budget_milli=args.slo_budget_milli)
         if args.slo_latency else None
     )
+    policy = None
+    if args.control:
+        from tpu_paxos_torch.serve import control as ctlm
+
+        if slo is None:
+            raise SystemExit(
+                "--control reads SLO verdicts; declare --slo-latency"
+            )
+        n_tiers = args.priority_tiers
+        policy = ctlm.ControlPolicy(
+            n_tiers=n_tiers,
+            defer_tier=max(n_tiers - 1, 1),
+            shed_tier=max(n_tiers - 1, 1),
+        )
     if args.sweep or args.lane_counts:
         rates = (
             [int(x) for x in args.sweep.split(",") if x.strip()]
@@ -817,21 +900,26 @@ def main(argv=None) -> int:
             window_rounds=w_rounds,
             slo=slo,
             arrivals=args.arrivals,
+            control=policy,
             device=args.device,
         )
-        # every lane count's LOWEST-rate cell must drain
+        # every lane count's LOWEST-rate cell must drain; a controller-
+        # armed cell must also drain WITHOUT shedding at the floor
         summary["ok"] = sweep_verdict(summary)
     else:
         lanes = fleet_lanes(cfg, args.lanes, args.values,
                             args.rate_milli, args.seed, args.arrivals)
-        rep = serve_fleet_run(
-            cfg, lanes,
+        kw = dict(
             rounds_per_window=args.rounds_per_window,
             windows_per_dispatch=args.windows_per_dispatch,
             window_rounds=w_rounds,
             slo=slo,
             device=args.device,
         )
+        if policy is not None:
+            rep = ctlm.controlled_fleet_run(cfg, lanes, control=policy, **kw)
+        else:
+            rep = serve_fleet_run(cfg, lanes, **kw)
         summary = {
             "metric": "serve_fleet",
             "arrivals": args.arrivals,
@@ -845,6 +933,10 @@ def main(argv=None) -> int:
                      or all(v["ok"] for v in rep.slo.values()))
             ),
         }
+        if policy is not None:
+            summary["shed"] = rep.shed_total
+            summary["lane_shed"] = rep.lane_shed
+            summary["control_decisions"] = len(rep.decisions)
     print(json.dumps(summary, sort_keys=True))
     return 0 if summary["ok"] else 1
 

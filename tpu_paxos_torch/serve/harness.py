@@ -1,7 +1,8 @@
 """Host-side open-loop ingestion loop: dispatch windows over the serve
 driver, latency-at-load sweeps, and the ``python -m tpu_paxos_torch
-serve`` CLI (port of ``tpu_paxos/serve/harness.py``, without the
-admission controller).
+serve`` CLI (port of ``tpu_paxos/serve/harness.py``; ``--control``,
+``--control-ab`` and ``--save-artifact`` drive the admission controller,
+``serve/control.py``).
 
 The loop runs ``windows_per_dispatch`` admission windows per dispatch
 (``serve/driver.py``), the donated-state analog chaining on the device.
@@ -733,13 +734,6 @@ def _serve_cfg(args) -> SimConfig:
     )
 
 
-
-
-#: Flags of the JAX CLI that drive the admission controller, which the
-#: port does not run yet: each exits 2 naming itself.
-_UNPORTED_FLAGS = ("control", "control_ab", "save_artifact")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tpu_paxos_torch serve",
@@ -787,17 +781,44 @@ def main(argv=None) -> int:
                     help="SLO error budget: allowed slow-value "
                     "fraction per 1000 decided (with --slo-latency)")
     ap.add_argument("--control", action="store_true",
-                    help="the adaptive admission controller: not ported "
-                    "yet (exits 2)")
+                    help="arm the adaptive admission controller "
+                    "(serve/control.py): between dispatches, read the "
+                    "previous dispatch's burn + ranked causes and "
+                    "shed/defer declared priority tiers (requires "
+                    "--slo-latency)")
     ap.add_argument("--control-ab", action="store_true",
-                    help="the controller's spike A/B: not ported yet "
-                    "(exits 2)")
+                    help="the spike A/B judgment: one load spike "
+                    "served controller-off and controller-on at the "
+                    "same offered trajectory, compared on the "
+                    "breach-window list (requires --slo-latency)")
+    ap.add_argument("--spike-factor", type=int, default=4,
+                    help="--control-ab spike: arrival-rate multiplier "
+                    "over the mid-run spike span")
+    ap.add_argument("--spike-start-frac", type=float, default=0.375,
+                    help="--control-ab spike: where the spike starts, "
+                    "as a fraction of the value stream")
+    ap.add_argument("--spike-len-frac", type=float, default=0.25,
+                    help="--control-ab spike: spike span as a "
+                    "fraction of the value stream")
     ap.add_argument("--assign-window", type=int, default=0,
                     help="cap concurrent assignment (SimConfig."
-                    "assign_window; 0 = engine default)")
+                    "assign_window; 0 = engine default).  The spike "
+                    "A/B needs a bounded admission capacity for a "
+                    "spike to build a real queue")
+    ap.add_argument("--priority-tiers", type=int, default=3,
+                    help="declared per-value priority tiers (tier 0 "
+                    "= always admit)")
+    ap.add_argument("--defer-tier", type=int, default=0,
+                    help="lowest tier the controller DEFERS under "
+                    "degradation (0 = policy default: shed-only, no "
+                    "defer band)")
+    ap.add_argument("--shed-tier", type=int, default=0,
+                    help="lowest tier the controller SHEDS under "
+                    "degradation (0 = policy default: top tier)")
     ap.add_argument("--save-artifact", type=str, default="",
-                    help="the controlled run's repro artifact: not "
-                    "ported yet (exits 2)")
+                    help="write the controlled run's repro artifact "
+                    "(policy + decision trail; replay with `python "
+                    "-m tpu_paxos_torch repro`)")
     ap.add_argument("--instances", type=int, default=0,
                     help="instance-space size (0 = 2x values)")
     ap.add_argument("--seed", type=int, default=0)
@@ -814,11 +835,6 @@ def main(argv=None) -> int:
                     help="emit the full JSON summary (default prints "
                     "a one-line digest)")
     args = ap.parse_args(argv)
-    for name in _UNPORTED_FLAGS:
-        if getattr(args, name):
-            flag = "--" + name.replace("_", "-")
-            print(f"tpu_paxos_torch: 'serve {flag}' is not ported yet", file=sys.stderr)
-            return 2
     cfg = _serve_cfg(args)
     pipelined = not args.sequential
     s_disp = 1 if args.sequential else args.windows_per_dispatch
@@ -828,8 +844,37 @@ def main(argv=None) -> int:
                  budget_milli=args.slo_budget_milli)
         if args.slo_latency else None
     )
+    policy = None
+    if args.control or args.control_ab:
+        from tpu_paxos_torch.serve import control as ctlm
+
+        if slo is None:
+            raise SystemExit(
+                "--control/--control-ab read SLO verdicts; declare "
+                "--slo-latency"
+            )
+        n_tiers = args.priority_tiers
+        shed_tier = args.shed_tier or n_tiers - 1 or 1
+        policy = ctlm.ControlPolicy(
+            n_tiers=n_tiers,
+            defer_tier=args.defer_tier or shed_tier,
+            shed_tier=shed_tier,
+        )
     a_seed = args.seed if args.arrival_seed < 0 else args.arrival_seed
-    if args.sweep:
+    if args.control_ab:
+        summary = ctlm.spike_ab(
+            cfg, args.values, args.rate_milli or 2000,
+            slo=slo, seed=a_seed, policy=policy,
+            rounds_per_window=args.rounds_per_window,
+            windows_per_dispatch=s_disp,
+            spike_factor=args.spike_factor,
+            spike_start_frac=args.spike_start_frac,
+            spike_len_frac=args.spike_len_frac,
+            window_rounds=w_rounds,
+            artifact_path=args.save_artifact or None,
+            device=args.device,
+        )
+    elif args.sweep:
         rates = [int(x) for x in args.sweep.split(",") if x.strip()]
         summary = sweep_load(
             cfg, args.values, rates, seed=a_seed,
@@ -863,20 +908,40 @@ def main(argv=None) -> int:
         streams, arrs = arrv.split_round_robin(
             vids, rounds, args.proposers
         )
-        rep = serve_run(
-            cfg, streams, arrs,
-            rounds_per_window=args.rounds_per_window,
-            windows_per_dispatch=s_disp,
-            pipelined=pipelined,
-            window_rounds=w_rounds,
-            slo=slo,
-            device=args.device,
+        if args.control:
+            rep = ctlm.controlled_serve_run(
+                cfg, streams, arrs,
+                control=policy,
+                rounds_per_window=args.rounds_per_window,
+                windows_per_dispatch=s_disp,
+                window_rounds=w_rounds,
+                slo=slo,
+                device=args.device,
+            )
+            if args.save_artifact:
+                ctlm.save_artifact(args.save_artifact, rep)
+        else:
+            rep = serve_run(
+                cfg, streams, arrs,
+                rounds_per_window=args.rounds_per_window,
+                windows_per_dispatch=s_disp,
+                pipelined=pipelined,
+                window_rounds=w_rounds,
+                slo=slo,
+                device=args.device,
+            )
+        point = (
+            ctlm._ab_point(rep) if args.control
+            else _point(args.rate_milli, rep)
         )
         summary = {
             "metric": "serve",
-            "mode": "pipelined" if pipelined else "sequential",
+            "mode": (
+                "controlled" if args.control
+                else "pipelined" if pipelined else "sequential"
+            ),
             "rate_milli": args.rate_milli,
-            **_point(args.rate_milli, rep),
+            **point,
             "latency_hist": rep.summary["latency_hist"],
             "ok": bool(
                 rep.done and rep.backlog == 0

@@ -27,9 +27,10 @@ artifact: the telemetry is recomputed at replay on ``--device`` (the
 artifact schema is closed; no recorder field is stored), and the
 artifact is never modified.  ``trace --serve`` runs an open-loop
 serving stream (or one lane of a serve fleet) and renders its timeline
-(:func:`trace_serve`).  Artifacts of engines whose replay is not ported
-yet (the sharded engine, the serve admission controller, the controller
-model checker) exit 2 by name.
+(:func:`trace_serve`).  A controlled-serve artifact (engine ``"serve"``)
+renders as JAX renders it: its config and workload replayed closed-loop,
+recorder-free.  Artifacts of engines whose replay is not ported yet (the
+sharded engine, the controller model checker) exit 2 by name.
 """
 
 from __future__ import annotations
@@ -441,24 +442,27 @@ def trace_artifact(
     armed (the windowed plane included) and render the Chrome trace:
     counter tracks, the per-instance phase flow spans, and the diagnosis
     plane's cause annotations.  Telemetry is recomputed at replay, never
-    read from (or written to) the artifact."""
+    read from (or written to) the artifact.  Artifacts of other engines
+    (``"serve"``) replay their config and workload through
+    ``shrink.run_case`` recorder-free: episodes and decisions still
+    render, as in JAX."""
     from tpu_paxos_torch.core import sim as simm
     from tpu_paxos_torch.harness import shrink as shr
     from tpu_paxos_torch.telemetry import diagnose as diag
     from tpu_paxos_torch.telemetry import recorder as telem
 
     case, art = shr.load_artifact(path)
-    if case.engine != "sim":
-        raise NotImplementedError(
-            f"trace of engine '{case.engine}' artifacts is not ported yet"
+    ledger = diagnosis = summary_dict = None
+    if case.engine == "sim":
+        result, summ, wsum, ledger = simm.run_with_telemetry(
+            case.cfg, case.workload, case.gates, return_ledger=True, device=device,
         )
-    result, summ, wsum, ledger = simm.run_with_telemetry(
-        case.cfg, case.workload, case.gates, return_ledger=True, device=device,
-    )
-    summary_dict = telem.summary_to_dict(summ, wsum, telem.WINDOW_ROUNDS)
-    diagnosis = diag.diagnose_series(
-        summary_dict["windows"], region_pairs=summary_dict["region_pairs"],
-    )
+        summary_dict = telem.summary_to_dict(summ, wsum, telem.WINDOW_ROUNDS)
+        diagnosis = diag.diagnose_series(
+            summary_dict["windows"], region_pairs=summary_dict["region_pairs"],
+        )
+    else:
+        result, _ = shr.run_case(case, device=device)
     trace = chrome_trace(
         case.cfg, result, summary_dict, label=path,
         max_decision_events=max_decision_events,
