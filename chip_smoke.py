@@ -88,10 +88,11 @@ Phases (any failure exits non-zero; nothing is caught):
       at the golden's one seed a mix) as a subprocess; its summary, less
       ``seconds``, must equal JAX's.
    b. Under ``TPU_PAXOS_SEEDED_WEDGE=takeover`` the pause-crash sweep
-      (2 seeds) must find what JAX's finds (nothing); then the two small
-      triage cases (``culprit``, the three-episode ``decision_round_max``
-      case, and ``takeover``, a real seeded wedge, armed) are shrunk on
-      the card with the batched evaluator (8-lane dispatches), with the
+      (2 seeds) must find what JAX's finds (nothing); then the small
+      ``culprit`` triage case (the three-episode ``decision_round_max``
+      case) is shrunk on the card with the batched evaluator (8-lane
+      dispatches; a seeded takeover wedge's shrink, artifact and replay
+      are phase 17b's recall), with the
       counts zeroed before and read after: the final case, violation,
       moves and eval count must equal JAX's, both kernels must launch on
       8-lane operands, the written artifact must equal JAX's byte for
@@ -264,6 +265,39 @@ Phases (any failure exits non-zero; nothing is caught):
       committed ``artifacts/serve_control_spike.json``: the serve lines
       less the wall fields, the saved artifact's bytes and each stdout's
       sha256 equal the JAX CLI's; then ``repro`` of the saved artifact.
+
+17. Model checking on the card, against the committed certificates and
+   the JAX goldens (``mc``), with phase 17's own seconds:
+   a. The four quick scopes (quick, gray, churn, control) in ``make
+      mc-quick``'s order, envelopes cold, each through
+      ``modelcheck.run_for(scope)(scope, device="cuda")``: the verdict bits,
+      counts and chunk geometry equal the certificate (compared on the
+      card: the port's check has no backend gate), the summary less
+      timing and device equals JAX's, ``compiles_per_chunk`` has JAX's
+      zero pattern (quick builds in chunk 0, gray rides quick's envelope,
+      churn builds in chunk 0, control in its first e2e cell), no
+      anomalies; wall, lanes/s, ms and syncs a round per scope, both
+      kernels launching on 16-lane operands (one-lane in control's e2e
+      cells, none in churn's member fleet).  Within the quick scope's own
+      run, each lane of its first two chunks has JAX's decision-log
+      sha256, and the first 16 launches of each kernel are held against
+      the plain version and timed on snapshots of their own operands
+      once the run has ended.
+   b. Recall.  The fault scope: ``mc --scope quick`` with
+      ``TPU_PAXOS_SEEDED_WEDGE=takeover``, one counterexample shrunk into
+      a triage dir (a subprocess started with 17a): its summary, its
+      certificate failure (naming scenario 220) and
+      ``mc_scenario_220.json``'s bytes equal JAX's, and ``repro`` of it
+      prints JAX's stdout.  The controller: ``shed-on-gray`` on the tiny
+      host scope of ``tests/test_mc_control.py``: the summaries and the
+      three mc-control artifacts equal JAX's byte for byte; ``repro``,
+      ``repro --json`` and ``trace --stdout`` of the first, the variable
+      unset, print JAX's stdout with its exit code.
+   c. The full scope's first two chunks: their verdict bits are the
+      certificate's prefix (the whole scope runs outside this script).
+   d. ``mc --scope gray --json`` (its line less timing and device equals
+      JAX's, the zero pattern kept) and ``mc --scope nosuch`` (exit 2),
+      subprocesses started with 17a.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -849,44 +883,60 @@ def run_scheduled(sk, goldens, key: str) -> dict:
 
 @contextlib.contextmanager
 def check_launches(sk, reps: int, stats: dict, lanes: int | None = None,
-                   limit: int | None = None):
+                   limit: int | None = None, defer: bool = False):
     """Every simkern launch in the block (of ``lanes`` lanes, when given;
-    the first ``limit`` of each kernel, when given) is first held against
-    its plain version on a snapshot of its operands, timed on it
-    (``reps`` launches from restored operands and a cold L2) and its
-    needed bytes counted; then the real launch goes ahead.
-    ``stats[name]`` gathers the launches, their lane counts, times,
-    needed bytes and the largest error."""
+    the first ``limit`` of each kernel, when given) is held against its
+    plain version on a snapshot of its operands, timed on it (``reps``
+    launches from restored operands and a cold L2) and its needed bytes
+    counted: before the real launch goes ahead, or, with ``defer``, once
+    the block has ended (the block's own wall, syncs and peak memory then
+    carry only the snapshots' copies).  The comparison launches leave
+    ``sk.LAUNCHES`` as they found it.  ``stats[name]`` gathers the
+    launches, their lane counts, times, needed bytes and the largest
+    error."""
     plains = {
         "store_accepts": (sk.store_accepts_plain, (0, 1)),
         "accum_acks": (sk.accum_acks_plain, (0,)),
     }
+    taken = {name: 0 for name in plains}
+    pending = []
+
+    def hold(name, kern, snap):
+        plain, in_place = plains[name]
+        counts = dict(sk.LAUNCHES)
+        want = plain(*snap)
+        got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(snap)])
+        torch.cuda.synchronize()
+        st = stats.setdefault(name, {"launches": 0, "lanes": set(), "ms": [], "bytes": 0,
+                                     "max_abs_err": 0})
+        st["max_abs_err"] = max(st["max_abs_err"], _max_abs_err(zip(got, want)))
+        st["ms"].append(time_in_place(kern, snap, in_place, reps))
+        st["bytes"] += sk.bytes_needed(name, *snap)
+        st["launches"] += 1
+        st["lanes"].add(int(snap[0].shape[0]))
+        sk.LAUNCHES.update(counts)
 
     def checking(name, kern):
-        plain, in_place = plains[name]
-
         def launch(*ops):
             if lanes is not None and int(ops[0].shape[0]) != lanes:
                 return kern(*ops)
-            if limit is not None and stats.get(name, {}).get("launches", 0) >= limit:
+            if limit is not None and taken[name] >= limit:
                 return kern(*ops)
+            taken[name] += 1
             snap = [t.clone() for t in ops]
-            want = plain(*snap)
-            got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(snap)])
-            torch.cuda.synchronize()
-            st = stats.setdefault(name, {"launches": 0, "lanes": set(), "ms": [], "bytes": 0,
-                                         "max_abs_err": 0})
-            st["max_abs_err"] = max(st["max_abs_err"], _max_abs_err(zip(got, want)))
-            st["ms"].append(time_in_place(kern, snap, in_place, reps))
-            st["bytes"] += sk.bytes_needed(name, *snap)
-            st["launches"] += 1
-            st["lanes"].add(int(ops[0].shape[0]))
-            del snap, want, got
+            if defer:
+                pending.append((name, kern, snap))
+            else:
+                hold(name, kern, snap)
+                del snap
             return kern(*ops)
         return launch
 
     with _wrapping(sk, checking):
         yield stats
+    for job in pending:
+        hold(*job)
+    pending.clear()
 
 
 def _summarize_checked(label: str, stats: dict) -> dict:
@@ -1155,22 +1205,36 @@ def _armed(env: dict):
 
 @contextlib.contextmanager
 def dispatch_log():
-    """(lanes, round calls, seconds) of every fleet dispatch in the block."""
+    """(lanes, round calls, seconds) of every fleet, member-fleet and
+    controlled-serve dispatch in the block."""
+    from tpu_paxos_torch.fleet import member_runner as mrun
     from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.serve import control as ctl
 
     seen = []
-    real = frun.FleetRunner.run
+    real = (frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run)
 
-    def run(self, *a, **kw):
-        rep = real(self, *a, **kw)
+    def fleet(self, *a, **kw):
+        rep = real[0](self, *a, **kw)
         seen.append((rep.n_lanes, rep.iterations, rep.seconds))
         return rep
 
-    frun.FleetRunner.run = run
+    def member(self, *a, **kw):
+        rep = real[1](self, *a, **kw)
+        seen.append((rep.n_lanes, rep.iterations, rep.seconds))
+        return rep
+
+    def serve(*a, **kw):
+        t0 = time.perf_counter()
+        rep = real[2](*a, **kw)
+        seen.append((1, rep.rounds, time.perf_counter() - t0))
+        return rep
+
+    frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run = fleet, member, serve
     try:
         yield seen
     finally:
-        frun.FleetRunner.run = real
+        frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run = real
 
 
 class _Moves:
@@ -1304,8 +1368,8 @@ def _replay(here: str, shr, got: dict, gold: dict, tmp: str, env: dict, label: s
 
 
 def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
-    """Phase 11b: the sweep under the seeded wedge, then both small cases
-    found, shrunk with 8-lane dispatches, saved and replayed."""
+    """Phase 11b: the sweep under the seeded wedge, then the culprit case
+    shrunk with 8-lane dispatches, saved and replayed."""
     from tpu_paxos_torch.harness import shrink as shr
     from tpu_paxos_torch.harness import stress
 
@@ -1320,32 +1384,30 @@ def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
           f"{sw['wedge']}): seconds={s['seconds']} summary={json.dumps(less, sort_keys=True)}")
     if less != sw["summary"]:
         raise SystemExit("the seeded-wedge sweep disagrees with its JAX golden")
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, spec in sorted(gold["cases"].items()):
-            label = f"triage [{name}]"
-            case = _case_from_spec(shr, spec)
-            with _armed(spec["env"]):
-                got = _shrink_on_card(sk, shr, case, spec["max_evals"], True)
-                _print_shrink(label, got, card)
-                _hold_shrink(shr, got, spec, label)
-                if min(got["launches"].values()) < 1 or any(
-                    shr.SHRINK_BATCH_LANES not in v for v in got["lanes"].values()
-                ):
-                    raise SystemExit(f"{label}: a simkern kernel did not launch on "
-                                     f"{shr.SHRINK_BATCH_LANES}-lane operands")
-                out[name] = dict(_replay(here, shr, got, spec, tmp, spec["env"], label),
-                                 wall_s=got["wall_s"], launches=got["launches"],
-                                 dispatches=got["dispatches"], evals=got["evals"])
-                if name != "culprit":
-                    continue
-                stats = {}
-                with check_launches(sk, TRIAGE_REPS, stats, lanes=shr.SHRINK_BATCH_LANES):
-                    again = shr.shrink_case(case, max_evals=spec["max_evals"], device=DEV)
-                if shr._cfg_to_dict(again[0].cfg) != spec["final_cfg"]:
-                    raise SystemExit(f"{label}: the checked shrink disagrees with its golden")
-                out["checked"] = _summarize_checked(
-                    f"{label} {shr.SHRINK_BATCH_LANES}-lane shrink operands", stats)
+    # the golden's takeover case, a seeded wedge, is held by phase 17b's
+    # recall: a takeover wedge shrunk on the same 8-lane evaluator
+    spec = gold["cases"]["culprit"]
+    label = "triage [culprit]"
+    case = _case_from_spec(shr, spec)
+    with tempfile.TemporaryDirectory() as tmp, _armed(spec["env"]):
+        got = _shrink_on_card(sk, shr, case, spec["max_evals"], True)
+        _print_shrink(label, got, card)
+        _hold_shrink(shr, got, spec, label)
+        if min(got["launches"].values()) < 1 or any(
+            shr.SHRINK_BATCH_LANES not in v for v in got["lanes"].values()
+        ):
+            raise SystemExit(f"{label}: a simkern kernel did not launch on "
+                             f"{shr.SHRINK_BATCH_LANES}-lane operands")
+        out = {"culprit": dict(_replay(here, shr, got, spec, tmp, spec["env"], label),
+                               wall_s=got["wall_s"], launches=got["launches"],
+                               dispatches=got["dispatches"], evals=got["evals"])}
+        stats = {}
+        with check_launches(sk, TRIAGE_REPS, stats, lanes=shr.SHRINK_BATCH_LANES):
+            again = shr.shrink_case(case, max_evals=spec["max_evals"], device=DEV)
+        if shr._cfg_to_dict(again[0].cfg) != spec["final_cfg"]:
+            raise SystemExit(f"{label}: the checked shrink disagrees with its golden")
+        out["checked"] = _summarize_checked(
+            f"{label} {shr.SHRINK_BATCH_LANES}-lane shrink operands", stats)
     return out
 
 
@@ -2535,6 +2597,254 @@ def run_control(goldens, here: str, card: str) -> dict:
     return out
 
 
+MC_CHECK = 16  # launches of each kernel held against the plain version in 17a
+
+
+def start_mc_clis(gold, here: str, tmp: str):
+    """Phase 17's CLI processes, started together beside 17a: ``mc
+    --scope gray --json``, ``mc --scope nosuch`` and the takeover recall
+    (``mc --scope quick`` armed, one counterexample shrunk into ``tmp``),
+    each read by a thread that notes when it ended."""
+    import threading
+
+    t0 = time.perf_counter()
+    rc = gold["config"]["recall"]
+    runs = {
+        "gray": (gold["config"]["gray_cli"], {}),
+        "nosuch": (gold["config"]["nosuch_cli"], {}),
+        "recall": (["mc", "--scope", rc["scope"], "--max-counterexamples",
+                    str(rc["max_counterexamples"]), "--triage-dir", tmp, "--json", "--quiet"],
+                   {"TPU_PAXOS_SEEDED_WEDGE": rc["wedge"]}),
+    }
+    procs, ended, threads = {}, {}, []
+
+    def reap(key, proc):
+        ended[key] = (*proc.communicate(timeout=900), time.perf_counter() - t0)
+
+    for key, (args, env) in runs.items():
+        procs[key] = subprocess.Popen(
+            [sys.executable, "-m", "tpu_paxos_torch", *args, "--device", DEV], cwd=here,
+            env=_port_env(here, env), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        threads.append(threading.Thread(target=reap, args=(key, procs[key]), daemon=True))
+        threads[-1].start()
+    return procs, threads, ended
+
+
+def finish_mc_clis(gold, script, here: str, tmp: str, started, card: str) -> dict:
+    """17b's fault recall and 17d's CLIs against JAX's: the recall's
+    summary, certificate failure and artifact bytes, then ``repro`` of
+    the artifact with the wedge armed; the gray line less its timing and
+    device; the unknown scope's exit code and stdout."""
+    procs, threads, ended = started
+    for th in threads:
+        th.join()
+    out = {}
+
+    def fail(key, what):
+        print(ended[key][1][-3000:], file=sys.stderr)
+        raise SystemExit(f"mc CLI '{key}' disagrees with JAX's: {what}")
+
+    for key, proc in procs.items():
+        stdout, _, wall = ended[key]
+        out[key] = wall
+        if key == "nosuch":
+            want = gold["nosuch_cli"]
+            ok = (proc.returncode, stdout) == (want["rc"], want["stdout"])
+            print(f"mc CLI ({' '.join(gold['config']['nosuch_cli'])}): rc={proc.returncode} "
+                  f"wall_s={wall:.3f} | {card}")
+            if not ok:
+                fail(key, f"rc {proc.returncode}")
+            continue
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        if key == "gray":
+            want = gold["gray_cli"]
+            got = script.mc_less(summary)
+            print(f"mc CLI ({' '.join(gold['config']['gray_cli'])}): rc={proc.returncode} "
+                  f"wall_s={wall:.3f} lanes_per_sec={summary['lanes_per_sec']} "
+                  f"compiles_per_chunk={summary['compiles_per_chunk']} "
+                  f"summary_equal={got == want['summary']} | {card}")
+            if (proc.returncode, summary["certificate_failures"], got) != (
+                    want["rc"], want["certificate_failures"], want["summary"]):
+                fail(key, _dict_diff(got, want["summary"]))
+            continue
+        want = gold["recall"]
+        cx = summary["counterexamples"][0]
+        art = cx.get("artifact", "")
+        sha = _file_sha256(art) if art else ""
+        print(f"mc recall (takeover, quick scope): rc={proc.returncode} wall_s={wall:.3f} "
+              f"index={cx['scenario']['index']} violation={cx['violation']!r} "
+              f"chunks_run={summary['chunks_run']} artifact={os.path.basename(art)} "
+              f"artifact_sha256={sha} shrink_s={cx.get('shrink_seconds')} "
+              f"certificate_failures={summary['certificate_failures']} | {card}")
+        checks = {
+            "rc": proc.returncode == 1,
+            "summary": script.mc_less(summary) == want["summary"],
+            "certificate": summary["certificate_failures"] == want["certificate_failures"],
+            "artifact": (os.path.basename(art), sha) == (want["artifact"], want["artifact_sha256"]),
+        }
+        if not all(checks.values()):
+            fail(key, checks)
+        rproc, rwall = _repro_cli(here, art, {"TPU_PAXOS_SEEDED_WEDGE": gold["config"]["recall"][
+            "wedge"]})
+        rsha = _sha_text(rproc.stdout)
+        print(f"mc recall repro (python -m tpu_paxos_torch repro {os.path.basename(art)} --json): "
+              f"rc={rproc.returncode} wall_s={rwall:.3f} stdout_sha256={rsha} | {card}")
+        if rproc.returncode != 0 or rsha != want["repro_stdout_sha256"]:
+            print(rproc.stderr[-3000:], file=sys.stderr)
+            raise SystemExit("the mc recall artifact's repro disagrees with JAX's")
+    return out
+
+
+def run_mc_scopes(sk, script, m, gold, card: str) -> dict:
+    """17a: the four quick scopes in ``make mc-quick``'s order, cold
+    envelopes, each against its certificate and JAX's summary (the zero
+    pattern of runner builds included).  In the quick scope's own run, its
+    first two chunks are held lane by lane against JAX's decision logs,
+    and the first launches of each kernel against the plain version (on
+    snapshots of their operands, after the run)."""
+    from tpu_paxos_torch.fleet import envelope as envm
+    from tpu_paxos_torch.serve import control as ctl
+
+    envm.clear_cache()
+    ctl.clear_cache()
+    scopes = m.mc.load_scopes()
+    certs = m.mc.load_certificates()
+    want = gold["quick_scopes"]["summaries"]
+    out, total = {}, {"store_accepts": 0, "accum_acks": 0}
+    lanes_of = {"quick": 16, "gray": 16, "control": 1}
+    n_chunks = gold["config"]["lane_chunks"]
+    stats = {}
+    for name in gold["config"]["quick_scopes"]:
+        scope = scopes[name]
+        quick = name == "quick"
+        check = check_launches(sk, SNAP_REPS, stats, lanes=16, limit=MC_CHECK, defer=True) \
+            if quick else contextlib.nullcontext()
+        sk.reset_counts()
+        with check, script.mc_first_reports(m, n_chunks if quick else 0) as reports, \
+                lane_counts(sk) as shapes, dispatch_log() as seen:
+            s, wall, syncs, peak = _serve_timed(
+                lambda: m.mc.run_for(scope)(scope, verbose=False, device=DEV))
+        launches = dict(sk.LAUNCHES)
+        rounds = sum(x[1] for x in seen)
+        disp_s = sum(x[2] for x in seen)
+        fails = m.mc.check_certificate(certs[name], s, m.mc.enum_for(scope))
+        got = script.mc_less(s)
+        print(f"mc scope {name}: wall_s={wall:.3f} lanes={s['lanes_judged']} "
+              f"lanes_per_sec={s['lanes_judged'] / wall:.2f} chunks={s['chunks_run']} "
+              f"dispatches={len(seen)} round_calls={rounds} "
+              f"ms_per_round={disp_s / max(rounds, 1) * 1e3:.3f} "
+              f"syncs_per_round={syncs / max(rounds, 1):.2f} peak_gb={peak:.3f} "
+              f"compiles_per_chunk={s['compiles_per_chunk'][:4]}... "
+              f"verdict_bits_sha256={s['verdict_bits_sha256']} certificate_failures={fails} "
+              f"launches={json.dumps(launches, sort_keys=True)} | {card}")
+        if not s["ok"] or s["anomalies"] or fails or got != want[name]:
+            raise SystemExit(f"mc scope {name} disagrees with its certificate or JAX's summary: "
+                             f"{fails} {_dict_diff(got, want[name])}")
+        lanes = lanes_of.get(name)
+        if lanes is None:
+            if any(shapes.values()):
+                raise SystemExit(f"mc scope {name} launched a simkern kernel")
+        elif min(launches.values()) < 1 or not all(x == [lanes] * len(x) for x in shapes.values()):
+            raise SystemExit(f"mc scope {name}: a simkern kernel did not launch on {lanes}-lane "
+                             "operands")
+        for k in total:
+            total[k] += launches[k]
+        out[name] = {"wall_s": wall, "lanes_per_sec": s["lanes_judged"] / wall,
+                     "round_calls": rounds, "ms_per_round": disp_s / max(rounds, 1) * 1e3,
+                     "syncs_per_round": syncs / max(rounds, 1), "launches": launches}
+        if not quick:
+            continue
+        shas = script.mc_lane_shas(m, reports)
+        off = [i for i, (a, b) in enumerate(zip(shas, gold["quick_lanes"])) if a != b]
+        print(f"mc quick first {n_chunks} chunks of its run: {len(shas)} lanes, "
+              f"decision logs off JAX's: {off} | {card}")
+        if shas != gold["quick_lanes"]:
+            raise SystemExit("the quick scope's first chunks disagree with JAX lane for lane")
+        del reports
+    out["launches"] = total
+    out["checked"] = _summarize_checked("mc quick 16-lane operands (its first launches)", stats)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mc_control_recall(script, m, gold, here: str, tmp: str, card: str) -> dict:
+    """17b, the controller: the tiny host scope clean and with
+    ``shed-on-gray`` armed: the summaries and the mc-control artifacts'
+    bytes equal JAX's; then ``repro`` and ``trace`` of the first artifact,
+    the variable unset, print JAX's stdout with its exit code."""
+    import threading
+
+    t0 = time.perf_counter()
+    got = script.mc_tiny_control(m, tmp, device=DEV)
+    want = gold["tiny_control"]
+    arts = {n: open(os.path.join(tmp, n)).read() for n in sorted(os.listdir(tmp))}
+    print(f"mc control recall (shed-on-gray, tiny scope): wall_s={time.perf_counter() - t0:.3f} "
+          f"counterexamples={len(got['wedged']['counterexamples'])} artifacts={sorted(arts)} "
+          f"bytes_equal={arts == want['artifacts']} | {card}")
+    if (script.mc_less(got["clean"]), script.mc_less(got["wedged"]), arts) != (
+            want["clean"], want["wedged"], want["artifacts"]):
+        raise SystemExit("the controller recall disagrees with JAX's summaries or artifact bytes")
+    ended = {}
+    env = _port_env(here)
+    env.pop("TPU_PAXOS_SEEDED_WEDGE", None)
+
+    def run(key):
+        ended[key] = subprocess.run(
+            [sys.executable, "-m", "tpu_paxos_torch", *key.split(), "--device", DEV], cwd=tmp,
+            env=env, capture_output=True, text=True, timeout=600)
+    threads = [threading.Thread(target=run, args=(k,)) for k in want["cli"]]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for key, w in want["cli"].items():
+        proc = ended[key]
+        print(f"mc control CLI (python -m tpu_paxos_torch {key}): rc={proc.returncode} "
+              f"stdout_sha256={_sha_text(proc.stdout)} | {card}")
+        if (proc.returncode, proc.stdout) != (w["rc"], w["stdout"]):
+            print(proc.stderr[-3000:], file=sys.stderr)
+            raise SystemExit(f"'{key}' disagrees with the JAX CLI's")
+    return {"wall_s": time.perf_counter() - t0}
+
+
+def run_mc_full_prefix(script, m, gold, card: str) -> dict:
+    """17c: the full scope's first chunks, their verdict bits the prefix
+    of its certificate's."""
+    scope = m.mc.load_scopes()["full"]
+    pinned = m.mc.load_certificates()["full"]
+    s, wall, syncs, peak = _serve_timed(lambda: m.mc.run_scope(
+        scope, verbose=False, chunk_limit=gold["config"]["full_chunks"], device=DEV))
+    fails = m.mc.check_certificate(
+        dict(pinned, verdict_bits=pinned["verdict_bits"][:len(s["verdict_bits"])]), s,
+        m.mc.enum_for(scope))
+    print(f"mc scope full (first {s['chunks_run']} of {s['chunks']} chunks): wall_s={wall:.3f} "
+          f"lanes_per_sec={s['lanes_judged'] / wall:.2f} verdict_prefix={s['verdict_bits']} "
+          f"certificate_failures={fails} | {card}")
+    if fails or not s["ok"] or s["scenarios_reduced"] != pinned["scenarios_reduced"]:
+        raise SystemExit(f"the full scope's prefix disagrees with its certificate: {fails}")
+    return {"wall_s": wall}
+
+
+def run_mc(goldens, here: str, card: str) -> dict:
+    """Phase 17: model checking on the card."""
+    from tpu_paxos_torch.core import simkern as sk
+
+    gold = goldens["mc"]
+    script = _goldens_script(here)
+    m = script.mc_modules(port=True)
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recall_dir, ctl_dir = os.path.join(tmp, "recall"), os.path.join(tmp, "ctl")
+        os.makedirs(ctl_dir)
+        clis = start_mc_clis(gold, here, recall_dir)
+        out = {"scopes": run_mc_scopes(sk, script, m, gold, card)}
+        out["control_recall"] = run_mc_control_recall(script, m, gold, here, ctl_dir, card)
+        out["full"] = run_mc_full_prefix(script, m, gold, card)
+        out["cli"] = finish_mc_clis(gold, script, here, recall_dir, clis, card)
+    print(f"phase 17 (model checking) took {time.perf_counter() - t17:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2596,6 +2906,7 @@ def main() -> int:
     run_member(goldens, here, card)
     serve = run_serve(goldens, here, card)
     control = run_control(goldens, here, card)
+    mc = run_mc(goldens, here, card)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -2658,6 +2969,11 @@ def main() -> int:
             "control_fleet_checked": control["fleet"]["checked"][name]["launches"],
             "control_fleet_ms": control["fleet"]["checked"][name]["ms"],
             "control_fleet_bound_ms": control["fleet"]["checked"][name]["bound_ms"],
+            "mc_launches": mc["scopes"]["launches"][key],
+            "mc_lanes": mc["scopes"]["checked"][name]["lanes"][0],
+            "mc_checked": mc["scopes"]["checked"][name]["launches"],
+            "mc_ms": mc["scopes"]["checked"][name]["ms"],
+            "mc_bound_ms": mc["scopes"]["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({

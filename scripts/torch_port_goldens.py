@@ -1513,6 +1513,247 @@ def control_goldens() -> dict:
     }
 
 
+#: Phase 17 (model checking).  ``tiny_fault`` and ``tiny_control`` are
+#: the small scopes of ``tests/test_modelcheck.py`` and
+#: ``tests/test_mc_control.py``; ``churn_cx`` is the 4-round scope of
+#: ``test_mc_member.py::test_churn_counterexample_dumps_named_artifact``
+#: with adds of nodes 1 and 2 over two events (that test's own grid, one
+#: plain value, finishes within its 4 rounds, so it dumps nothing);
+#: ``quick_scopes`` run in ``make mc-quick``'s order in one process;
+#: ``lane_chunks`` of the quick scope are held lane by lane.
+MC = {
+    "tiny_fault": {
+        "n_nodes": 3, "proposers": 2, "horizon": 12, "max_rounds": 400,
+        "intervals": [[2, 8]], "kinds": ["pause", "burst", "crash"],
+        "pause_set_sizes": [1], "burst_rates": [2000],
+        "crash_rounds": [4], "crash_set_sizes": [1], "max_episodes": 2,
+        "knob_tiers": [{"drop_rate": 500, "max_delay": 2}],
+        "gate_tiers": [True, False], "seeds": [0], "chunk_lanes": 4,
+        "n_ids": 2, "n_free": 2,
+    },
+    "tiny_control": {
+        "tier_bands": [[3, 1, 2]], "patiences": [1], "ladders": [[]],
+        "window_sets": [[], ["gray-region"], ["saturation"]],
+        "burn_tiers": [0, 900], "max_dispatches": 2, "plan_values": 4,
+        "chunk_lanes": 16,
+    },
+    "tiny_control_cx": 3,
+    "churn_cx": {
+        "n_nodes": 3, "n_instances": 8, "max_rounds": 4, "horizon": 2,
+        "plain_values": 1, "add_targets": [1, 2], "t0_grid": [0],
+        "max_events": 2, "seeds": [0], "chunk_lanes": 4,
+    },
+    "churn_cx_max": 2,
+    "quick_scopes": ["quick", "gray", "churn", "control"],
+    "lane_chunks": 2,
+    "recall": {"scope": "quick", "wedge": "takeover", "max_counterexamples": 1},
+    "full_chunks": 2,
+    "gray_cli": ["mc", "--scope", "gray", "--json", "--quiet"],
+    "nosuch_cli": ["mc", "--scope", "nosuch"],
+}
+
+#: Summary keys that hold timings or name the device, and the two the
+#: ``mc`` CLI adds (the scope's name; its certificate failures, which its
+#: exit code reflects).
+MC_LESS_KEYS = ("lanes_per_sec", "backend", "scope", "certificate_failures")
+
+
+def mc_modules(port: bool):
+    """The model checker's modules of one package (``port=True``: the
+    port's, which ``chip_smoke.py`` and the tests drive)."""
+    import types
+
+    if port:
+        from tpu_paxos_torch.analysis import mc_control, mc_member, modelcheck
+        from tpu_paxos_torch.fleet import envelope, runner
+        from tpu_paxos_torch.harness import shrink, stress
+        from tpu_paxos_torch.replay.decision_log import decision_log
+        from tpu_paxos_torch.serve import control
+    else:
+        from tpu_paxos.analysis import mc_control, mc_member, modelcheck
+        from tpu_paxos.fleet import envelope, runner
+        from tpu_paxos.harness import shrink, stress
+        from tpu_paxos.replay.decision_log import decision_log
+        from tpu_paxos.serve import control
+    return types.SimpleNamespace(mc=modelcheck, mcm=mc_member, mcc=mc_control, env=envelope,
+                                 frun=runner, shr=shrink, strs=stress, ctl=control,
+                                 decision_log=decision_log)
+
+
+def mc_less(summary: dict) -> dict:
+    """A run_scope or ``mc --json`` summary less :data:`MC_LESS_KEYS`,
+    ``compiles_per_chunk`` cut to its zero pattern (JAX counts XLA
+    compiles, the port runner builds) and counterexamples without their
+    artifact path and shrink seconds."""
+    out = {k: v for k, v in summary.items() if k not in MC_LESS_KEYS}
+    out["compiles_per_chunk"] = [c > 0 for c in summary["compiles_per_chunk"]]
+    out["counterexamples"] = [
+        {k: v for k, v in cx.items() if k not in ("artifact", "shrink_seconds")}
+        for cx in summary["counterexamples"]
+    ]
+    return out
+
+
+def mc_env(m, env: dict):
+    """``env`` set in ``os.environ`` for the block, the envelope cache of
+    ``m``'s package cleared on the way in and out."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        m.env.clear_cache()
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            m.env.clear_cache()
+    return scope()
+
+
+def mc_first_reports(m, keep: int):
+    """The reports of the first ``keep`` ``FleetRunner.run`` dispatches
+    of ``m``'s package in the block (``run_scope``'s own chunks)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        real = m.frun.FleetRunner.run
+        reports = []
+
+        def run(self, *a, **kw):
+            rep = real(self, *a, **kw)
+            if len(reports) < keep:
+                reports.append(rep)
+            return rep
+        m.frun.FleetRunner.run = run
+        try:
+            yield reports
+        finally:
+            m.frun.FleetRunner.run = real
+    return scope()
+
+
+def mc_lane_shas(m, reports) -> list:
+    """The decision-log sha256 of every judged lane of the quick scope's
+    chunk ``reports`` (stride: the largest workload vid + 1)."""
+    import numpy as np
+
+    scope = m.mc.load_scopes()["quick"]
+    wl, _, _ = m.strs._workload(scope.proposers, np.random.default_rng(scope.workload_seed),
+                                n_ids=scope.n_ids, n_free=scope.n_free)
+    n_instances = 2 * sum(len(w) for w in wl)
+    stride = int(max(int(w.max()) for w in wl)) + 1
+    pads = m.mc.chunk_pad(m.mc.ScopeEnum(scope).reduced, scope.chunk_lanes)
+    out = []
+    for rep, (_, n_real) in zip(reports, pads):
+        for i in range(n_real):
+            r = rep.lane_result(i)
+            text = m.decision_log(r.chosen_vid, r.chosen_ballot, stride, n_instances)
+            out.append(hashlib.sha256(text.encode()).hexdigest())
+    return out
+
+
+def mc_recall(m, out_dir: str, **dev) -> dict:
+    """17b, the fault scope: the quick scope with the takeover wedge
+    armed, stopped at its first counterexample, shrunk into
+    ``out_dir``; the summary and the certificate failures it draws."""
+    rc = MC["recall"]
+    scope = m.mc.load_scopes()[rc["scope"]]
+    enum = m.mc.ScopeEnum(scope)
+    with mc_env(m, {"TPU_PAXOS_SEEDED_WEDGE": rc["wedge"]}):
+        s = m.mc.run_scope(scope, verbose=False, triage_dir=out_dir,
+                           max_counterexamples=rc["max_counterexamples"], **dev)
+    pinned = m.mc.load_certificates()[rc["scope"]]
+    fails = m.mc.check_certificate(
+        dict(pinned, verdict_bits=pinned["verdict_bits"][:len(s["verdict_bits"])]), s, enum)
+    return {"summary": s, "certificate_failures": fails}
+
+
+def mc_tiny_control(m, out_dir: str, **dev) -> dict:
+    """17b, the controller: the tiny host scope clean, then armed with
+    ``shed-on-gray`` (counterexamples shrunk into ``out_dir``)."""
+    scope = m.mcc.ControlScope.from_dict(MC["tiny_control"])
+    clean = m.mcc.run_scope(scope, verbose=False, **dev)
+    with mc_env(m, {"TPU_PAXOS_SEEDED_WEDGE": m.ctl.WEDGE_SHED_ON_GRAY}):
+        wedged = m.mcc.run_scope(scope, verbose=False, triage_dir=out_dir,
+                                 max_counterexamples=MC["tiny_control_cx"], **dev)
+    return {"clean": clean, "wedged": wedged}
+
+
+def mc_churn_cx(m, out_dir: str, **dev) -> dict:
+    scope = m.mcm.ChurnScope.from_dict(MC["churn_cx"])
+    return m.mcm.run_scope(scope, triage_dir=out_dir, verbose=False,
+                           max_counterexamples=MC["churn_cx_max"], **dev)
+
+
+def _dump_texts(summary: dict) -> dict:
+    out = {}
+    for cx in summary["counterexamples"]:
+        if "artifact" in cx:
+            with open(cx["artifact"]) as f:
+                out[os.path.basename(cx["artifact"])] = f.read()
+    return out
+
+
+def mc_goldens() -> dict:
+    """Every phase-17 golden, from the JAX package on the CPU."""
+    import tempfile
+
+    m = mc_modules(port=False)
+    out = {"config": MC}
+    proc = _jax_module(["tpu_paxos", "mc", "--scope", ",".join(MC["quick_scopes"]), "--json",
+                        "--quiet"])
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    out["quick_scopes"] = {"rc": proc.returncode,
+                           "summaries": {d["scope"]: mc_less(d) for d in lines}}
+    with mc_first_reports(m, MC["lane_chunks"]) as reports:
+        m.mc.run_scope(m.mc.load_scopes()["quick"], verbose=False,
+                       chunk_limit=MC["lane_chunks"])
+    out["quick_lanes"] = mc_lane_shas(m, reports)
+    out["tiny_fault"] = mc_less(m.mc.run_scope(m.mc.McScope.from_dict(MC["tiny_fault"]),
+                                               verbose=False))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = mc_recall(m, tmp)
+        s = rec["summary"]
+        cx = s["counterexamples"][0]  # the one shrunk (the budget is 1)
+        name = os.path.basename(cx["artifact"])
+        rstdout = repro_stdout(cx["artifact"], {"TPU_PAXOS_SEEDED_WEDGE": MC["recall"]["wedge"]})
+        out["recall"] = {
+            "summary": mc_less(s),
+            "certificate_failures": rec["certificate_failures"],
+            "artifact": name,
+            "artifact_sha256": _file_sha256(cx["artifact"]),
+            "repro_stdout_sha256": hashlib.sha256(rstdout.encode()).hexdigest(),
+            "repro_match": json.loads(rstdout.splitlines()[-1])["match"],
+        }
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl = mc_tiny_control(m, tmp)
+        arts = _dump_texts(ctl["wedged"])
+        first = os.path.basename(ctl["wedged"]["counterexamples"][0]["artifact"])
+        clis = {}
+        for args in (["repro", first], ["repro", first, "--json"], ["trace", first, "--stdout"]):
+            p = _jax_module(["tpu_paxos", *args], cwd=tmp)
+            clis[" ".join(args)] = {"rc": p.returncode, "stdout": p.stdout}
+        out["tiny_control"] = {"clean": mc_less(ctl["clean"]), "wedged": mc_less(ctl["wedged"]),
+                               "artifacts": arts, "cli": clis}
+    with tempfile.TemporaryDirectory() as tmp:
+        s = mc_churn_cx(m, tmp)
+        out["churn_cx"] = {"summary": mc_less(s), "artifacts": _dump_texts(s)}
+    p = _jax_module(["tpu_paxos", *MC["gray_cli"]])
+    gray = json.loads(p.stdout)
+    out["gray_cli"] = {"rc": p.returncode, "certificate_failures": gray["certificate_failures"],
+                       "summary": mc_less(gray)}
+    p = _jax_module(["tpu_paxos", *MC["nosuch_cli"]])
+    out["nosuch_cli"] = {"rc": p.returncode, "stdout": p.stdout}
+    return out
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -1537,6 +1778,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         out["member"] = member_goldens()
         out["serve"] = serve_goldens()
         out["control"] = control_goldens()
+        out["mc"] = mc_goldens()
 
     if out_dir is not None:
         rest(out_dir)
@@ -1604,6 +1846,8 @@ def main(argv=None) -> int:
                     help="recompute only the member entry of the --write file")
     ap.add_argument("--control-only", action="store_true",
                     help="recompute only the control entry (phase 16) of the --write file")
+    ap.add_argument("--mc-only", action="store_true",
+                    help="recompute only the mc entry (phase 17) of the --write file")
     ap.add_argument("--serve-only", action="store_true",
                     help="recompute only the serve entry (phase 15) and the host-loop "
                     "half of the stress_fleet entry of the --write file")
@@ -1615,7 +1859,7 @@ def main(argv=None) -> int:
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
     if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
-            or args.member_only or args.serve_only or args.control_only):
+            or args.member_only or args.serve_only or args.control_only or args.mc_only):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -1634,6 +1878,8 @@ def main(argv=None) -> int:
             out["stress_fleet"].update(host_seeds=STRESS_HOST_SEEDS, host=stress_host_golden())
         if args.control_only:
             out["control"] = control_goldens()
+        if args.mc_only:
+            out["mc"] = mc_goldens()
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

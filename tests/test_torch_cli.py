@@ -98,10 +98,8 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
 
 
 #: Placeholders replaced by a written artifact of that engine.
-_MC_ART = "{mc-control artifact}"
 _SHARDED_ART = "{sharded artifact}"
-_ARTS = {_MC_ART: "mc-control", _SHARDED_ART: "sharded"}
-_MC = "engine 'mc-control' artifacts (the controller model checker)"
+_ARTS = {_SHARDED_ART: "sharded"}
 _SHARDED = "engine 'sharded' artifacts (the instance-sharded engine)"
 
 
@@ -111,32 +109,39 @@ _SHARDED = "engine 'sharded' artifacts (the instance-sharded engine)"
     pytest.param(["4", "4", "10", "--engine=member", "--mesh", "2"], "--engine=member",
                  id="argv1---engine=member"),
     (["4", "4", "10", "--mesh", "2"], "--mesh"),
-    # trace, its serve mode and the trace of a serve controller's artifact
-    # are ported; the trace of a controller model checker's is not (kept
-    # under the case's id)
-    pytest.param(["trace", _MC_ART, "--stdout"], f"trace of {_MC}", id="argv3-'trace'"),
+    # trace is ported, of every artifact engine but the sharded one (the
+    # trace of a controller model checker's artifact fails the repro
+    # schema as JAX's does: test_torch_mc_control.py); audit --hlo is not
+    # (kept under the case's id)
+    pytest.param(["audit", "--hlo"], "'audit'", id="argv3-'trace'"),
     # fleet is ported; lint is not (kept under the case's id)
     pytest.param(["lint"], "'lint'", id="argv4-'fleet'"),
     # serve and its admission controller are ported; audit is not (kept
     # under the case's id)
     pytest.param(["audit"], "'audit'", id="argv5-'serve'"),
     (["evolve"], "'evolve'"),
-    (["mc", "--scope", "quick"], "'mc'"),
+    # mc is ported (test_mc_cli_routes_to_the_model_checker); evolve's
+    # member axis is not (kept under the case's id)
+    pytest.param(["evolve", "--axis", "member"], "'evolve'", id="argv7-'mc'"),
     (["serve", "--fleet", "--mesh", "2"], "'serve --fleet --mesh'"),
     # the controller's surfaces below are ported (tests/test_torch_control.py
     # and test_serve_control_cli_equals_the_jax_cli); their cases keep their
     # ids on what still refuses: the controlled fleet's mesh and the replay
-    # of sharded and controller-model-checker artifacts
+    # of sharded artifacts (mc-control artifacts replay since the model
+    # checker was ported: test_repro_routes_mc_control_artifacts)
     pytest.param(["serve", "--fleet", "--mesh", "2", "--control", "--slo-latency", "8"],
                  "'serve --fleet --mesh'", id="argv9-'serve --fleet --control'"),
     pytest.param(["repro", _SHARDED_ART], f"repro of {_SHARDED}",
                  id="argv10-'serve --control-ab'"),
     pytest.param(["trace", _SHARDED_ART, "--stdout"], f"trace of {_SHARDED}",
                  id="argv11-'serve --save-artifact'"),
-    pytest.param(["repro", _MC_ART], f"repro of {_MC}",
+    pytest.param(["repro", _SHARDED_ART, "--json"], f"repro of {_SHARDED}",
                  id="argv12-repro of engine 'serve' artifacts (the serve admission controller)"),
 ])
 def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path):
+    """Some cases keep the id of a surface since ported; each failure
+    names the command line it ran and the surface it expected refused."""
+    surface = f"{what}: {' '.join(argv)}"
     for key, engine in sorted(_ARTS.items()):
         if key in argv:
             with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
@@ -146,9 +151,38 @@ def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path):
             with open(path, "w") as f:
                 json.dump(art, f)
             argv = [path if a == key else a for a in argv]
-    assert tcli.main(argv + ["--device", "cpu"]) == 2
+    assert tcli.main(argv + ["--device", "cpu"]) == 2, surface
     out = capsys.readouterr()
-    assert f"{what} is not ported yet" in out.err and out.out == ""
+    assert f"{what} is not ported yet" in out.err and out.out == "", surface
+
+
+def test_mc_cli_routes_to_the_model_checker(capsys):
+    """``mc`` is ported: an unknown scope is the checker's scope error
+    (exit 2, named on stderr, nothing on stdout), as in the JAX CLI."""
+    gold = _goldens()["mc"]
+    assert tcli.main(gold["config"]["nosuch_cli"] + ["--device", "cpu"]) == 2
+    out = capsys.readouterr()
+    assert (2, out.out) == (gold["nosuch_cli"]["rc"], gold["nosuch_cli"]["stdout"])
+    assert "scope 'nosuch' not in" in out.err and "not ported" not in out.err
+
+
+def test_repro_routes_mc_control_artifacts(tmp_path, capsys, monkeypatch):
+    """``repro`` of an ``engine: "mc-control"`` artifact goes to
+    ``analysis/mc_control.reproduce`` and prints the JAX CLI's stdout."""
+    from tpu_paxos_torch.analysis import mc_control
+
+    calls = []
+    real = mc_control.reproduce
+    monkeypatch.setattr(mc_control, "reproduce",
+                        lambda path, device=None: calls.append(path) or real(path, device))
+    gold = _goldens()["mc"]["tiny_control"]
+    name = sorted(gold["artifacts"])[0]
+    (tmp_path / name).write_text(gold["artifacts"][name])
+    with _in_dir(str(tmp_path)):
+        rc = tcli.main(["repro", name, "--device", "cpu"])
+    want = gold["cli"][f"repro {name}"]
+    assert (rc, capsys.readouterr().out) == (want["rc"], want["stdout"])
+    assert calls == [name]
 
 
 def _control_gold():
@@ -452,6 +486,15 @@ with tempfile.TemporaryDirectory() as tmp:
     control.save_artifact(path, ctl)
     with contextlib.redirect_stdout(io.StringIO()):
         rc_ctl = cli.main(["repro", path, "--device", "cpu"])
+from tpu_paxos_torch.analysis import mc_control, mc_member, modelcheck, triage
+tiny = mc_control.ControlScope.from_dict({
+    "tier_bands": [[3, 1, 2]], "patiences": [1], "ladders": [[]],
+    "window_sets": [[], ["gray-region"]], "burn_tiers": [900], "max_dispatches": 1})
+with contextlib.redirect_stderr(io.StringIO()):
+    rc_nosuch = cli.main(["mc", "--scope", "nosuch", "--device", "cpu"])
+mc_ok = (rc_nosuch == 2 and mc_control.run_scope(tiny, verbose=False, device="cpu")["ok"]
+         and len(mc_member.ChurnEnum(modelcheck.load_scopes()["churn"]).reduced) == 302
+         and triage.dump_name("mc", "scenario_1", "json") == "mc_scenario_1.json")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -468,7 +511,7 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and [serve_out[0]["metric"], serve_out[1]["metric"]] == ["serve", "serve_fleet"]
       and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
       and serve_out[2]["otherData"]["engine"] == "serve_fleet"
-      and ctl.done and ctl.backlog == 0 and rc_ctl == 0)
+      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok)
 print(len(mods), bool(ok), loaded)
 """
 
@@ -477,7 +520,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 48  # every module of the package was imported, serve/ too
+    assert int(n_mods) >= 52  # every module of the package was imported, analysis/ mc too
     assert done == "True"
     assert loaded.strip() == "[]"
 

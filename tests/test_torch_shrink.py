@@ -243,18 +243,21 @@ def test_repro_cli_exit_code_and_stdout_equal_jax(kind, rc, tmp_path, monkeypatc
 
 @pytest.mark.parametrize("engine", ["sharded", "serve", "mc-control"])
 def test_repro_cli_unported_engine_exits_2(engine, tmp_path, capsys, monkeypatch):
-    """Sharded and mc-control artifacts exit 2 by name.  Serve artifacts
-    replay through the admission controller (tests/test_torch_control.py);
-    this one, a sim artifact re-stamped ``serve`` without its ``serve``
-    block, exits 2 with JAX's schema error, stdout for stdout."""
+    """Sharded artifacts exit 2 by name.  Serve artifacts replay through
+    the admission controller (tests/test_torch_control.py) and mc-control
+    ones through the controller model checker
+    (tests/test_torch_mc_control.py); these, a sim artifact re-stamped
+    ``serve`` without its ``serve`` block or ``mc-control`` without its
+    policy, exit 2 with JAX's schema error, stdout for stdout."""
     monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
     path = _artifact_variant(tmp_path, engine)
-    if engine == "serve":
+    if engine in ("serve", "mc-control"):
         assert jcli.run_repro([path, "--json"]) == 2
         want = capsys.readouterr().out
         assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == 2
         assert capsys.readouterr().out == want
-        assert json.loads(want)["schema_error"]["field"] == "serve"
+        assert json.loads(want)["schema_error"]["field"] == (
+            "serve" if engine == "serve" else "policy")
         return
     assert tcli.main(["repro", path, "--device", "cpu"]) == 2
     err = capsys.readouterr().err

@@ -90,14 +90,15 @@ def test_trace_writes_the_file_beside_the_artifact(tmp_path):
 
 # ``trace --serve`` and the trace of a serve controller's artifact are
 # ported (test_trace_serve_stdout_equals_jax,
-# test_trace_of_the_committed_serve_artifact_equals_jax); what still exits
-# 2 by name is the trace of a sharded and of a controller model checker's
-# artifact (the cases keep their ids)
+# test_trace_of_the_committed_serve_artifact_equals_jax); the trace of a
+# sharded artifact still exits 2 by name, and that of a controller model
+# checker's exits 2 on the repro schema, as JAX's does (the cases keep
+# their ids)
 @pytest.mark.parametrize("engine", [
     pytest.param("sharded", id="argv0"),
     pytest.param("mc-control", id="argv1"),
 ])
-def test_trace_serve_exits_2_by_name(engine, tmp_path):
+def test_trace_serve_exits_2_by_name(engine, tmp_path, monkeypatch):
     with open(os.path.join(DATA, "repro_culprit.json")) as f:
         art = json.load(f)
     art["engine"] = engine
@@ -105,8 +106,16 @@ def test_trace_serve_exits_2_by_name(engine, tmp_path):
     with open(path, "w") as f:
         json.dump(art, f)
     rc, out, err = _cli(["trace", path, "--stdout", "--device", "cpu"])
-    assert rc == 2 and out == ""
-    assert f"trace of engine '{engine}' artifacts" in err and "not ported yet" in err
+    if engine == "sharded":
+        assert rc == 2 and out == ""
+        assert f"trace of engine '{engine}' artifacts" in err and "not ported yet" in err
+        return
+    monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
+    jout = io.StringIO()
+    with contextlib.redirect_stdout(jout), contextlib.redirect_stderr(io.StringIO()):
+        jrc = jex.main([path, "--stdout", "--backend", "cpu"])
+    assert (rc, out) == (jrc, jout.getvalue()) and rc == 2
+    assert "schema_error" in out and "not ported" not in err
 
 
 @pytest.mark.parametrize("argv", [

@@ -16,7 +16,7 @@ proposed meanwhile, shrink back to {0}, check prefix consistency; with
 and ``--save-state F`` writing the engine checkpoint) the verdict line,
 with the decision-log hash.  Exit code 0 iff every invariant holds; 2
 for what the port does not run yet (``--mesh``, every subcommand but
-``repro``, ``trace``, ``fleet`` and ``serve``).
+``repro``, ``trace``, ``fleet``, ``serve`` and ``mc``).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -42,6 +42,12 @@ an open-loop value stream (``serve/harness.py``) and ``serve --fleet
 printing one JSON summary line; ``--control``, ``--control-ab`` and
 ``--save-artifact`` arm the admission controller (``serve/control.py``),
 whose artifacts ``repro`` replays; ``--mesh`` exits 2.
+
+``python -m tpu_paxos_torch mc [--scope quick,gray,churn,control]
+[--json] [--triage-dir D] [--device {cuda,cpu}]`` model-checks the
+declared scopes (``analysis/modelcheck.py``) against the committed
+certificates; ``repro`` replays its ``mc-control`` counterexample
+artifacts (``analysis/mc_control.reproduce``).
 """
 
 from __future__ import annotations
@@ -51,12 +57,11 @@ import json
 import os
 import sys
 
-_SUBCOMMANDS = ("evolve", "mc", "lint", "audit")
+_SUBCOMMANDS = ("evolve", "lint", "audit")
 
 #: Artifact engines whose replay is not ported yet, and what replays them.
 _UNPORTED_ENGINES = {
     "sharded": "the instance-sharded engine",
-    "mc-control": "the controller model checker",
 }
 
 
@@ -397,6 +402,11 @@ def run_repro(argv) -> int:
         # controller: the same schema surface, the decision log extended
         # with the control trail
         from tpu_paxos_torch.serve import control as shr
+    elif engine == "mc-control":
+        # controller-invariant counterexamples replay as a pure host
+        # decide() trail: the artifact carries the full policy, so no
+        # wedge env is needed
+        from tpu_paxos_torch.analysis import mc_control as shr
     else:
         from tpu_paxos_torch.harness import shrink as shr
 
@@ -454,6 +464,13 @@ def main(argv=None) -> int:
         from tpu_paxos_torch.fleet import search as fsearch
 
         return fsearch.main(argv[1:])
+    if argv and argv[0] == "mc":
+        # exhaustive bounded model checking: a declared scope's whole
+        # scenario cross product as chunked fleet lanes, gated on the
+        # pinned scope certificate
+        from tpu_paxos_torch.analysis import modelcheck
+
+        return modelcheck.main(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2

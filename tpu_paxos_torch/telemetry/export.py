@@ -29,8 +29,10 @@ artifact is never modified.  ``trace --serve`` runs an open-loop
 serving stream (or one lane of a serve fleet) and renders its timeline
 (:func:`trace_serve`).  A controlled-serve artifact (engine ``"serve"``)
 renders as JAX renders it: its config and workload replayed closed-loop,
-recorder-free.  Artifacts of engines whose replay is not ported yet (the
-sharded engine, the controller model checker) exit 2 by name.
+recorder-free.  An ``mc-control`` artifact carries no engine run to
+render: it fails the repro schema, as it does for JAX's ``trace`` (the
+schema error line, exit 2).  Artifacts of engines whose replay is not
+ported yet (the sharded engine) exit 2 by name.
 """
 
 from __future__ import annotations
