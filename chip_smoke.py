@@ -105,10 +105,11 @@ Phases (any failure exits non-zero; nothing is caught):
    c. Full width: ``bench_sim_partition_flap`` (2**23 instances) with
       ``decision_round_max`` one below its last decision, shrunk with
       ``shrink_case(max_evals=3, batch=False)`` (one-lane runtime runs at
-      2**23), then ``save_artifact`` and a CLI ``repro``: the final case,
-      violation, moves, evals, the artifact's decision-log sha256 and
-      rounds, the file's and the CLI stdout's sha256 and ``match`` must
-      equal JAX's.  Prints the peak device memory.
+      2**23), then ``save_artifact``: the final case, violation, moves,
+      evals, the artifact's decision-log sha256 and rounds and the file's
+      sha256 must equal JAX's.  Prints the peak device memory.  Its CLI
+      ``repro`` runs beside 12d's traces, and its ``match`` and stdout
+      sha256 must equal JAX's.
 12. The flight recorder on the card, against the JAX goldens
    (``telemetry``), with phase 12's own seconds:
    a. ``sim.run_with_telemetry`` (``window_rounds`` 16) at full width on
@@ -133,8 +134,8 @@ Phases (any failure exits non-zero; nothing is caught):
       subprocesses at once, in each artifact's directory, on the two committed
       artifacts (``tpu_paxos_torch/data/repro_{culprit,takeover}.json``,
       the latter with the seeded wedge armed) and on 11c's 2**23
-      artifact: each stdout's sha256 must equal JAX's and the artifact's
-      bytes stay unchanged.
+      artifact, with 11c's ``repro`` started beside them: each stdout's
+      sha256 must equal JAX's and the artifact's bytes stay unchanged.
 13. The schedule search, the fleet stress sweep and the geometry-padded
    envelope on the card, against the JAX goldens (``search``,
    ``stress_fleet``, ``envelope``), with phase 13's own seconds:
@@ -298,6 +299,31 @@ Phases (any failure exits non-zero; nothing is caught):
    d. ``mc --scope gray --json`` (its line less timing and device equals
       JAX's, the zero pattern kept) and ``mc --scope nosuch`` (exit 2),
       subprocesses started with 17a.
+
+18. The selection loop on the card, against the JAX goldens (``evolve``),
+   with phase 18's own seconds.  Every run starts from a cold envelope;
+   ``compiles_per_generation`` counts runner builds, so its value in
+   generation 0 is the port's, and its zero pattern JAX's.
+   a. ``make evolve-quick``'s line (8 lanes, 2 generations, seed 2, the
+      synthetic bound at round 35, one wedge) through ``python -m
+      tpu_paxos_torch evolve`` in this process: the summary less the wall
+      fields, the shrunk artifact's bytes and ``repro`` of it equal JAX's;
+      both kernels launch on 8-lane operands, and the first 16 launches of
+      each are held against the plain version (on snapshots of their
+      operands, after the run).
+   b. The pure operators' seeded sweep; the member axis (4 lanes, 2
+      generations, duel-churn; no kernel launches), the serve axis (6
+      lanes, 3 generations, saturation; its first 16 launches of each
+      kernel held) and the one-lane ``lane_causes`` case: populations,
+      wedges, causes, burns and triage files equal JAX's.
+   c. The card's default population: ``evolve --lanes 128 --generations 2
+      --seed 0 --hunt duel-churn``; the summary less the wall fields equals
+      JAX's; lanes/s, ms and syncs a round.
+   d. The certified recall (``BENCH_evolve.json``'s contract) is not run
+      here: its wedged lanes run 20,096 rounds in a generation dispatch, the
+      single re-run, the shrinker's dispatches and the replay, far past this
+      script's time limit.  ``tests/test_torch_evolve_cuda.py`` holds it on
+      the card in a call of its own.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -1204,15 +1230,17 @@ def _armed(env: dict):
 
 
 @contextlib.contextmanager
-def dispatch_log():
+def dispatch_log(single: list | None = None):
     """(lanes, round calls, seconds) of every fleet, member-fleet and
-    controlled-serve dispatch in the block."""
+    controlled-serve dispatch in the block; with ``single``, every one-lane
+    ``sim.run`` (a flagged lane's re-run, a replay) is logged there too."""
+    from tpu_paxos_torch.core import sim
     from tpu_paxos_torch.fleet import member_runner as mrun
     from tpu_paxos_torch.fleet import runner as frun
     from tpu_paxos_torch.serve import control as ctl
 
     seen = []
-    real = (frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run)
+    real = (frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run, sim.run)
 
     def fleet(self, *a, **kw):
         rep = real[0](self, *a, **kw)
@@ -1230,11 +1258,20 @@ def dispatch_log():
         seen.append((1, rep.rounds, time.perf_counter() - t0))
         return rep
 
+    def one(*a, **kw):
+        t0 = time.perf_counter()
+        res = real[3](*a, **kw)
+        single.append((1, int(res.rounds), time.perf_counter() - t0))
+        return res
+
     frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run = fleet, member, serve
+    if single is not None:
+        sim.run = one
     try:
         yield seen
     finally:
-        frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run = real
+        frun.FleetRunner.run, mrun.MemberFleetRunner.run, ctl.controlled_serve_run = real[:3]
+        sim.run = real[3]
 
 
 class _Moves:
@@ -1247,17 +1284,30 @@ class _Moves:
         self.moves.append(fmt % args)
 
 
-def _repro_cli(here: str, path: str, env: dict):
-    """``python -m tpu_paxos_torch repro <basename> --json`` in the
-    artifact's directory, as the JAX golden's replay was run."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+def _repro_start(here: str, path: str, env: dict):
+    """Starts ``python -m tpu_paxos_torch repro <basename> --json`` in the
+    artifact's directory, as the JAX golden's replay was run; returns the
+    process and its start time."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", "tpu_paxos_torch", "repro", os.path.basename(path), "--json",
          "--device", DEV],
-        cwd=os.path.dirname(path), env=_port_env(here, env), capture_output=True,
-        text=True, timeout=600,
+        cwd=os.path.dirname(path), env=_port_env(here, env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
     )
-    return proc, time.perf_counter() - t0
+    return proc, time.perf_counter()
+
+
+def _repro_wait(started):
+    """The finished replay of :func:`_repro_start` and its wall seconds."""
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr), \
+        time.perf_counter() - t0
+
+
+def _repro_cli(here: str, path: str, env: dict):
+    """The replay through the CLI, waited for."""
+    return _repro_wait(_repro_start(here, path, env))
 
 
 def run_stress_quick(goldens, here: str, card: str) -> dict:
@@ -1339,32 +1389,41 @@ def _print_shrink(label: str, got: dict, card: str) -> None:
           f"violation={got['violation']!r} | {card}")
 
 
-def _replay(here: str, shr, got: dict, gold: dict, tmp: str, env: dict, label: str,
-            keep: bool = False) -> dict:
-    """Phases 11b-c: save the shrunk case, compare the file with JAX's and
-    replay it through the CLI; ``keep`` leaves the file for phase 12."""
+def _save(shr, got: dict, gold: dict, tmp: str, label: str) -> dict:
+    """Phases 11b-c: save the shrunk case and compare the file with JAX's."""
     path = os.path.join(tmp, gold["artifact"])
     t0 = time.perf_counter()
     art = shr.save_artifact(path, got["small"], got["violation"], device=DEV)
     save_s = time.perf_counter() - t0
     sha = _file_sha256(path)
-    proc, cli_s = _repro_cli(here, path, env)
-    out_sha = hashlib.sha256(proc.stdout.encode()).hexdigest()
-    verdict = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
     print(f"{label} artifact {gold['artifact']}: save_s={save_s:.3f} file_sha256={sha} "
-          f"decision_log_sha256={art['decision_log_sha256']} rounds={art['rounds']}; "
-          f"repro rc={proc.returncode} match={verdict.get('match')} cli_s={cli_s:.3f} "
-          f"stdout_sha256={out_sha}")
+          f"decision_log_sha256={art['decision_log_sha256']} rounds={art['rounds']}")
     if (sha, art["decision_log_sha256"], art["rounds"]) != (
         gold["artifact_sha256"], gold["decision_log_sha256"], gold["rounds"]
     ):
         raise SystemExit(f"{label}: the artifact differs from JAX's")
-    if proc.returncode != 0 or not verdict.get("match") or out_sha != gold["repro_stdout_sha256"]:
-        print(proc.stderr[-3000:], file=sys.stderr)
-        raise SystemExit(f"{label}: the CLI replay disagrees with JAX's")
-    if not keep:
-        os.remove(path)
-    return {"save_s": save_s, "cli_s": cli_s, "path": path}
+    return {"save_s": save_s, "path": path}
+
+
+def _replay(here: str, path: str, gold: dict, env: dict, label: str):
+    """Phases 11b-c: starts the artifact's replay through the CLI; returns
+    a function that waits for it, holds it against JAX's and gives its
+    wall seconds."""
+    started = _repro_start(here, path, env)
+
+    def finish() -> float:
+        proc, cli_s = _repro_wait(started)
+        out_sha = hashlib.sha256(proc.stdout.encode()).hexdigest()
+        verdict = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
+        print(f"{label} repro {gold['artifact']}: rc={proc.returncode} "
+              f"match={verdict.get('match')} cli_s={cli_s:.3f} stdout_sha256={out_sha}")
+        if proc.returncode != 0 or not verdict.get("match") \
+                or out_sha != gold["repro_stdout_sha256"]:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            raise SystemExit(f"{label}: the CLI replay disagrees with JAX's")
+        return cli_s
+
+    return finish
 
 
 def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
@@ -1398,9 +1457,12 @@ def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
         ):
             raise SystemExit(f"{label}: a simkern kernel did not launch on "
                              f"{shr.SHRINK_BATCH_LANES}-lane operands")
-        out = {"culprit": dict(_replay(here, shr, got, spec, tmp, spec["env"], label),
-                               wall_s=got["wall_s"], launches=got["launches"],
-                               dispatches=got["dispatches"], evals=got["evals"])}
+        saved = _save(shr, got, spec, tmp, label)
+        cli_s = _replay(here, saved["path"], spec, spec["env"], label)()
+        os.remove(saved["path"])
+        out = {"culprit": dict(saved, cli_s=cli_s, wall_s=got["wall_s"],
+                               launches=got["launches"], dispatches=got["dispatches"],
+                               evals=got["evals"])}
         stats = {}
         with check_launches(sk, TRIAGE_REPS, stats, lanes=shr.SHRINK_BATCH_LANES):
             again = shr.shrink_case(case, max_evals=spec["max_evals"], device=DEV)
@@ -1412,8 +1474,8 @@ def run_triage_wedge(sk, goldens, here: str, card: str) -> dict:
 
 
 def run_triage_full(sk, goldens, here: str, card: str, keep_dir: str) -> dict:
-    """Phase 11c: the shrink, artifact and replay at bench_sim's width;
-    the artifact stays in ``keep_dir`` for phase 12's trace."""
+    """Phase 11c: the shrink and artifact at bench_sim's width; the
+    artifact stays in ``keep_dir`` for its replay and phase 12's trace."""
     import numpy as np
 
     from tpu_paxos_torch.core import sim
@@ -1436,9 +1498,10 @@ def run_triage_full(sk, goldens, here: str, card: str, keep_dir: str) -> dict:
         _hold_shrink(shr, got, gold, label)
         if min(got["launches"].values()) < 1:
             raise SystemExit(f"{label}: a simkern kernel was never launched")
-        rec = _replay(here, shr, got, gold, keep_dir, {}, label, keep=True)
+        rec = _save(shr, got, gold, keep_dir, label)
     torch.cuda.empty_cache()
-    return dict(rec, wall_s=got["wall_s"], launches=got["launches"], peak_gb=peak_gb)
+    return dict(rec, label=label, wall_s=got["wall_s"], launches=got["launches"],
+                peak_gb=peak_gb)
 
 
 def _dict_diff(got: dict, want: dict) -> str:
@@ -2845,10 +2908,180 @@ def run_mc(goldens, here: str, card: str) -> dict:
     return out
 
 
+EVOLVE_CHECK = 16  # launches of each kernel held against the plain version in 18a and 18b
+
+
+def _evolve_cli_run(sk, argv: list, checked=None):
+    """``python -m tpu_paxos_torch evolve <argv>`` through the CLI's entry
+    point in this process, from a cold envelope: ``(exit code, summary,
+    wall s, syncs, launches, lane counts, fleet dispatches)``; ``checked``
+    wraps the run (a :func:`check_launches` block)."""
+    from tpu_paxos_torch import __main__ as cli
+    from tpu_paxos_torch.fleet import envelope as envm
+
+    envm.clear_cache()
+    buf = io.StringIO()
+    ones = []
+    sk.reset_counts()
+    with checked or contextlib.nullcontext(), lane_counts(sk) as shapes, \
+            dispatch_log(single=ones) as disp, contextlib.redirect_stdout(buf):
+        rc, wall, syncs, _ = _serve_timed(lambda: cli.main(["evolve", *argv, "--device", DEV]))
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return rc, summary, wall, syncs, dict(sk.LAUNCHES), shapes, (disp, ones)
+
+
+def _evolve_line(label: str, summary: dict, wall, syncs, launches, logs, card: str) -> dict:
+    """One run's line: its fleet dispatches and one-lane ``sim.run`` calls
+    apart (round calls, ms a round), its syncs over both kinds' round
+    calls."""
+    disp, ones = logs
+    rounds, secs = sum(d[1] for d in disp), sum(d[2] for d in disp)
+    one_rounds, one_secs = sum(d[1] for d in ones), sum(d[2] for d in ones)
+    rec = {"wall_s": wall, "lanes_per_sec": summary["lanes_total"] / wall,
+           "dispatches": len(disp), "round_calls": rounds,
+           "ms_per_round": secs / max(rounds, 1) * 1e3,
+           "single_runs": len(ones), "single_round_calls": one_rounds,
+           "single_ms_per_round": one_secs / max(one_rounds, 1) * 1e3,
+           "syncs_per_round": syncs / max(rounds + one_rounds, 1), "launches": launches}
+    print(f"{label}: wall_s={wall:.3f} lanes_total={summary['lanes_total']} "
+          f"lanes_per_sec={rec['lanes_per_sec']:.2f} (evolve's own {summary['lanes_per_sec']}) "
+          f"generations={summary['generations_run']} "
+          f"compiles_per_generation={summary['compiles_per_generation']} "
+          f"fleet_dispatches={len(disp)} round_calls={rounds} "
+          f"ms_per_round={rec['ms_per_round']:.3f} one_lane_runs={len(ones)} "
+          f"one_lane_round_calls={one_rounds} "
+          f"one_lane_ms_per_round={rec['single_ms_per_round']:.3f} syncs={syncs} "
+          f"syncs_per_round={rec['syncs_per_round']:.2f} (both kinds' round calls) "
+          f"population_sha256={summary['population_sha256'][:16]} "
+          f"launches={json.dumps(launches, sort_keys=True)} | {card}")
+    return rec
+
+
+def run_evolve_quick(sk, script, gold, here: str, tmp: str, stats: dict, card: str) -> dict:
+    """18a: ``make evolve-quick``'s line through the port's CLI, its first
+    16 launches of each kernel on 8-lane operands held against the plain
+    version (on snapshots, after the run); the summary less the wall
+    fields, the artifact's bytes and ``repro`` of it equal JAX's."""
+    want = gold["quick"]
+    lanes = 8
+    rc, s, wall, syncs, launches, shapes, logs = _evolve_cli_run(
+        sk, [*gold["config"]["quick"], "--triage-dir", tmp, "--quiet"],
+        check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=EVOLVE_CHECK, defer=True))
+    out = _evolve_line("evolve-quick (18a)", s, wall, syncs, launches, logs, card)
+    got = script.evolve_less(s)
+    sha = _file_sha256(s["artifact"]) if s["artifact"] else ""
+    print(f"evolve-quick: rc={rc} summary_equal={got == want['summary']} "
+          f"artifact={os.path.basename(s['artifact'] or '')} artifact_sha256={sha} "
+          f"replay_match={s['replay_match']} | {card}")
+    if (rc, got, sha) != (want["rc"], want["summary"], want["artifact_sha256"]):
+        raise SystemExit(f"evolve-quick disagrees with JAX's: rc {rc}, "
+                         f"{_dict_diff(got, want['summary'])}")
+    if s["warm_compiles"] or s["compiles_per_generation"][0] < 1:
+        raise SystemExit(f"evolve-quick: runner builds {s['compiles_per_generation']}")
+    if min(launches.values()) < 1 or not all(lanes in x for x in shapes.values()):
+        raise SystemExit(f"evolve-quick: a simkern kernel did not launch on {lanes}-lane operands")
+    rproc, rwall = _repro_cli(here, s["artifact"], {})
+    print(f"evolve-quick repro (python -m tpu_paxos_torch repro {os.path.basename(s['artifact'])} "
+          f"--json): rc={rproc.returncode} wall_s={rwall:.3f} "
+          f"stdout_sha256={_sha_text(rproc.stdout)} | {card}")
+    if rproc.returncode != 0 or rproc.stdout != want["repro_stdout"]:
+        print(rproc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("evolve-quick's artifact replay disagrees with JAX's")
+    return out
+
+
+def run_evolve_axes(sk, script, gold, stats: dict, card: str) -> dict:
+    """18b: the pure operators' seeded sweep; the member axis (no kernel
+    launches); the serve axis, its first 16 launches of each kernel held
+    against the plain version; the one-lane ``lane_causes`` case: each
+    summary less the wall fields, and its triage files' bytes, equal
+    JAX's."""
+    m = script.evolve_modules(port=True)
+    sweep = script.evolve_operator_sweep(m)
+    print(f"evolve operator sweep ({len(sweep)} seeded draws): equal={sweep == gold['sweep']}")
+    if sweep != gold["sweep"]:
+        raise SystemExit("the evolve operators' sweep disagrees with JAX's")
+    out = {}
+    for key in ("member", "serve", "lane_causes"):
+        check = check_launches(sk, SNAP_REPS, stats, limit=EVOLVE_CHECK, defer=True) \
+            if key == "serve" else contextlib.nullcontext()
+        sk.reset_counts()
+        with check, lane_counts(sk) as shapes:
+            run, wall, syncs, peak = _serve_timed(
+                lambda key=key: script.evolve_axis(m, key, device=DEV))
+        launches = dict(sk.LAUNCHES)
+        s, want = run["summary"], gold[key]
+        got = script.evolve_less(s)
+        lanes = sorted({n for x in shapes.values() for n in x})
+        print(f"evolve --axis {s['axis']} ({key}, 18b): wall_s={wall:.3f} "
+              f"lanes_per_sec={s['lanes_total'] / wall:.2f} generations={s['generations_run']} "
+              f"compiles_per_generation={s['compiles_per_generation']} "
+              f"wedges={s['wedges_found']} files={len(run['files'])} syncs={syncs} "
+              f"peak_gb={peak:.3f} launches={json.dumps(launches, sort_keys=True)} "
+              f"lanes_per_launch={lanes} summary_equal={got == want['summary']} | {card}")
+        if (got, run["files"]) != (want["summary"], want["files"]):
+            raise SystemExit(f"evolve {key} disagrees with JAX's: "
+                             f"{_dict_diff(got, want['summary'])}")
+        if s["warm_compiles"] or s["compiles_per_generation"][0] < 1:
+            raise SystemExit(f"evolve {key}: runner builds {s['compiles_per_generation']}")
+        if key == "member" and any(launches.values()):
+            raise SystemExit("the member axis launched a simkern kernel")
+        if key == "serve" and min(launches.values()) < 1:
+            raise SystemExit("the serve axis did not launch both simkern kernels")
+        out[key] = {"wall_s": wall, "launches": launches}
+    return out
+
+
+def run_evolve_wide(sk, script, gold, card: str) -> dict:
+    """18c: the card's default population (128 lanes, two generations,
+    the duel-churn hunt) on the fleet axis through the CLI: the summary
+    less the wall fields equals JAX's; lanes/s, ms and syncs a round."""
+    from tpu_paxos_torch.fleet import runner as frun
+
+    n = frun.default_lane_count(DEV)
+    if str(n) != gold["config"]["wide"][1]:
+        raise SystemExit(f"the card's default lane count is {n}, the golden's "
+                         f"{gold['config']['wide'][1]}")
+    want = gold["wide"]
+    rc, s, wall, syncs, launches, shapes, logs = _evolve_cli_run(
+        sk, [*gold["config"]["wide"], "--quiet"])
+    out = _evolve_line(f"evolve --lanes {n} (18c)", s, wall, syncs, launches, logs, card)
+    got = script.evolve_less(s)
+    print(f"evolve --lanes {n}: rc={rc} summary_equal={got == want['summary']} | {card}")
+    if (rc, got) != (want["rc"], want["summary"]):
+        raise SystemExit(f"the {n}-lane evolve disagrees with JAX's: "
+                         f"{_dict_diff(got, want['summary'])}")
+    if min(launches.values()) < 1 or not all(x == [n] * len(x) for x in shapes.values()):
+        raise SystemExit(f"the {n}-lane evolve: a simkern kernel did not launch on {n}-lane "
+                         "operands")
+    return out
+
+
+def run_evolve(goldens, here: str, card: str) -> dict:
+    """Phase 18: the selection loop on the card."""
+    from tpu_paxos_torch.core import simkern as sk
+
+    gold = goldens["evolve"]
+    script = _goldens_script(here)
+    t18 = time.perf_counter()
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"quick": run_evolve_quick(sk, script, gold, here, tmp, stats, card)}
+    out["axes"] = run_evolve_axes(sk, script, gold, stats, card)
+    out["wide"] = run_evolve_wide(sk, script, gold, card)
+    out["launches"] = {k: out["quick"]["launches"][k] + out["axes"]["serve"]["launches"][k]
+                       + out["wide"]["launches"][k] for k in ("store_accepts", "accum_acks")}
+    out["checked"] = _summarize_checked("evolve 18a (8-lane) and 18b serve operands", stats)
+    print(f"phase 18 (selection loop) took {time.perf_counter() - t18:.1f} s; simkern launches "
+          f"in 18a, 18b's serve axis and 18c: {json.dumps(out['launches'], sort_keys=True)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from tpu_paxos_torch.core import fast
@@ -2887,13 +3120,20 @@ def main() -> int:
     run_stress_quick(goldens, here, card)
     wedge = run_triage_wedge(sk, goldens, here, card)
     with tempfile.TemporaryDirectory() as keep:
-        full_art = run_triage_full(sk, goldens, here, card, keep)["path"]
-        print(f"phase 11 (triage) took {time.perf_counter() - t11:.1f} s")
+        full_art = run_triage_full(sk, goldens, here, card, keep)
+        print(f"phase 11 (triage, 11c's replay in 12d) took {time.perf_counter() - t11:.1f} s")
         t12 = time.perf_counter()
         tele = run_telemetry_single(sk, goldens, card)
         tele_fleet = run_telemetry_fleet(sk, goldens, card)
-        run_trace_cli(goldens, here, full_art, card)
-        print(f"phase 12 (flight recorder) took {time.perf_counter() - t12:.1f} s")
+        # 11c's replay runs beside 12d's traces: neither writes the artifact
+        replay_full = _replay(here, full_art["path"], goldens["triage_full"], {},
+                              full_art["label"])
+        try:
+            run_trace_cli(goldens, here, full_art["path"], card)
+        finally:
+            replay_full()
+        print(f"phase 12 (flight recorder, with 11c's replay) took "
+              f"{time.perf_counter() - t12:.1f} s")
     t13 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # 13a's subprocess runs beside 13c's
@@ -2907,6 +3147,7 @@ def main() -> int:
     serve = run_serve(goldens, here, card)
     control = run_control(goldens, here, card)
     mc = run_mc(goldens, here, card)
+    evolve = run_evolve(goldens, here, card)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -2974,6 +3215,11 @@ def main() -> int:
             "mc_checked": mc["scopes"]["checked"][name]["launches"],
             "mc_ms": mc["scopes"]["checked"][name]["ms"],
             "mc_bound_ms": mc["scopes"]["checked"][name]["bound_ms"],
+            "evolve_launches": evolve["launches"][key],
+            "evolve_lanes": evolve["checked"][name]["lanes"],
+            "evolve_checked": evolve["checked"][name]["launches"],
+            "evolve_ms": evolve["checked"][name]["ms"],
+            "evolve_bound_ms": evolve["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({
@@ -2989,6 +3235,7 @@ def main() -> int:
         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
         "library_ms": None,
     })
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-18)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

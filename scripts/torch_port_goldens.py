@@ -761,13 +761,14 @@ def normalize_summary(summary: dict, timing_keys) -> dict:
     return out
 
 
-def _jax_module(args, cwd=None):
-    """``python -m <args>`` of the JAX package on the CPU; returns the
-    completed process (stdout, stderr, exit code)."""
+def _jax_module(args, cwd=None, env_extra=None):
+    """``python -m <args>`` of the JAX package on the CPU, with
+    ``env_extra`` set; returns the completed process (stdout, stderr,
+    exit code)."""
     import subprocess
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env_extra or {}))
     env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     return subprocess.run([sys.executable, "-m", *args], cwd=cwd or root, env=env,
                           capture_output=True, text=True, check=False)
@@ -1754,6 +1755,210 @@ def mc_goldens() -> dict:
     return out
 
 
+#: Phase 18 (the selection loop): 18a ``make evolve-quick``'s line, 18b
+#: the member and serve axes and the one-lane ``lane_causes`` case at
+#: ``tests/test_evolve.py``'s sizes, 18c the card's default population,
+#: 18d the certified recall (``BENCH_evolve.json``'s contract, the takeover
+#: wedge armed); ``sweep`` sizes the seeded sweep of the pure operators.
+EVOLVE = {
+    "quick": ["--lanes", "8", "--generations", "2", "--seed", "2",
+              "--decision-round-max", "35", "--max-wedges", "1"],  # Makefile:153-155
+    "member": {"axis": "member", "n_lanes": 4, "generations": 2, "base_seed": 0,
+               "hunt": "duel-churn", "max_wedges": 2},
+    "serve": {"axis": "serve", "n_lanes": 6, "generations": 3, "base_seed": 0,
+              "hunt": "saturation", "max_wedges": 4},
+    "lane_causes": {"axis": "fleet", "n_lanes": 1, "generations": 1, "base_seed": 0,
+                    "hunt": "duel-churn", "decision_round_max": 1, "max_wedges": 0},
+    "wide": ["--lanes", "128", "--generations", "2", "--seed", "0", "--hunt", "duel-churn"],
+    "certified": ["--lanes", "8", "--generations", "29", "--seed", "0", "--hunt", "duel-churn",
+                  "--certified"],
+    "wedge": "takeover",
+    "sweep": {"seeds": 20, "lanes": 8, "alphabets": ["classic", "gray_wan", "member"]},
+}
+
+#: Summary keys that hold wall-clock timings.
+EVOLVE_WALL_KEYS = ("seconds", "lanes_per_sec")
+
+
+def evolve_modules(port: bool):
+    """The selection loop's modules of one package (``port=True``: the
+    port's, which ``chip_smoke.py`` and the tests drive)."""
+    import types
+
+    if port:
+        from tpu_paxos_torch.core import faults
+        from tpu_paxos_torch.fleet import envelope, evolve, search
+    else:
+        from tpu_paxos.core import faults
+        from tpu_paxos.fleet import envelope, evolve, search
+    return types.SimpleNamespace(evo=evolve, srch=search, fltm=faults, env=envelope)
+
+
+def evolve_less(summary: dict) -> dict:
+    """An ``evolve`` summary less :data:`EVOLVE_WALL_KEYS`,
+    ``compiles_per_generation`` cut to its zero pattern (JAX counts XLA
+    compiles, the port runner builds), artifact paths cut to their
+    basename and each wedge without its ``shrink_seconds``, in the JSON
+    form the CLI prints (tuples as lists)."""
+    out = {k: v for k, v in sorted(summary.items()) if k not in EVOLVE_WALL_KEYS}
+    out["compiles_per_generation"] = [c > 0 for c in summary["compiles_per_generation"]]
+    if out.get("artifact"):
+        out["artifact"] = os.path.basename(out["artifact"])
+    out["wedges"] = [
+        {k: (os.path.basename(v) if k == "artifact" else v)
+         for k, v in sorted(w.items()) if k != "shrink_seconds"}
+        for w in summary["wedges"]
+    ]
+    return json.loads(json.dumps(out, sort_keys=True))  # an in-process summary as the CLI prints it
+
+
+def evolve_bench_less(rec: dict) -> dict:
+    """A ``BENCH_evolve.json`` record with ``compiles_per_generation``
+    cut to its zero pattern."""
+    return dict(rec, compiles_per_generation=[c > 0 for c in rec["compiles_per_generation"]])
+
+
+def _sweep_alphabet(m, name: str):
+    """(alphabet, node count, hunted cause) of one sweep alphabet."""
+    if name == "classic":
+        return m.srch.Alphabet.classic(), 5, "duel-churn"
+    if name == "gray_wan":
+        return m.srch.Alphabet.classic(gray=True, wan=True), 5, "gray-region"
+    return m.srch.Alphabet.classic().member(), 3, "duel-churn"
+
+
+def evolve_operator_sweep(m) -> list:
+    """The pure operators of ``m``'s ``fleet/evolve`` over seeded draws:
+    per alphabet and seed, ``draw_episode``, ``jitter_episode``,
+    ``mutate_schedule``, ``crossover_schedules``, ``fresh_schedule``
+    without and with a hunt, and one ``select`` of an 8-lane population
+    (children and immigrants built as ``_evolve_fleet``/``_evolve_member``
+    build them, scores with ties), each as its output dicts, in their JSON
+    form."""
+    import numpy as np
+
+    cfg = EVOLVE["sweep"]
+    evo, srch, fltm = m.evo, m.srch, m.fltm
+    out = []
+    for ai, name in enumerate(cfg["alphabets"]):
+        alphabet, n, hunt = _sweep_alphabet(m, name)
+        member = name == "member"
+        for seed in range(cfg["seeds"]):
+            rng = np.random.default_rng((seed, ai, 23))
+            churn = srch.sample_churn_schedule(rng, n) if member else None
+            protected = frozenset({0} | srch.churn_targets(churn)) if member else frozenset()
+            a, b = alphabet.sample(rng, n), alphabet.sample(rng, n)
+
+            def sched(x):
+                return x.to_dict()
+
+            rec = {
+                "alphabet": name, "seed": seed,
+                "draw": sched(fltm.FaultSchedule((evo.draw_episode(rng, alphabet, n, hunt=hunt),))),
+                "jitter": sched(fltm.FaultSchedule(
+                    (evo.jitter_episode(rng, a.episodes[0], alphabet.horizon),))),
+                "mutate": sched(evo.mutate_schedule(rng, a, alphabet, n, hunt=hunt,
+                                                    protected=protected)),
+                "crossover": sched(evo.crossover_schedules(rng, a, b, alphabet, n,
+                                                           protected=protected)),
+                "fresh": sched(evo.fresh_schedule(rng, alphabet, n, protected=protected)),
+                "fresh_hunt": sched(evo.fresh_schedule(rng, alphabet, n, hunt=hunt,
+                                                       protected=protected)),
+            }
+
+            def genome(r):
+                ch = srch.sample_churn_schedule(r, n) if member else None
+                return evo.Genome(
+                    schedule=alphabet.sample(r, n), seed=int(r.integers(0, 1 << 16)),
+                    knobs=srch.sample_edge_knobs(r, n, 8) if alphabet.wan else None, churn=ch)
+
+            def child(r, pa, pb):
+                s = evo.crossover_schedules(r, pa.schedule, pb.schedule, alphabet, n,
+                                            protected=protected)
+                s = evo.mutate_schedule(r, s, alphabet, n, hunt=hunt, protected=protected)
+                return evo.Genome(schedule=s, seed=pa.seed if int(r.integers(0, 2))
+                                  else int(r.integers(0, 1 << 16)), knobs=pa.knobs,
+                                  churn=pa.churn)
+
+            def fresh(r):
+                return evo.Genome(schedule=evo.fresh_schedule(r, alphabet, n, hunt=hunt,
+                                                              protected=protected),
+                                  seed=int(r.integers(0, 1 << 16)))
+
+            pop = [genome(rng) for _ in range(cfg["lanes"])]
+            scores = [float(x) for x in rng.integers(-2, 3, size=cfg["lanes"])]
+            scores[int(rng.integers(0, cfg["lanes"]))] -= evo.WEDGE_BONUS
+            nxt = evo.select(rng, pop, scores, child, make_fresh=fresh)
+            rec["select"] = [evo._genome_dict(g) for g in nxt]
+            rec["select_sha256"] = evo.population_sha(nxt)
+            out.append(rec)
+    return json.loads(json.dumps(out))  # knob rows as lists, as the goldens file holds them
+
+
+def _evolve_files(d: str) -> dict:
+    """``{name: sha256}`` of the files the run wrote into ``d``."""
+    return {n: _file_sha256(os.path.join(d, n)) for n in sorted(os.listdir(d))}
+
+
+def evolve_axis(m, key: str, **dev) -> dict:
+    """18b: one in-process ``evolve`` run of :data:`EVOLVE` ``[key]``, its
+    triage files (member counterexamples, serve breach records) written
+    into a temporary directory; the summary and the files' sha256."""
+    import tempfile
+
+    m.env.clear_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        s = m.evo.evolve(verbose=False, triage_dir=tmp if key != "lane_causes" else None,
+                         **EVOLVE[key], **dev)
+        return {"summary": s, "files": _evolve_files(tmp)}
+
+
+def _evolve_cli(args: list, tmp: str, env: dict) -> dict:
+    """The JAX ``evolve`` CLI run in ``tmp`` with ``env``: exit code,
+    stdout and its summary."""
+    proc = _jax_module(["tpu_paxos", "evolve", *args, "--quiet"], cwd=tmp, env_extra=env)
+    if proc.returncode not in (0, 1):
+        raise RuntimeError(f"JAX evolve {args} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return {"rc": proc.returncode, "stdout": proc.stdout,
+            "summary": json.loads(proc.stdout.strip().splitlines()[-1])}
+
+
+def _evolve_cli_golden(args: list, env: dict, bench: bool = False) -> dict:
+    """One JAX ``evolve`` CLI run (triage into a temporary directory):
+    exit code, stdout, the summary less wall fields, and the shrunk
+    artifact's sha256 with its ``repro --json`` stdout (the same ``env``)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = ["--triage-dir", tmp] + (["--bench-out", os.path.join(tmp, "bench.json")]
+                                         if bench else [])
+        run = _evolve_cli(args + extra, tmp, env)
+        s = run["summary"]
+        out = {"rc": run["rc"], "stdout": run["stdout"], "summary": evolve_less(s)}
+        if s["artifact"]:
+            text = repro_stdout(s["artifact"], env)
+            out.update(artifact_sha256=_file_sha256(s["artifact"]), repro_stdout=text)
+        if bench:
+            with open(os.path.join(tmp, "bench.json")) as f:
+                out["bench"] = f.read()
+    return out
+
+
+def evolve_goldens() -> dict:
+    """Every phase-18 golden, from the JAX package on the CPU."""
+    m = evolve_modules(port=False)
+    out = {"config": EVOLVE}
+    out["quick"] = _evolve_cli_golden(EVOLVE["quick"], {})
+    for key in ("member", "serve", "lane_causes"):
+        run = evolve_axis(m, key)
+        out[key] = {"summary": evolve_less(run["summary"]), "files": run["files"]}
+    out["wide"] = _evolve_cli_golden(EVOLVE["wide"], {})
+    out["certified"] = _evolve_cli_golden(
+        EVOLVE["certified"], {"TPU_PAXOS_SEEDED_WEDGE": EVOLVE["wedge"]}, bench=True)
+    out["sweep"] = evolve_operator_sweep(m)
+    return out
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -1779,6 +1984,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         out["serve"] = serve_goldens()
         out["control"] = control_goldens()
         out["mc"] = mc_goldens()
+        out["evolve"] = evolve_goldens()
 
     if out_dir is not None:
         rest(out_dir)
@@ -1848,6 +2054,8 @@ def main(argv=None) -> int:
                     help="recompute only the control entry (phase 16) of the --write file")
     ap.add_argument("--mc-only", action="store_true",
                     help="recompute only the mc entry (phase 17) of the --write file")
+    ap.add_argument("--evolve-only", action="store_true",
+                    help="recompute only the evolve entry (phase 18) of the --write file")
     ap.add_argument("--serve-only", action="store_true",
                     help="recompute only the serve entry (phase 15) and the host-loop "
                     "half of the stress_fleet entry of the --write file")
@@ -1859,7 +2067,8 @@ def main(argv=None) -> int:
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
     if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
-            or args.member_only or args.serve_only or args.control_only or args.mc_only):
+            or args.member_only or args.serve_only or args.control_only or args.mc_only
+            or args.evolve_only):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -1880,6 +2089,8 @@ def main(argv=None) -> int:
             out["control"] = control_goldens()
         if args.mc_only:
             out["mc"] = mc_goldens()
+        if args.evolve_only:
+            out["evolve"] = evolve_goldens()
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

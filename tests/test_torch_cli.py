@@ -119,10 +119,13 @@ _SHARDED = "engine 'sharded' artifacts (the instance-sharded engine)"
     # serve and its admission controller are ported; audit is not (kept
     # under the case's id)
     pytest.param(["audit"], "'audit'", id="argv5-'serve'"),
-    (["evolve"], "'evolve'"),
-    # mc is ported (test_mc_cli_routes_to_the_model_checker); evolve's
-    # member axis is not (kept under the case's id)
-    pytest.param(["evolve", "--axis", "member"], "'evolve'", id="argv7-'mc'"),
+    # evolve is ported on all three axes (tests/test_torch_evolve.py,
+    # test_evolve_cli_equals_the_jax_cli); its lane tile over devices is
+    # not (kept under the cases' ids)
+    pytest.param(["evolve", "--mesh", "2"], "'evolve --mesh'", id="argv6-'evolve'"),
+    # mc is ported (test_mc_cli_routes_to_the_model_checker)
+    pytest.param(["evolve", "--axis", "member", "--mesh", "2"], "'evolve --mesh'",
+                 id="argv7-'mc'"),
     (["serve", "--fleet", "--mesh", "2"], "'serve --fleet --mesh'"),
     # the controller's surfaces below are ported (tests/test_torch_control.py
     # and test_serve_control_cli_equals_the_jax_cli); their cases keep their
@@ -164,6 +167,29 @@ def test_mc_cli_routes_to_the_model_checker(capsys):
     out = capsys.readouterr()
     assert (2, out.out) == (gold["nosuch_cli"]["rc"], gold["nosuch_cli"]["stdout"])
     assert "scope 'nosuch' not in" in out.err and "not ported" not in out.err
+
+
+def test_evolve_cli_equals_the_jax_cli(tmp_path, capsys, monkeypatch):
+    """``evolve`` is ported: ``make evolve-quick``'s line on the port's
+    CPU prints JAX's summary line, less the wall fields (the generation-0
+    build count by its zero pattern), and writes JAX's artifact bytes."""
+    from tpu_paxos_torch.fleet import envelope
+
+    script = _golden_script()
+    gold = _goldens()["evolve"]
+    envelope.clear_cache()
+    monkeypatch.chdir(str(tmp_path))
+    capsys.readouterr()
+    rc = tcli.main(["evolve", *gold["config"]["quick"], "--triage-dir", str(tmp_path),
+                    "--quiet", "--device", "cpu"])
+    out = capsys.readouterr().out
+    want = json.loads(gold["quick"]["stdout"].strip().splitlines()[-1])
+    got = json.loads(out.strip().splitlines()[-1])
+    assert rc == gold["quick"]["rc"] == 0
+    assert len(out.splitlines()) == len(gold["quick"]["stdout"].splitlines())
+    assert script.evolve_less(got) == script.evolve_less(want) == gold["quick"]["summary"]
+    with open(got["artifact"], "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == gold["quick"]["artifact_sha256"]
 
 
 def test_repro_routes_mc_control_artifacts(tmp_path, capsys, monkeypatch):
@@ -486,6 +512,15 @@ with tempfile.TemporaryDirectory() as tmp:
     control.save_artifact(path, ctl)
     with contextlib.redirect_stdout(io.StringIO()):
         rc_ctl = cli.main(["repro", path, "--device", "cpu"])
+from tpu_paxos_torch.fleet import evolve
+from tpu_paxos_torch.serve import breach
+with contextlib.redirect_stderr(io.StringIO()):
+    rc_evolve_mesh = cli.main(["evolve", "--mesh", "2", "--device", "cpu"])
+evo = evolve.evolve(axis="member", n_lanes=2, generations=1, verbose=False, device="cpu")
+evo_ok = (rc_evolve_mesh == 2 and evo["generations_run"] == 1 and evo["lanes_total"] == 2
+          and len(evo["population_sha256"]) == 64
+          and breach.sample_serve_genome(np.random.default_rng(0), [[1], [2]], "calm").weather
+          == "calm")
 from tpu_paxos_torch.analysis import mc_control, mc_member, modelcheck, triage
 tiny = mc_control.ControlScope.from_dict({
     "tier_bands": [[3, 1, 2]], "patiences": [1], "ladders": [[]],
@@ -511,7 +546,7 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and [serve_out[0]["metric"], serve_out[1]["metric"]] == ["serve", "serve_fleet"]
       and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
       and serve_out[2]["otherData"]["engine"] == "serve_fleet"
-      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok)
+      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok and evo_ok)
 print(len(mods), bool(ok), loaded)
 """
 
@@ -520,7 +555,7 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 52  # every module of the package was imported, analysis/ mc too
+    assert int(n_mods) >= 54  # every module of the package was imported, evolve and breach too
     assert done == "True"
     assert loaded.strip() == "[]"
 

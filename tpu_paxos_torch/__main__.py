@@ -15,8 +15,8 @@ proposed meanwhile, shrink back to {0}, check prefix consistency; with
 ``--crash-rate``, ``--record-injections F`` / ``--replay-injections F``
 and ``--save-state F`` writing the engine checkpoint) the verdict line,
 with the decision-log hash.  Exit code 0 iff every invariant holds; 2
-for what the port does not run yet (``--mesh``, every subcommand but
-``repro``, ``trace``, ``fleet``, ``serve`` and ``mc``).
+for what the port does not run yet (``--mesh``, and the ``lint`` and
+``audit`` subcommands).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -48,6 +48,12 @@ whose artifacts ``repro`` replays; ``--mesh`` exits 2.
 declared scopes (``analysis/modelcheck.py``) against the committed
 certificates; ``repro`` replays its ``mc-control`` counterexample
 artifacts (``analysis/mc_control.reproduce``).
+
+``python -m tpu_paxos_torch evolve [--axis {fleet,member,serve}]
+[--lanes N] [--generations G] [--hunt CAUSE] [--certified] [--bench-out
+F] [--device {cuda,cpu}] ...`` runs the certified selection loop
+(``fleet/evolve.py``) and prints its one JSON summary line; ``--mesh``
+exits 2.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ import json
 import os
 import sys
 
-_SUBCOMMANDS = ("evolve", "lint", "audit")
+_SUBCOMMANDS = ("lint", "audit")
 
 #: Artifact engines whose replay is not ported yet, and what replays them.
 _UNPORTED_ENGINES = {
@@ -471,6 +477,13 @@ def main(argv=None) -> int:
         from tpu_paxos_torch.analysis import modelcheck
 
         return modelcheck.main(argv[1:])
+    if argv and argv[0] == "evolve":
+        # the certified selection loop: mutate-and-select genomes, one
+        # fleet dispatch per generation, recall against the mc
+        # certificate
+        from tpu_paxos_torch.fleet import evolve
+
+        return evolve.main(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2

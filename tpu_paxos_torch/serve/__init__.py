@@ -14,10 +14,12 @@ package: ``arrivals`` the arrival processes and the admission plan
 ``fleet`` the multi-tenant serve lanes with on-device per-lane SLO
 verdicts (``serve --fleet``), and ``control`` the cause-aware admission
 controller (``serve --control``, ``--control-ab``, ``serve --fleet
---control``) with its repro artifacts.
+--control``) with its repro artifacts, and ``breach`` the serve axis of
+the selection loop (offered-load genomes under weather presets, scored
+by windowed SLO burn; ``fleet/evolve``).
 """
 
-_SUBMODULES = ("arrivals", "control", "driver", "fleet", "harness")
+_SUBMODULES = ("arrivals", "breach", "control", "driver", "fleet", "harness")
 
 
 def __getattr__(name):
