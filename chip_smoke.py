@@ -70,9 +70,9 @@ Phases (any failure exits non-zero; nothing is caught):
    sha256 equal the JAX goldens.  Prints lanes/sec to verdict, rounds,
    ms and host syncs a round.  Then the headline again with every kernel
    launch held against its plain version on its own lane-stacked
-   operands, timed and its needed bytes counted, and a 2048-lane
-   dispatch (timing only) of which 8 lanes are re-run as single
-   ``sim.run(lane_cfg(i))`` on the card and must match exactly.
+   operands, timed and its needed bytes counted.  (The 2048-lane timing
+   dispatch and its 8 single re-runs left this script for phase 19's time:
+   ``tests/test_torch_fleet_cuda.py`` runs them in a call of their own.)
 10. The runtime build at full width: one ``FleetRunner`` per mix at
    bench_sim's shape (2**23 instances), ``partition-flap`` as a runtime
    table with its knobs and ``wan-3region`` as its runtime edge matrices
@@ -325,6 +325,37 @@ Phases (any failure exits non-zero; nothing is caught):
       script's time limit.  ``tests/test_torch_evolve_cuda.py`` holds it on
       the card in a call of its own.
 
+19. The instance-sharded engines on the card, against the JAX goldens at
+   8 devices, with phase 19's own seconds.  The mesh's 8 ranks are
+   threads of this process, all on the one card (``cuda:0``), exchanging
+   through a ``torch.distributed`` ``HashStore`` they share on the host:
+   no multi-chip and no NCCL number is measured.
+   a. ``parallel/sharded_sim.run_sharded`` at ``bench.py``'s sharded record
+      configuration (7 nodes, 2**20 instances, proposers (0, 1), seed 0,
+      ``assign_window`` 16384, drop 500 / dup 1000 / delay 0-2,
+      ``max_rounds`` 20000) on 8 ranks, the launch counts kept per rank:
+      the invariant checks hold, both kernels launch on every rank, and
+      the rounds, chosen count, decision-log, chosen-round and every
+      result array's sha256 equal JAX's (``sharded_sim_2p20_d8``).  Prints
+      wall, ms and host syncs a round, collectives a round, peak memory.
+      Then the same run on the (2, 4) ``("dcn", "i")`` mesh must equal it
+      bit for bit (and ``sharded_sim_2p20_2x4``), with the first 16
+      launches of each kernel on every rank held against the plain
+      version on their own ``[.., I_loc]`` operands, timed and their
+      needed bytes counted.
+   b. ``parallel/sharded.sharded_choose_all`` over 7 nodes and 1e8
+      instances on 8 ranks (about 8.4 GB of state), twice: ``n_chosen``
+      exactly 1e8, every rank's learned rows equal to its vids, the
+      replicated scalars equal on every rank; instances/s printed as 8
+      ranks on one card.  Then 1e7 on the (2, 4) mesh: every gathered
+      FastState field equals JAX's (``sharded_fast``).
+   c. ``python -m tpu_paxos_torch 4 4 10 ... --mesh 8``, ``5 8192 1024
+      --engine=fast --mesh 8 --json`` and ``repro --json`` of the committed
+      JAX-written ``tpu_paxos_torch/data/repro_sharded_d8.json``, three
+      subprocesses started with 19a: each stdout equals the JAX CLI's.
+   The whole sharded stress sweep (12 runs at 8 ranks) runs in a call of
+   its own: ``tests/test_torch_sharded_cuda.py``.
+
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -350,9 +381,7 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 A, P, I_FULL = 5, 2, 1 << 23
 REPS = 25
 SNAP_REPS = 9  # launches timed on each main-path snapshot
-FLEET_WIDE = 2048  # lanes of the timing-only fleet dispatch
 DELAY_ROUNDS_MAX = 1000  # the delay cycle's lanes run: those deciding within this many rounds
-FLEET_SINGLES = 8  # lanes of it re-run as single runs
 FULL_REPS = 3  # launches timed on each full-width runtime-lane snapshot
 TRIAGE_REPS = 3  # launches timed on each 8-lane shrink-dispatch snapshot
 L2_FLUSH_BYTES = 1 << 30
@@ -907,48 +936,59 @@ def run_scheduled(sk, goldens, key: str) -> dict:
     return launches
 
 
-@contextlib.contextmanager
-def check_launches(sk, reps: int, stats: dict, lanes: int | None = None,
-                   limit: int | None = None, defer: bool = False):
-    """Every simkern launch in the block (of ``lanes`` lanes, when given;
-    the first ``limit`` of each kernel, when given) is held against its
-    plain version on a snapshot of its operands, timed on it (``reps``
-    launches from restored operands and a cold L2) and its needed bytes
-    counted: before the real launch goes ahead, or, with ``defer``, once
-    the block has ended (the block's own wall, syncs and peak memory then
-    carry only the snapshots' copies).  The comparison launches leave
-    ``sk.LAUNCHES`` as they found it.  ``stats[name]`` gathers the
-    launches, their lane counts, times, needed bytes and the largest
-    error."""
-    plains = {
+def _hold_snapshot(sk, name: str, kern, snap, reps: int, stats: dict) -> None:
+    """One launch's snapshot held against the plain version, timed
+    (``reps`` launches from restored operands and a cold L2) and its
+    needed bytes counted into ``stats[name]``; the comparison launches
+    leave ``sk.LAUNCHES`` as they found it."""
+    plain, in_place = {
         "store_accepts": (sk.store_accepts_plain, (0, 1)),
         "accum_acks": (sk.accum_acks_plain, (0,)),
-    }
-    taken = {name: 0 for name in plains}
+    }[name]
+    counts = dict(sk.LAUNCHES)
+    want = plain(*snap)
+    got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(snap)])
+    torch.cuda.synchronize()
+    st = stats.setdefault(name, {"launches": 0, "lanes": set(), "ms": [], "bytes": 0,
+                                 "max_abs_err": 0})
+    st["max_abs_err"] = max(st["max_abs_err"], _max_abs_err(zip(got, want)))
+    st["ms"].append(time_in_place(kern, snap, in_place, reps))
+    st["bytes"] += sk.bytes_needed(name, *snap)
+    st["launches"] += 1
+    st["lanes"].add(int(snap[0].shape[0]))
+    sk.LAUNCHES.update(counts)
+
+
+@contextlib.contextmanager
+def check_launches(sk, reps: int, stats: dict, lanes: int | None = None,
+                   limit: int | None = None, defer: bool = False, held: dict | None = None):
+    """Every simkern launch in the block (of ``lanes`` lanes, when given;
+    the first ``limit`` of each kernel, when given, on each mesh rank) is
+    held against its plain version on a snapshot of its operands, timed
+    on it (``reps`` launches from restored operands and a cold L2) and
+    its needed bytes counted: before the real launch goes ahead, or, with
+    ``defer``, once the block has ended (the block's own wall, syncs and
+    peak memory then carry only the snapshots' copies).  The comparison
+    launches leave ``sk.LAUNCHES`` as they found it.  ``stats[name]``
+    gathers the launches, their lane counts, times, needed bytes and the
+    largest error; ``held``, when given, gets the launches held per
+    ``(mesh rank or None, kernel)``."""
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    taken = {}
     pending = []
 
     def hold(name, kern, snap):
-        plain, in_place = plains[name]
-        counts = dict(sk.LAUNCHES)
-        want = plain(*snap)
-        got = kern(*[t.clone() if k in in_place else t for k, t in enumerate(snap)])
-        torch.cuda.synchronize()
-        st = stats.setdefault(name, {"launches": 0, "lanes": set(), "ms": [], "bytes": 0,
-                                     "max_abs_err": 0})
-        st["max_abs_err"] = max(st["max_abs_err"], _max_abs_err(zip(got, want)))
-        st["ms"].append(time_in_place(kern, snap, in_place, reps))
-        st["bytes"] += sk.bytes_needed(name, *snap)
-        st["launches"] += 1
-        st["lanes"].add(int(snap[0].shape[0]))
-        sk.LAUNCHES.update(counts)
+        _hold_snapshot(sk, name, kern, snap, reps, stats)
 
     def checking(name, kern):
         def launch(*ops):
+            key = (pmesh.current_rank(), name)
             if lanes is not None and int(ops[0].shape[0]) != lanes:
                 return kern(*ops)
-            if limit is not None and taken[name] >= limit:
+            if limit is not None and taken.get(key, 0) >= limit:
                 return kern(*ops)
-            taken[name] += 1
+            taken[key] = taken.get(key, 0) + 1
             snap = [t.clone() for t in ops]
             if defer:
                 pending.append((name, kern, snap))
@@ -960,6 +1000,8 @@ def check_launches(sk, reps: int, stats: dict, lanes: int | None = None,
 
     with _wrapping(sk, checking):
         yield stats
+    if held is not None:
+        held.update(taken)
     for job in pending:
         hold(*job)
     pending.clear()
@@ -1035,7 +1077,6 @@ def run_fleet(sk, goldens, card) -> dict:
     import numpy as np
 
     from tpu_paxos_torch import config as cfgm
-    from tpu_paxos_torch.core import sim
     from tpu_paxos_torch.fleet import runner as frun
     from tpu_paxos_torch.fleet import search
     from tpu_paxos_torch.harness import stress
@@ -1049,7 +1090,7 @@ def run_fleet(sk, goldens, card) -> dict:
     )
     n = c["lanes"]
     rng = np.random.default_rng(1)
-    scheds = [search.sample_schedule(rng, 5, 4, 96) for _ in range(FLEET_WIDE)]
+    scheds = [search.sample_schedule(rng, 5, 4, 96) for _ in range(n)]
     runner = frun.FleetRunner(cfg, wl, gates, device=DEV)
 
     def cycle(name, lanes):
@@ -1106,30 +1147,8 @@ def run_fleet(sk, goldens, card) -> dict:
         raise SystemExit("fleet [headline] rerun disagrees with its JAX golden")
     out["checked"] = _summarize_checked(f"fleet [headline] {n}-lane operands", stats)
 
-    seeds, sch, knobs = cycle("headline", FLEET_WIDE)
-    torch.cuda.synchronize()
-    it = {}
-    # the syncs are counted in the timed run itself: the warnings cost
-    # about 10 us each, under 0.5% of its wall
-    syncs = count_syncs(lambda: it.setdefault("rep", runner.run(seeds, sch, knobs=knobs)))
-    rep = it.pop("rep")
-    v = rep.verdict
-    print(f"fleet [headline] {FLEET_WIDE} lanes: lanes_per_sec={rep.lanes_per_sec:.2f} "
-          f"seconds={rep.seconds:.3f} rounds_max={int(v.rounds.max())} iterations={rep.iterations} "
-          f"ms_per_round={rep.seconds / rep.iterations * 1e3:.3f} "
-          f"syncs_per_round={syncs / rep.iterations:.2f} ok={int(v.ok.sum())}/{FLEET_WIDE} | {card}")
-    done = rep.final.done.cpu().numpy()
-    cand = [i for i in range(FLEET_WIDE) if done[i] and v.rounds[i] <= 400]
-    picks = [cand[k * len(cand) // FLEET_SINGLES] for k in range(FLEET_SINGLES)]
-    for i in picks:
-        single = sim.run(rep.lane_cfg(i), wl, gates, device=DEV)
-        same = _same_result(rep.lane_result(i), single)
-        print(f"fleet lane {i} of {FLEET_WIDE} vs single sim.run(lane_cfg({i})): rounds={single.rounds} "
-              f"equal={same}")
-        if not same:
-            raise SystemExit(f"fleet lane {i} disagrees with its single run")
-    out["wide"] = {"lanes": FLEET_WIDE, "iterations": rep.iterations, "seconds": rep.seconds,
-                   "lanes_per_sec": rep.lanes_per_sec, "syncs_per_round": syncs / rep.iterations}
+    # the 2048-lane timing dispatch and its single re-runs run in a call
+    # of their own: tests/test_torch_fleet_cuda.py
     del rep
     torch.cuda.empty_cache()
     return out
@@ -1692,13 +1711,10 @@ def run_telemetry_fleet(sk, goldens, card: str) -> dict:
     return {"turns": turns, "launches": turns[1]["launches"]}
 
 
-def run_trace_cli(goldens, here: str, full_path: str, card: str) -> dict:
-    """Phase 12d: ``python -m tpu_paxos_torch trace`` on three artifacts,
-    the three processes at once."""
+def run_trace_cli(goldens, here: str, paths: dict, card: str) -> dict:
+    """Phase 12d: ``python -m tpu_paxos_torch trace`` on the artifacts of
+    ``paths`` (golden name -> path), the processes at once."""
     tg = goldens["telemetry"]["trace"]
-    data = os.path.join(here, "tpu_paxos_torch", "data")
-    paths = {name: os.path.join(data, name) for name in ("repro_culprit.json", "repro_takeover.json")}
-    paths[goldens["triage_full"]["artifact"]] = full_path
     before = {name: _file_sha256(path) for name, path in paths.items()}
     t0 = time.perf_counter()
     procs = {
@@ -3077,6 +3093,176 @@ def run_evolve(goldens, here: str, card: str) -> dict:
     return out
 
 
+SHARDED_RANKS = 8  # phase 19's mesh: eight ranks on the one card
+SHARDED_CHECK = 16  # launches of each kernel held per rank in 19a
+SHARDED_FAST_N = 100_000_000  # 19b: BASELINE config 4's literal size
+COLLECTIVE_REPS = 200  # idle collectives timed in a row in 19a
+
+
+def run_sharded_sim(sk, script, goldens, card: str) -> dict:
+    """19a: the sharded general engine at bench.py's record configuration
+    on 8 ranks of the one card, then on the (2, 4) ``("dcn", "i")`` mesh
+    with the first 16 launches of each kernel on every rank held."""
+    from tpu_paxos_torch.harness import validate
+    from tpu_paxos_torch.parallel import mesh as pmesh
+    from tpu_paxos_torch.parallel import sharded_sim
+
+    m = script.sharded_modules(port=True)
+    gold = goldens["sharded_sim_2p20_d8"]
+    cfg = script.sharded_sim_cfg(m, gold["config"])
+    mesh = pmesh.make_instance_mesh(SHARDED_RANKS, device=DEV)
+    res, wall, syncs, peak = _serve_timed(lambda: sharded_sim.run_sharded(cfg, mesh))
+    launches, calls = mesh.launches, mesh.calls
+    rec = script.sharded_record(m, cfg, None, res)
+    rec["chosen_round_sha256"] = script.chosen_round_sha256(res.chosen_round)
+    print(f"sharded sim (19a) I={cfg.n_instances} over {mesh.size} ranks (I_loc="
+          f"{cfg.n_instances // mesh.size}, A={cfg.n_nodes}, P={len(cfg.proposers)}), one card, "
+          f"the ranks exchanging through a shared store on the host: rounds={res.rounds} done={res.done} "
+          f"chosen={rec['chosen']} wall_s={wall:.3f} ms_per_round={wall / res.rounds * 1e3:.3f} "
+          f"syncs_per_round={syncs / res.rounds:.2f} (all ranks) "
+          f"collectives_per_round={calls[0] / res.rounds:.2f} (each rank) peak_gb={peak:.3f} "
+          f"launches_per_rank={json.dumps(launches)} | {card}")
+    validate.check_all(res.learned, res.expected_vids)
+    want = {k: gold[k] for k in rec}
+    if rec != want:
+        raise SystemExit(f"sharded sim (19a) disagrees with the JAX golden at D=8: "
+                         f"{_dict_diff(rec, want)}")
+    if any(min(n.values()) < 1 for n in launches):
+        raise SystemExit("sharded sim (19a): a rank did not launch both simkern kernels")
+    print(f"sharded sim decision_log_sha256={rec['decision_log_sha256']} chosen_round_sha256="
+          f"{rec['chosen_round_sha256']} (match the JAX golden at D=8)")
+    mesh2 = pmesh.make_instance_mesh(SHARDED_RANKS, dcn_hosts=2, device=DEV)
+    stats, held = {}, {}
+    with check_launches(sk, SNAP_REPS, stats, limit=SHARDED_CHECK, defer=True, held=held):
+        res2, wall2, _, _ = _serve_timed(lambda: sharded_sim.run_sharded(cfg, mesh2))
+    per_rank = {}
+    for (rank, name), n in sorted(held.items(), key=str):
+        per_rank.setdefault(f"rank {rank}", {})[name] = n
+    same = _same_result(res, res2)
+    rec2 = script.sharded_record(m, cfg, None, res2)
+    print(f"sharded sim on the {mesh2.shape} {mesh2.axis_names} mesh: rounds={res2.rounds} "
+          f"wall_s={wall2:.3f} (with snapshots) equal_to_1d={same} "
+          f"held_per_rank={json.dumps(per_rank, sort_keys=True)} | {card}")
+    if not same or rec2 != {k: goldens["sharded_sim_2p20_2x4"][k] for k in rec2}:
+        raise SystemExit("sharded sim on the (2, 4) mesh disagrees with D=8 or its golden")
+    full = {"store_accepts": SHARDED_CHECK, "accum_acks": SHARDED_CHECK}
+    if any(per_rank.get(f"rank {r}") != full for r in range(mesh2.size)):
+        raise SystemExit(f"sharded sim: not {SHARDED_CHECK} launches of each kernel on every rank")
+    checked = _summarize_checked(f"sharded sim, {SHARDED_CHECK} launches a kernel on each of "
+                                 f"{mesh2.size} ranks (I_loc={cfg.n_instances // mesh2.size})", stats)
+    # what one collective costs with nothing else running: the round's
+    # packs are a few dozen int64 values
+    width = 1 + cfg.n_nodes + 3 * len(cfg.proposers) + 1
+    t0 = time.perf_counter()
+    mesh.run(lambda comm: [comm.exchange([0] * width) for _ in range(COLLECTIVE_REPS)])
+    coll_ms = (time.perf_counter() - t0) / COLLECTIVE_REPS * 1e3
+    print(f"sharded sim: one exchange of {width} int64 a rank over {mesh.size} thread ranks, "
+          f"idle: {coll_ms:.3f} ms ({COLLECTIVE_REPS} in a row); {calls[0] / res.rounds:.2f} a round "
+          f"-> {coll_ms * calls[0] / res.rounds:.3f} ms of the round's {wall / res.rounds * 1e3:.3f} "
+          f"| {card}")
+    return {"launches": launches, "calls": calls, "wall_s": wall, "rounds": res.rounds,
+            "checked": checked, "collective_ms": coll_ms}
+
+
+def run_sharded_fast(script, goldens, card: str) -> dict:
+    """19b: ``sharded_choose_all`` over 7 nodes and 1e8 instances on 8
+    ranks of the one card (twice: the second on the chosen state), then
+    the (2, 4) mesh at the golden's size against the JAX golden."""
+    from tpu_paxos_torch.parallel import mesh as pmesh
+    from tpu_paxos_torch.parallel import sharded
+
+    n, a = SHARDED_FAST_N, 7
+    mesh = pmesh.make_instance_mesh(SHARDED_RANKS, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    states = sharded.init_sharded_state(mesh, n, a)
+    vids = pmesh.shard_instances(mesh, torch.arange(n, dtype=torch.int32, device=DEV))
+    step = sharded.sharded_choose_all(mesh, proposer=0, quorum=a // 2 + 1)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, n_chosen = step(states, vids)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        learned_ok = all(bool((s.learned == v[None]).all()) for s, v in zip(states, vids))
+        rep_ok = all(torch.equal(s.promised, states[0].promised)
+                     and torch.equal(s.max_seen, states[0].max_seen) for s in states)
+        if n_chosen != n or not learned_ok or not rep_ok:
+            raise SystemExit(f"sharded fast (19b): n_chosen={n_chosen} learned_ok={learned_ok} "
+                             f"replicated_equal={rep_ok}")
+    gb = sum(x.numel() * x.element_size() for s in states for x in s) / 1e9
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"sharded fast (19b) {n} instances x {a} nodes over {mesh.size} ranks: n_chosen={n_chosen} "
+          f"walls_s={[round(w, 4) for w in walls]} instances_per_sec={n / walls[-1]:.4g} "
+          f"(8 ranks on one card, not a multi-chip number) state_gb={gb:.2f} "
+          f"peak_gb={peak:.2f} learned_rows_equal_vids=True replicated_equal=True | {card}")
+    del states, vids
+    torch.cuda.empty_cache()
+    m = script.sharded_modules(port=True)
+    gold = goldens["sharded_fast"]
+    t0 = time.perf_counter()
+    got = script.sharded_fast_golden(m, gold["n_instances"], gold["n_nodes"], gold["mesh"],
+                                     device=DEV)
+    print(f"sharded fast on the {gold['mesh']} mesh at {gold['n_instances']}: "
+          f"n_chosen={got['n_chosen']} wall_s={time.perf_counter() - t0:.3f} (with the gather "
+          f"to the host) equal_to_golden={got == gold} | {card}")
+    if got != gold:
+        raise SystemExit(f"sharded fast on the (2, 4) mesh disagrees with the JAX golden: "
+                         f"{_dict_diff(got, gold)}")
+    torch.cuda.empty_cache()
+    return {"walls_s": walls, "instances_per_sec": n / walls[-1], "peak_gb": peak}
+
+
+def start_sharded_clis(goldens, here: str):
+    """19c's three CLI processes, started together: the two ``--mesh 8``
+    lines, and ``repro --json`` of the committed sharded artifact in its
+    directory."""
+    data = os.path.join(here, "tpu_paxos_torch", "data")
+    runs = {
+        "cli_4_4_10_mesh8": (goldens["cli_4_4_10_mesh8"]["args"], here),
+        "fast_cli_2p23_mesh8": (goldens["fast_cli_2p23_mesh8"]["args"], here),
+        "sharded_repro": (["repro", goldens["sharded_repro"]["artifact"], "--json"], data),
+    }
+    return {key: (subprocess.Popen(
+        [sys.executable, "-m", "tpu_paxos_torch", *args, "--device", DEV], cwd=cwd,
+        env=_port_env(here, {"TPU_PAXOS_DETERMINISTIC": "1"}), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()) for key, (args, cwd) in runs.items()}
+
+
+def finish_sharded_clis(goldens, started, card: str) -> None:
+    """19c: each CLI's stdout against the JAX CLI's golden."""
+    for key, (proc, t0) in started.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        want = goldens[key]["stdout"]
+        print(f"sharded CLI {key} (python -m tpu_paxos_torch {' '.join(proc.args[3:-2])}): "
+              f"rc={proc.returncode} wall_s={time.perf_counter() - t0:.3f} "
+              f"stdout_sha256={_sha_text(stdout)} equal={stdout == want} | {card}")
+        if proc.returncode != 0 or stdout != want:
+            print(stderr[-3000:], file=sys.stderr)
+            raise SystemExit(f"{key} disagrees with the JAX CLI's")
+
+
+def run_sharded(goldens, here: str, card: str) -> dict:
+    """Phase 19: the instance-sharded engines on the card."""
+    from tpu_paxos_torch.core import simkern as sk
+
+    script = _goldens_script(here)
+    t19 = time.perf_counter()
+    print(f"phase 19: {SHARDED_RANKS} ranks, threads of this process, all on "
+          f"{torch.cuda.get_device_name(0)} (cuda:0), collectives through a HashStore they share | {card}")
+    clis = start_sharded_clis(goldens, here)
+    try:
+        out = {"sim": run_sharded_sim(sk, script, goldens, card),
+               "fast": run_sharded_fast(script, goldens, card)}
+    except BaseException:
+        for proc, _ in clis.values():
+            proc.kill()
+        raise
+    finish_sharded_clis(goldens, clis, card)
+    print(f"phase 19 (instance-sharded engines) took {time.perf_counter() - t19:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3125,11 +3311,15 @@ def main() -> int:
         t12 = time.perf_counter()
         tele = run_telemetry_single(sk, goldens, card)
         tele_fleet = run_telemetry_fleet(sk, goldens, card)
+        data = os.path.join(here, "tpu_paxos_torch", "data")
+        paths = {name: os.path.join(data, name)
+                 for name in ("repro_culprit.json", "repro_takeover.json")}
+        paths[goldens["triage_full"]["artifact"]] = full_art["path"]
         # 11c's replay runs beside 12d's traces: neither writes the artifact
         replay_full = _replay(here, full_art["path"], goldens["triage_full"], {},
                               full_art["label"])
         try:
-            run_trace_cli(goldens, here, full_art["path"], card)
+            run_trace_cli(goldens, here, paths, card)
         finally:
             replay_full()
         print(f"phase 12 (flight recorder, with 11c's replay) took "
@@ -3148,6 +3338,7 @@ def main() -> int:
     control = run_control(goldens, here, card)
     mc = run_mc(goldens, here, card)
     evolve = run_evolve(goldens, here, card)
+    shard = run_sharded(goldens, here, card)
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -3220,6 +3411,10 @@ def main() -> int:
             "evolve_checked": evolve["checked"][name]["launches"],
             "evolve_ms": evolve["checked"][name]["ms"],
             "evolve_bound_ms": evolve["checked"][name]["bound_ms"],
+            "sharded_launches_per_rank": [n[key] for n in shard["sim"]["launches"]],
+            "sharded_checked": shard["sim"]["checked"][name]["launches"],
+            "sharded_ms": shard["sim"]["checked"][name]["ms"],
+            "sharded_bound_ms": shard["sim"]["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({
@@ -3235,7 +3430,7 @@ def main() -> int:
         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
         "library_ms": None,
     })
-    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-18)")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-19)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

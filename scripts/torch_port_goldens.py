@@ -140,6 +140,31 @@ box):
   ``evolve``'s ``fresh`` draws a genome; per lane the six verdict fields
   and the decision-log sha256, and the sha256 of the drawn genomes.
 
+Phase 19 of ``chip_smoke.py`` (the instance-sharded engines) and the
+sharded CPU tests hold these entries (``--sharded-only`` recomputes them,
+about 5 min on the CPU box; JAX runs on 8 virtual CPU devices, provisioned
+before its backend starts as ``tests/conftest.py`` does):
+
+- ``sharded_parity``: :func:`sharded_cases` (fault-free, reference
+  faults, crashes, gates across shards at 128 instances) on every mesh of
+  :data:`SHARDED_MESHES` (1, 2, 4 and 8 devices and the (2, 4)
+  ``("dcn", "i")`` mesh): rounds, ``done``, the chosen count, the
+  decision-log sha256 and the sha256 of every SimResult array;
+- ``sharded_sim_2p20_d8`` and ``sharded_sim_2p20_2x4``: ``bench.py``'s
+  sharded general-engine record configuration (7 nodes, 2**20 instances,
+  proposers (0, 1), ``assign_window`` 16384) at 8 devices and on (2, 4);
+- ``sharded_fast``: ``sharded_choose_all`` over 10M iota vids and 7 nodes
+  on (2, 4): ``n_chosen`` and the sha256 of every FastState field;
+- ``cli_4_4_10_mesh8`` and ``fast_cli_2p23_mesh8``: the stdout of the
+  ``--mesh 8`` CLI lines;
+- ``sharded_repro``: ``tests/test_sharded_repro.py``'s case at 8 devices,
+  saved (unshrunk) as ``repro_sharded_d8.json`` beside the goldens file,
+  with its file sha256 and the stdout of ``repro <basename> --json`` in
+  its directory;
+- ``stress_sharded``: ``stress.sweep_sharded(n_seeds=2)``'s summary less
+  ``seconds`` and ``platform``, and one of its runs (:data:`STRESS_SHARDED_ONE`)
+  with the suite's verdict.
+
 ``--instances`` shrinks the bench run (for a quick self-check); the
 committed file holds the full 2**23 run.
 """
@@ -1959,6 +1984,261 @@ def evolve_goldens() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+
+#: Ranks of phase 19's meshes (JAX: the 8 virtual CPU devices).
+SHARDED_DEVICES = 8
+#: The parity matrix's meshes: D ranks on ("i",), or HxC on ("dcn", "i").
+SHARDED_MESHES = ("1", "2", "4", "8", "2x4")
+#: The committed sharded artifact, written beside the goldens file.
+SHARDED_ARTIFACT = "repro_sharded_d8.json"
+SHARDED_CLI = ["4", "4", "10", "--seed=0", "--net-drop-rate=500", "--net-dup-rate=1000",
+               "--net-max-delay=2", "--mesh", "8"]
+SHARDED_FAST_CLI = ["5", "8192", "1024", "--engine=fast", "--mesh", "8", "--json"]
+#: The (mix, seed) of the sharded stress sweep that the CPU tests hold.
+STRESS_SHARDED_ONE = ("partition-flap", 0)
+SHARDED_ARRAYS = ("learned", "chosen_vid", "chosen_round", "chosen_ballot", "crashed", "msgs")
+
+
+def sharded_modules(port: bool):
+    """The sharded engines' modules of one package: the port's
+    (``port=True``; ``chip_smoke.py`` and the CPU tests drive these) or
+    the JAX package's (run under 8 virtual CPU devices)."""
+    import types
+
+    if port:
+        from tpu_paxos_torch import config as cfgm
+        from tpu_paxos_torch.core import faults
+        from tpu_paxos_torch.harness import shrink, stress
+        from tpu_paxos_torch.parallel import mesh, sharded, sharded_sim
+        from tpu_paxos_torch.replay.decision_log import decision_log
+    else:
+        from tpu_paxos import config as cfgm
+        from tpu_paxos.core import faults
+        from tpu_paxos.harness import shrink, stress
+        from tpu_paxos.parallel import mesh, sharded, sharded_sim
+        from tpu_paxos.replay.decision_log import decision_log
+    return types.SimpleNamespace(port=port, cfgm=cfgm, flt=faults, mesh=mesh, sharded=sharded,
+                                 ss=sharded_sim, stress=stress, shr=shrink,
+                                 decision_log=decision_log)
+
+
+def sharded_mesh(m, spec: str, **dev):
+    """The mesh ``spec`` names: ``"D"`` ranks on ``("i",)``, ``"HxC"`` on
+    ``("dcn", "i")``; ``dev`` (the port's ``device=``) places the port's
+    ranks."""
+    if "x" in spec:
+        h, c = (int(x) for x in spec.split("x"))
+        return m.mesh.make_instance_mesh(h * c, dcn_hosts=h, **dev)
+    return m.mesh.make_instance_mesh(int(spec), **dev)
+
+
+def sharded_cases(m) -> dict:
+    """The parity matrix's configurations (``tests/test_sharded_sim.py``'s
+    fault-free, reference-fault, crash and cross-shard gate cases at 128
+    instances): name -> (cfg, workload, gates)."""
+    import numpy as np
+
+    C = m.cfgm
+    ref = {"drop_rate": 500, "dup_rate": 1000, "max_delay": 2}
+    base = {"n_nodes": 5, "n_instances": 128, "proposers": (0, 1)}
+    inorder = np.asarray([10, 11, 12, 13], np.int32)
+    gates = [np.asarray([-1, 10, 11, 12], np.int32), np.zeros((0,), np.int32)]
+    free = np.arange(100, 140, dtype=np.int32)
+    return {
+        "fault_free": (C.SimConfig(**base, seed=0), None, None),
+        "reference": (C.SimConfig(**base, seed=1, faults=C.FaultConfig(**ref)), None, None),
+        "crashes": (C.SimConfig(**base, seed=5, max_rounds=4000,
+                                faults=C.FaultConfig(**ref, crash_rate=3000)), None, None),
+        "gates": (C.SimConfig(**base, seed=2, faults=C.FaultConfig(**ref)), [inorder, free], gates),
+    }
+
+
+def array_sha256(x) -> str:
+    """sha256 of an integer or bool array as little-endian int32."""
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(x), dtype="<i4").tobytes()).hexdigest()
+
+
+def sharded_record(m, cfg, workload, res) -> dict:
+    """One sharded run's result: rounds, ``done``, the chosen count, the
+    decision-log sha256 (stride: the default workload's, or one past the
+    largest vid) and the sha256 of every SimResult array."""
+    import numpy as np
+
+    stride = (max(cfg.n_instances, 1024) if workload is None
+              else int(max(int(np.max(w)) for w in workload if len(w))) + 1)
+    log = m.decision_log(res.chosen_vid, res.chosen_ballot, stride, cfg.n_instances)
+    return {
+        "rounds": int(res.rounds), "done": bool(res.done),
+        "chosen": int((np.asarray(res.chosen_vid) != -1).sum()),
+        "decision_log_sha256": hashlib.sha256(log.encode()).hexdigest(),
+        "arrays": {f: array_sha256(getattr(res, f)) for f in SHARDED_ARRAYS},
+    }
+
+
+def sharded_parity(m, **dev) -> dict:
+    """Every parity case on every mesh of :data:`SHARDED_MESHES`."""
+    out = {}
+    for name, (cfg, wl, gates) in sharded_cases(m).items():
+        for spec in SHARDED_MESHES:
+            res = m.ss.run_sharded(cfg, sharded_mesh(m, spec, **dev), wl, gates)
+            out[f"{name}@{spec}"] = sharded_record(m, cfg, wl, res)
+    return out
+
+
+def sharded_sim_config(n_instances: int = 1 << 20, n_dev: int = SHARDED_DEVICES) -> dict:
+    """``bench.py``'s sharded general-engine record configuration."""
+    return {
+        "n_nodes": 7, "n_instances": n_instances, "proposers": [0, 1], "seed": 0,
+        "assign_window": max(256, min(1 << 14, n_instances // (8 * n_dev))),
+        "max_rounds": 20_000,
+        "faults": {"drop_rate": 500, "dup_rate": 1000, "max_delay": 2},
+    }
+
+
+def sharded_sim_cfg(m, bc: dict):
+    C = m.cfgm
+    return C.SimConfig(
+        n_nodes=bc["n_nodes"], n_instances=bc["n_instances"], proposers=tuple(bc["proposers"]),
+        seed=bc["seed"], assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
+        faults=C.FaultConfig(**bc["faults"]),
+    )
+
+
+def sharded_sim_golden(m, bc: dict, spec: str, **dev) -> dict:
+    """The sharded general engine at ``bc`` on mesh ``spec``: the run's
+    record plus its chosen-round sha256, mesh and config."""
+    cfg = sharded_sim_cfg(m, bc)
+    res = m.ss.run_sharded(cfg, sharded_mesh(m, spec, **dev))
+    out = sharded_record(m, cfg, None, res)
+    out.update(chosen_round_sha256=chosen_round_sha256(res.chosen_round), mesh=spec, config=bc,
+               stride=max(cfg.n_instances, 1024))
+    return out
+
+
+def sharded_fast_golden(m, n_instances: int, n_nodes: int, spec: str, **dev) -> dict:
+    """``sharded_choose_all`` (proposer 0) over ``n_instances`` iota vids
+    on mesh ``spec``: ``n_chosen`` and the sha256 of every global
+    FastState field."""
+    import numpy as np
+
+    mesh = sharded_mesh(m, spec, **dev)
+    vids = np.arange(n_instances, dtype=np.int32)
+    quorum = n_nodes // 2 + 1
+    state = m.sharded.init_sharded_state(mesh, n_instances, n_nodes)
+    step = m.sharded.sharded_choose_all(mesh, proposer=0, quorum=quorum)
+    if m.port:
+        state, n = step(state, m.mesh.shard_instances(mesh, vids))
+        glob = m.sharded.gather_state(state)
+    else:
+        import jax.numpy as jnp
+
+        state, n = step(state, m.mesh.shard_instances(mesh, jnp.asarray(vids)))
+        glob = state
+    return {"n_instances": n_instances, "n_nodes": n_nodes, "mesh": spec, "n_chosen": int(n),
+            "fields": {f: array_sha256(np.asarray(getattr(glob, f))) for f in glob._fields}}
+
+
+def stress_sharded_case(m, label: str, seed: int, n_shards: int = SHARDED_DEVICES):
+    """One (mix, seed) of the sharded stress sweep as its loop builds it:
+    ``(cfg, workload, gates, chains)``."""
+    import zlib
+
+    import numpy as np
+
+    mixes = {mx[0]: mx for mx in (m.stress.MIXES[1], m.stress.MIXES[4], *m.stress.EPISODE_MIXES)}
+    _, fkw, n_nodes, n_prop = mixes[label]
+    rng = np.random.default_rng(seed * 7919 + zlib.crc32(label.encode()) % 1000)
+    workload, gates, chains = m.stress._workload(n_prop, rng)
+    n_inst = 2 * sum(len(w) for w in workload)
+    n_inst = max(n_inst + (-n_inst) % n_shards, m.ss.min_instances(workload, gates, n_shards))
+    cfg = m.cfgm.SimConfig(n_nodes=n_nodes, n_instances=n_inst, proposers=tuple(range(n_prop)),
+                           seed=seed, max_rounds=20_000, faults=m.cfgm.FaultConfig(**fkw))
+    return cfg, workload, gates, chains
+
+
+def stress_sharded_one(m, **dev) -> dict:
+    """:data:`STRESS_SHARDED_ONE`'s run on the 8-rank mesh: its record and
+    the crash-aware suite's verdict (None: green)."""
+    label, seed = STRESS_SHARDED_ONE
+    cfg, wl, gates, chains = stress_sharded_case(m, label, seed)
+    res = m.ss.run_sharded(cfg, sharded_mesh(m, str(SHARDED_DEVICES), **dev), wl, gates)
+    try:
+        m.stress._check_run(res, cfg, wl, chains)
+        verdict = None
+    except Exception as e:  # noqa: BLE001 - the verdict is the record
+        verdict = str(e)[:300]
+    return {"mix": label, "seed": seed, "n_instances": cfg.n_instances, "verdict": verdict,
+            **sharded_record(m, cfg, wl, res)}
+
+
+def sharded_repro_case(m, devices: int = SHARDED_DEVICES):
+    """``tests/test_sharded_repro.py``'s case at ``devices`` shards: a
+    partition of node 0 delays decisions past ``decision_round_max``."""
+    import numpy as np
+
+    C, flt = m.cfgm, m.flt
+    sched = flt.FaultSchedule((flt.partition(4, 24, (0,), (1, 2)),))
+    wl = [np.arange(100, 108, dtype=np.int32), np.arange(200, 208, dtype=np.int32)]
+    cfg = C.SimConfig(n_nodes=3, n_instances=64, proposers=(0, 1), seed=7, max_rounds=4000,
+                      faults=C.FaultConfig(drop_rate=300, dup_rate=500, max_delay=2,
+                                           schedule=sched))
+    return m.shr.ReproCase(cfg=cfg, workload=wl, gates=None,
+                           chains=[np.zeros(0, np.int32)] * 2,
+                           extra_checks={"decision_round_max": 25}, engine="sharded",
+                           devices=devices)
+
+
+def sharded_goldens(out_dir: str) -> dict:
+    """Phase 19's goldens (JAX on 8 virtual CPU devices): the parity
+    matrix, the 2**20 general engine at D=8 and on (2, 4), the fast path
+    at 10M on (2, 4), the two ``--mesh 8`` CLIs, the committed sharded
+    artifact (written to ``out_dir``) with its ``repro --json`` stdout,
+    and the sharded stress sweep's summary (less ``seconds`` and
+    ``platform``) with one of its runs."""
+    m = sharded_modules(port=False)
+    art = os.path.join(out_dir, SHARDED_ARTIFACT)
+    case = sharded_repro_case(m)
+    _, viol = m.shr.run_case(case)
+    m.shr.save_artifact(art, case, viol)
+    rstdout = repro_stdout(art, {})
+    bc = sharded_sim_config()
+    sweep = m.stress.sweep_sharded(n_seeds=2, verbose=False)
+    return {
+        "sharded_parity": sharded_parity(m),
+        "sharded_sim_2p20_d8": sharded_sim_golden(m, bc, str(SHARDED_DEVICES)),
+        "sharded_sim_2p20_2x4": sharded_sim_golden(m, bc, "2x4"),
+        "sharded_fast": sharded_fast_golden(m, 10_000_000, 7, "2x4"),
+        "cli_4_4_10_mesh8": {"args": SHARDED_CLI, "stdout": _fast_cli_stdout(SHARDED_CLI)},
+        "fast_cli_2p23_mesh8": {"args": SHARDED_FAST_CLI,
+                                "stdout": _fast_cli_stdout(SHARDED_FAST_CLI)},
+        "sharded_repro": {"artifact": SHARDED_ARTIFACT, "violation": viol,
+                          "artifact_sha256": _file_sha256(art), "stdout": rstdout},
+        "stress_sharded": {"summary": {k: v for k, v in sweep.items()
+                                       if k not in ("seconds", "platform")},
+                           "one": stress_sharded_one(m)},
+    }
+
+
+def provision_cpu_devices(n: int = SHARDED_DEVICES) -> None:
+    """Give JAX ``n`` virtual CPU devices, before its backend starts (as
+    ``tests/conftest.py`` does): the sharded goldens run on them, and
+    nothing unsharded depends on the device count."""
+    import jax
+
+    # paxlint: allow[DET004] platform selection, value-neutral
+    jax.config.update("jax_platforms", "cpu")
+    try:
+        # paxlint: allow[DET004] device provisioning, value-neutral
+        jax.config.update("jax_num_cpu_devices", n)
+    except AttributeError:
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") + f" --xla_force_host_platform_device_count={n}"
+        )
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -1985,6 +2265,7 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         out["control"] = control_goldens()
         out["mc"] = mc_goldens()
         out["evolve"] = evolve_goldens()
+        out.update(sharded_goldens(path))
 
     if out_dir is not None:
         rest(out_dir)
@@ -2056,6 +2337,9 @@ def main(argv=None) -> int:
                     help="recompute only the mc entry (phase 17) of the --write file")
     ap.add_argument("--evolve-only", action="store_true",
                     help="recompute only the evolve entry (phase 18) of the --write file")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="recompute only the sharded entries (phase 19) of the --write file "
+                    "and rewrite the committed sharded artifact beside it")
     ap.add_argument("--serve-only", action="store_true",
                     help="recompute only the serve entry (phase 15) and the host-loop "
                     "half of the stress_fleet entry of the --write file")
@@ -2064,11 +2348,12 @@ def main(argv=None) -> int:
                         help=f"recompute only the {part.replace('-', '_')} entry of the "
                         "--write file")
     args = ap.parse_args(argv)
+    provision_cpu_devices()
     out_dir = os.path.dirname(os.path.abspath(args.write or "goldens.json"))
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
     if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
             or args.member_only or args.serve_only or args.control_only or args.mc_only
-            or args.evolve_only):
+            or args.evolve_only or args.sharded_only):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -2091,6 +2376,8 @@ def main(argv=None) -> int:
             out["mc"] = mc_goldens()
         if args.evolve_only:
             out["evolve"] = evolve_goldens()
+        if args.sharded_only:
+            out.update(sharded_goldens(out_dir))
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

@@ -11,7 +11,8 @@ configuration (the main path that ``chip_smoke.py`` drives: 5 nodes,
 - a host split of one run: time in the threefry draws
   (``prng.randint_lanes``: keys on the host, words hashed on the card)
   and time in the round's global-predicate
-  reads (``sim._any``, each of which waits for the device to drain),
+  reads (``sim._any`` and ``sim._global_max``, each of which waits for
+  the device to drain),
   per round;
 - under ``torch.profiler``: the device's busy time (the sum of the
   device-side events, kernels and copies; one stream, so nothing
@@ -138,13 +139,14 @@ def host_split(cfg, dev, rounds: int) -> dict:
                 calls[name] = calls.get(name, 0) + 1
         return wrapper
 
-    saved = (prng.randint_lanes, sim._any)
+    saved = (prng.randint_lanes, sim._any, sim._global_max)
     prng.randint_lanes = timed("prng", saved[0])
     sim._any = timed("predicates", saved[1])
+    sim._global_max = timed("predicates", saved[2])
     try:
         timed_run(cfg, dev)
     finally:
-        prng.randint_lanes, sim._any = saved
+        prng.randint_lanes, sim._any, sim._global_max = saved
     return {
         "prng_ms_per_round": spent["prng"] * 1e3 / rounds,
         "predicate_reads_per_round": calls["predicates"] / rounds,
@@ -231,6 +233,7 @@ def _wrap_round_blocks(timer: BlockTimer) -> None:
     timer.wrap(sim, "_requeue", "requeue")
     timer.wrap(sim, "_freeze", "frozen-lane select")
     timer.wrap(sim, "_any", "predicate reads")
+    timer.wrap(sim, "_global_max", "predicate reads")
     for mod, name in ((prng, "stream_keys"), (prng, "split_keys"),
                       (netm, "lane_copy_plans"), (stm, "masks_at"), (stm, "crashes_at")):
         timer.wrap(mod, name, "draws and schedule rows")

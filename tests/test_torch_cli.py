@@ -100,19 +100,27 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
 #: Placeholders replaced by a written artifact of that engine.
 _SHARDED_ART = "{sharded artifact}"
 _ARTS = {_SHARDED_ART: "sharded"}
-_SHARDED = "engine 'sharded' artifacts (the instance-sharded engine)"
+
+
+def _member_json():
+    return _goldens()["member"]["cli"]["record_stdout"]
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["4", "4", "10", "--engine=fast", "--mesh", "2"], "--engine=fast"),
-    # --engine=member is ported; with --mesh it is not (kept under the case's id)
-    pytest.param(["4", "4", "10", "--engine=member", "--mesh", "2"], "--engine=member",
+    # --mesh shards the instance axis of the general engine and the fast
+    # path (tests/test_torch_sharded*.py); these cases keep their ids and
+    # now compare stdout and exit code with the JAX CLI's (what None)
+    pytest.param(["4", "4", "10", "--engine=fast", "--mesh", "2"], None,
+                 id="argv0---engine=fast"),
+    # JAX's run_member never reads --mesh: the member CLI's JSON line is
+    # the committed JAX golden's (what: the golden's stdout)
+    pytest.param(["4", "4", "10", "--engine=member", "--mesh", "2", "--json"], _member_json,
                  id="argv1---engine=member"),
-    (["4", "4", "10", "--mesh", "2"], "--mesh"),
-    # trace is ported, of every artifact engine but the sharded one (the
-    # trace of a controller model checker's artifact fails the repro
-    # schema as JAX's does: test_torch_mc_control.py); audit --hlo is not
-    # (kept under the case's id)
+    pytest.param(["4", "4", "10", "--mesh", "2"], None, id="argv2---mesh"),
+    # trace is ported, of every artifact engine (the trace of a controller
+    # model checker's artifact fails the repro schema as JAX's does:
+    # test_torch_mc_control.py); audit --hlo is not (kept under the case's
+    # id)
     pytest.param(["audit", "--hlo"], "'audit'", id="argv3-'trace'"),
     # fleet is ported; lint is not (kept under the case's id)
     pytest.param(["lint"], "'lint'", id="argv4-'fleet'"),
@@ -129,31 +137,47 @@ _SHARDED = "engine 'sharded' artifacts (the instance-sharded engine)"
     (["serve", "--fleet", "--mesh", "2"], "'serve --fleet --mesh'"),
     # the controller's surfaces below are ported (tests/test_torch_control.py
     # and test_serve_control_cli_equals_the_jax_cli); their cases keep their
-    # ids on what still refuses: the controlled fleet's mesh and the replay
-    # of sharded artifacts (mc-control artifacts replay since the model
-    # checker was ported: test_repro_routes_mc_control_artifacts)
+    # ids on what still refuses (the controlled fleet's mesh) and on the
+    # replay and trace of sharded artifacts, which are ported and compare
+    # with the JAX CLI's
     pytest.param(["serve", "--fleet", "--mesh", "2", "--control", "--slo-latency", "8"],
                  "'serve --fleet --mesh'", id="argv9-'serve --fleet --control'"),
-    pytest.param(["repro", _SHARDED_ART], f"repro of {_SHARDED}",
-                 id="argv10-'serve --control-ab'"),
-    pytest.param(["trace", _SHARDED_ART, "--stdout"], f"trace of {_SHARDED}",
+    pytest.param(["repro", _SHARDED_ART], None, id="argv10-'serve --control-ab'"),
+    pytest.param(["trace", _SHARDED_ART, "--stdout"], None,
                  id="argv11-'serve --save-artifact'"),
-    pytest.param(["repro", _SHARDED_ART, "--json"], f"repro of {_SHARDED}",
+    pytest.param(["repro", _SHARDED_ART, "--json"], None,
                  id="argv12-repro of engine 'serve' artifacts (the serve admission controller)"),
 ])
-def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path):
-    """Some cases keep the id of a surface since ported; each failure
-    names the command line it ran and the surface it expected refused."""
+def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path, monkeypatch):
+    """Some cases keep the id of a surface since ported.  A refused
+    surface exits 2 naming itself; a ported one (``what`` None) prints the
+    JAX CLI's stdout with its exit code (``what`` callable: the committed
+    JAX golden's stdout, exit 0).  Each failure names the command line it
+    ran."""
     surface = f"{what}: {' '.join(argv)}"
     for key, engine in sorted(_ARTS.items()):
         if key in argv:
             with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
                 art = json.load(f)
-            art["engine"] = engine
+            art.update(engine=engine, devices=2)
             path = str(tmp_path / f"{engine}.json")
             with open(path, "w") as f:
                 json.dump(art, f)
             argv = [path if a == key else a for a in argv]
+    if what is None:
+        from tpu_paxos import __main__ as jcli
+
+        monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
+        rc_jax = jcli.main(argv + ["--backend", "cpu"])
+        want = capsys.readouterr().out
+        assert tcli.main(argv + ["--device", "cpu"]) == rc_jax, surface
+        assert capsys.readouterr().out == want, surface
+        assert want, surface
+        return
+    if callable(what):
+        assert tcli.main(argv + ["--device", "cpu"]) == 0, surface
+        assert capsys.readouterr().out == what(), surface
+        return
     assert tcli.main(argv + ["--device", "cpu"]) == 2, surface
     out = capsys.readouterr()
     assert f"{what} is not ported yet" in out.err and out.out == "", surface
@@ -379,17 +403,45 @@ def test_repro_is_ported(tmp_path, capsys):
     assert "unreadable artifact" in json.loads(out.out)["schema_error"]["problem"]
 
 
+#: The real sharded sweep's summary, computed once for both cases below.
+_SHARDED_SWEEP = {}
+
+
 @pytest.mark.parametrize("flag", ["--fleet", "--sharded"])
-def test_stress_cli_unported_sweeps_exit_2(flag, capsys):
-    """``--sharded`` exits 2 by name; ``--fleet`` is ported, and with
-    ``--sharded`` beside it the sharded sweep still refuses before any
-    sweep runs."""
+def test_stress_cli_unported_sweeps_exit_2(flag, capsys, monkeypatch):
+    """``--sharded`` is ported (the test keeps its name): after the
+    host-loop line (with ``--fleet`` beside it, after the host-loop and
+    fleet pair) the CLI runs the sharded sweep on 8 ranks and prints its
+    summary, and exits 0.  Here the sweep runs its two i.i.d. mixes (the
+    episode mixes emptied: 4 runs, once for both cases), whose summary is
+    JAX's ``stress_sharded`` golden at 4 runs; the whole sweep is held to
+    the golden in the slow tier (tests/test_torch_sharded_sim.py) and on
+    the card (tests/test_torch_sharded_cuda.py), one of its episode runs
+    in tier 1.  The host-loop and fleet sweeps are held to JAX's in
+    tests/test_torch_stress.py, so here they return their summaries
+    unrun."""
     from tpu_paxos_torch.harness import stress
 
+    real = stress.sweep_sharded
+
+    def sharded(*args, **kw):
+        key = (args, tuple(sorted(kw.items())))
+        if key not in _SHARDED_SWEEP:
+            _SHARDED_SWEEP[key] = real(*args, **kw)
+        return _SHARDED_SWEEP[key]
+
+    monkeypatch.setattr(stress, "EPISODE_MIXES", [])
+    monkeypatch.setattr(stress, "sweep_sharded", sharded)
+    for name in ("sweep", "sweep_fleet"):
+        monkeypatch.setattr(stress, name, lambda *a, _m=f"stress_{name}", **kw: {"metric": _m, "ok": True})
     extra = ["--sharded"] if flag == "--fleet" else []
-    assert stress.main(["--seeds", "1", flag, *extra, "--device", "cpu"]) == 2
-    out = capsys.readouterr()
-    assert "--sharded is not ported yet" in out.err and out.out == ""
+    assert stress.main(["--seeds", "1", flag, *extra, "--device", "cpu"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    want = ["stress_sweep"] + (["stress_sweep_fleet"] if flag == "--fleet" else [])
+    assert [d["metric"] for d in lines] == want + ["stress_sweep_sharded"]
+    got = {k: v for k, v in lines[-1].items() if k not in ("seconds", "platform")}
+    assert got == {**_goldens()["stress_sharded"]["summary"], "runs": 4}
+    assert lines[-1]["platform"] == "cpu"
 
 
 _BLOCKED_IMPORT_PROBE = """
@@ -530,6 +582,15 @@ with contextlib.redirect_stderr(io.StringIO()):
 mc_ok = (rc_nosuch == 2 and mc_control.run_scope(tiny, verbose=False, device="cpu")["ok"]
          and len(mc_member.ChurnEnum(modelcheck.load_scopes()["churn"]).reduced) == 302
          and triage.dump_name("mc", "scenario_1", "json") == "mc_scenario_1.json")
+from tpu_paxos_torch.parallel import mesh as pmesh
+from tpu_paxos_torch.parallel import sharded, sharded_sim
+smesh = pmesh.make_instance_mesh(2, device="cpu")
+sres = sharded_sim.run_sharded(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1)), smesh)
+_, sn = sharded.sharded_choose_all(smesh, proposer=0, quorum=2)(
+    sharded.init_sharded_state(smesh, 16, 3), pmesh.shard_instances(smesh, np.arange(16, dtype=np.int32)))
+with contextlib.redirect_stdout(io.StringIO()):
+    rc_mesh = cli.main(["3", "2", "4", "--mesh", "2", "--device", "cpu"])
+sharded_ok = sres.done and sn == 16 and rc_mesh == 0 and smesh.calls[0] > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -546,7 +607,7 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and [serve_out[0]["metric"], serve_out[1]["metric"]] == ["serve", "serve_fleet"]
       and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
       and serve_out[2]["otherData"]["engine"] == "serve_fleet"
-      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok and evo_ok)
+      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok and evo_ok and sharded_ok)
 print(len(mods), bool(ok), loaded)
 """
 
@@ -555,7 +616,8 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_mods) >= 54  # every module of the package was imported, evolve and breach too
+    # every module of the package was imported, the parallel package too
+    assert int(n_mods) >= 59
     assert done == "True"
     assert loaded.strip() == "[]"
 

@@ -430,7 +430,22 @@ def test_padded_single_run_build_equals_sim_run():
         np.testing.assert_array_equal(got.crashed[:n], want.crashed)
 
 
-def test_envelope_golden_grid_equals_jax():
+@pytest.fixture
+def one_intraop_thread():
+    """torch's intra-op threads pinned to one for the test: its 64-lane ops
+    sit just past OpenMP's parallel grain, and their worker threads thrash
+    against the suite's other workers (the test takes about 50 s alone and
+    over 1,000 s beside five busy workers).  Integer state: the results do
+    not depend on the thread count."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_envelope_golden_grid_equals_jax(one_intraop_thread):
     """``bench.py``'s envelope configuration (the card's phase 13d) on the
     CPU: 3/5/7 tenants x both protocol configs x both rates, 64 lanes a
     cell, through ONE padded runner; every lane's rounds, verdict and

@@ -201,19 +201,26 @@ def test_triage_writes_the_shrunk_artifact_as_jax(tmp_path):
 
 
 def test_green_case_refuses_shrink_and_sharded_raises():
+    """A green case refuses to shrink.  A sharded case no longer raises
+    (the test keeps its name): it runs on a mesh of its recorded device
+    count and equals JAX's sharded run_case, result and verdict."""
     case = _culprit("port", {}, episodes=0)
     _, v = tshr.run_case(case, device="cpu")
     assert v is None
     with pytest.raises(ValueError, match="does not fail"):
         tshr.shrink_case(case, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tshr.run_case(dataclasses.replace(case, engine="sharded", devices=2), device="cpu")
+    r, v = tshr.run_case(dataclasses.replace(case, engine="sharded", devices=2), device="cpu")
+    jr, jv = jshr.run_case(dataclasses.replace(_culprit("jax", {}, episodes=0), engine="sharded",
+                                               devices=2))
+    assert v == jv is None and r.rounds == jr.rounds
+    for f in ("learned", "chosen_vid", "chosen_round", "chosen_ballot", "crashed", "msgs"):
+        assert np.array_equal(getattr(r, f), np.asarray(getattr(jr, f))), f
 
 
 def _artifact_variant(tmp_path, kind):
     """The committed culprit artifact as is (``match``), with another
-    recorded sha256 (``drift``), or re-stamped as an engine the port does
-    not replay yet."""
+    recorded sha256 (``drift``), or re-stamped as another engine (a
+    sharded one at 2 devices)."""
     with open(os.path.join(DATA, "repro_culprit.json")) as f:
         art = json.load(f)
     if kind == "drift":
@@ -243,25 +250,31 @@ def test_repro_cli_exit_code_and_stdout_equal_jax(kind, rc, tmp_path, monkeypatc
 
 @pytest.mark.parametrize("engine", ["sharded", "serve", "mc-control"])
 def test_repro_cli_unported_engine_exits_2(engine, tmp_path, capsys, monkeypatch):
-    """Sharded artifacts exit 2 by name.  Serve artifacts replay through
-    the admission controller (tests/test_torch_control.py) and mc-control
-    ones through the controller model checker
-    (tests/test_torch_mc_control.py); these, a sim artifact re-stamped
-    ``serve`` without its ``serve`` block or ``mc-control`` without its
-    policy, exit 2 with JAX's schema error, stdout for stdout."""
+    """Every engine's artifacts replay now (the test keeps its name).  A
+    sim artifact re-stamped ``sharded`` at 2 devices replays on a 2-rank
+    mesh: its sharded log differs from the recorded unsharded one, so
+    both CLIs print the same non-matching replay and exit 1.  Serve
+    artifacts replay through the admission controller
+    (tests/test_torch_control.py) and mc-control ones through the
+    controller model checker (tests/test_torch_mc_control.py); a sim
+    artifact re-stamped ``serve`` without its ``serve`` block or
+    ``mc-control`` without its policy exits 2 with JAX's schema error,
+    stdout for stdout."""
     monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
     path = _artifact_variant(tmp_path, engine)
-    if engine in ("serve", "mc-control"):
-        assert jcli.run_repro([path, "--json"]) == 2
+    if engine == "sharded":
+        rc = jcli.run_repro([path, "--json"])
         want = capsys.readouterr().out
-        assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == 2
+        assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == rc
         assert capsys.readouterr().out == want
-        assert json.loads(want)["schema_error"]["field"] == (
-            "serve" if engine == "serve" else "policy")
+        assert json.loads(want.splitlines()[-1])["engine"] == "repro"
         return
-    assert tcli.main(["repro", path, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert f"engine '{engine}'" in err and "not ported yet" in err
+    assert jcli.run_repro([path, "--json"]) == 2
+    want = capsys.readouterr().out
+    assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == 2
+    assert capsys.readouterr().out == want
+    assert json.loads(want)["schema_error"]["field"] == (
+        "serve" if engine == "serve" else "policy")
 
 
 def test_seeded_wedge_found_shrunk_and_replayed_as_jax(tmp_path, wedge, monkeypatch):

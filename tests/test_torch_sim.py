@@ -357,13 +357,15 @@ def test_unported_faults_raise_by_name(field):
 @pytest.mark.parametrize("flag", ["telemetry", "runtime_knobs", "runtime_schedule",
                                   "geometry", "runtime_protocol", "axis_name"])
 def test_unported_build_flags_raise_by_name(flag):
-    """Build options not ported yet (the sharded build) raise by name.
-    The runtime-schedule, runtime-knob and runtime-protocol builds are
-    ported: their round raises by name the per-call input it is not
-    given, as the JAX round does.  The telemetry build is ported: with
-    ``axis_name`` it raises JAX's ValueError, before the sharded build's
-    own refusal.  The geometry build is ported: a ``geometry`` that is no
-    GeometryEnvelope raises JAX's TypeError."""
+    """Every build option is ported now (the test keeps its name).  The
+    runtime-schedule, runtime-knob and runtime-protocol builds: their round
+    raises by name the per-call input it is not given, as the JAX round
+    does.  The telemetry build: with ``axis_name`` it raises JAX's
+    ValueError.  The geometry build: a ``geometry`` that is no
+    GeometryEnvelope raises JAX's TypeError.  The sharded build
+    (``axis_name``, ``n_shards``; tests/test_torch_sharded_sim.py): an
+    instance count the shards do not divide raises JAX's ValueError, and
+    an ``axis_name`` that is no rank's mesh collectives raises by name."""
     jc, tc = _cfgs(n_nodes=3, n_instances=16)
     if flag == "telemetry":
         with pytest.raises(ValueError) as je:
@@ -380,7 +382,12 @@ def test_unported_build_flags_raise_by_name(flag):
         assert str(te.value) == str(je.value) and "GeometryEnvelope" in str(te.value)
         return
     if flag == "axis_name":
-        with pytest.raises(NotImplementedError, match=flag):
+        with pytest.raises(ValueError) as je:
+            jsim.build_engine(jc, 32, axis_name="i", n_shards=3)
+        with pytest.raises(ValueError) as te:
+            tsim.build_engine(tc, 32, device="cpu", axis_name="i", n_shards=3)
+        assert str(te.value) == str(je.value) and "not divisible by 3" in str(te.value)
+        with pytest.raises(TypeError, match="axis_name must be a rank's parallel.mesh.Collectives"):
             tsim.build_engine(tc, 32, device="cpu", **{flag: True})
         return
     rf = tsim.build_engine(tc, 32, device="cpu", **{flag: True})

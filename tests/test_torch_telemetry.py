@@ -115,16 +115,18 @@ def test_single_run_equals_plain_and_jax(window_rounds, region_map):
 
 def test_armed_round_makes_the_plain_rounds_host_reads(monkeypatch):
     """Every host read of a round goes through ``sim._any`` (a predicate
-    read to the host); ``_lane_any`` stays on the device.  The armed
-    round calls each exactly as often as the plain round."""
+    read to the host) or ``sim._global_max`` (the packed reads: the
+    window test and the round's completion, conflict and send tests);
+    ``_lane_any`` stays on the device.  The armed round calls each
+    exactly as often as the plain round."""
     tc = _single_cfg(tcfg, tflt)
-    calls = {"_any": 0, "_lane_any": 0}
+    calls = {"_any": 0, "_lane_any": 0, "_global_max": 0}
     for name in calls:
         real = getattr(tsim, name)
 
-        def counting(x, _real=real, _name=name):
+        def counting(*a, _real=real, _name=name):
             calls[_name] += 1
-            return _real(x)
+            return _real(*a)
 
         monkeypatch.setattr(tsim, name, counting)
     plain = tsim.run(tc, WL, device="cpu")
@@ -133,6 +135,7 @@ def test_armed_round_makes_the_plain_rounds_host_reads(monkeypatch):
     armed, _, _ = tsim.run_with_telemetry(tc, WL, device="cpu")
     assert armed.rounds == plain.rounds
     assert calls == plain_calls and plain_calls["_any"] > plain.rounds
+    assert plain_calls["_global_max"] >= 2 * plain.rounds
 
 
 def test_round_fn_takes_and_returns_the_recorder():

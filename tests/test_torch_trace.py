@@ -5,9 +5,9 @@ package's: the trace JSON of both committed repro artifacts equals JAX's
 byte, and leaves the artifact untouched; a crafted run renders the same
 events; ``trace --serve`` (single stream, a fleet lane, a WAN preset)
 prints JAX's stdout; the committed controlled-serve artifact prints JAX's
-stdout; artifacts of engines whose replay is not ported (sharded,
-mc-control) exit 2 by name, and malformed or missing artifacts give JAX's
-exit-2 schema JSON."""
+stdout, as does a sharded artifact's; an mc-control artifact exits 2 on
+the repro schema as JAX's does, and malformed or missing artifacts give
+JAX's exit-2 schema JSON."""
 
 import contextlib
 import hashlib
@@ -91,9 +91,9 @@ def test_trace_writes_the_file_beside_the_artifact(tmp_path):
 # ``trace --serve`` and the trace of a serve controller's artifact are
 # ported (test_trace_serve_stdout_equals_jax,
 # test_trace_of_the_committed_serve_artifact_equals_jax); the trace of a
-# sharded artifact still exits 2 by name, and that of a controller model
-# checker's exits 2 on the repro schema, as JAX's does (the cases keep
-# their ids)
+# sharded artifact is ported too and prints JAX's stdout, and that of a
+# controller model checker's exits 2 on the repro schema, as JAX's does
+# (the cases keep their ids)
 @pytest.mark.parametrize("engine", [
     pytest.param("sharded", id="argv0"),
     pytest.param("mc-control", id="argv1"),
@@ -106,16 +106,16 @@ def test_trace_serve_exits_2_by_name(engine, tmp_path, monkeypatch):
     with open(path, "w") as f:
         json.dump(art, f)
     rc, out, err = _cli(["trace", path, "--stdout", "--device", "cpu"])
-    if engine == "sharded":
-        assert rc == 2 and out == ""
-        assert f"trace of engine '{engine}' artifacts" in err and "not ported yet" in err
-        return
     monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
     jout = io.StringIO()
     with contextlib.redirect_stdout(jout), contextlib.redirect_stderr(io.StringIO()):
         jrc = jex.main([path, "--stdout", "--backend", "cpu"])
-    assert (rc, out) == (jrc, jout.getvalue()) and rc == 2
-    assert "schema_error" in out and "not ported" not in err
+    assert (rc, out) == (jrc, jout.getvalue())
+    assert "not ported" not in err
+    if engine == "sharded":
+        assert rc == 0 and json.loads(out)["otherData"]["engine"] == "sharded"
+        return
+    assert rc == 2 and "schema_error" in out
 
 
 @pytest.mark.parametrize("argv", [
@@ -166,15 +166,23 @@ def test_trace_argument_errors_exit_2(argv):
     assert e.value.code == 2
 
 
-def test_trace_of_a_sharded_artifact_exits_2_by_name(tmp_path):
+def test_trace_of_a_sharded_artifact_exits_2_by_name(tmp_path, monkeypatch):
+    """The trace of a sharded artifact is ported (the test keeps its name):
+    at its recorded 2 devices it replays recorder-free on a 2-rank mesh and
+    prints JAX's trace byte for byte."""
     with open(os.path.join(DATA, "repro_culprit.json")) as f:
         art = json.load(f)
     art.update(engine="sharded", devices=2)
     path = str(tmp_path / "sharded.json")
     with open(path, "w") as f:
         json.dump(art, f)
-    rc, _, err = _cli(["trace", path, "--stdout", "--device", "cpu"])
-    assert rc == 2 and "engine 'sharded'" in err and "not ported yet" in err
+    rc, out, _ = _cli(["trace", path, "--stdout", "--device", "cpu"])
+    monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
+    jout = io.StringIO()
+    with contextlib.redirect_stdout(jout), contextlib.redirect_stderr(io.StringIO()):
+        jrc = jex.main([path, "--stdout", "--backend", "cpu"])
+    assert (rc, out) == (jrc, jout.getvalue()) and rc == 0
+    assert json.loads(out)["otherData"]["engine"] == "sharded"
 
 
 @pytest.mark.parametrize("kind", ["missing", "truncated", "bad_field"])

@@ -14,16 +14,20 @@ grow the acceptor set to ``srvcnt`` with ``cltcnt * idcnt`` values
 proposed meanwhile, shrink back to {0}, check prefix consistency; with
 ``--crash-rate``, ``--record-injections F`` / ``--replay-injections F``
 and ``--save-state F`` writing the engine checkpoint) the verdict line,
-with the decision-log hash.  Exit code 0 iff every invariant holds; 2
-for what the port does not run yet (``--mesh``, and the ``lint`` and
-``audit`` subcommands).
+with the decision-log hash.  ``--mesh N`` (with ``--dcn-hosts H``)
+shards the instance axis of ``--engine=sim`` and ``--engine=fast`` over
+an ``N``-rank mesh (``parallel/``: ``N`` threads, each on its own device
+or all on one card); ``--engine=member`` ignores it, as the JAX CLI
+does.  Exit code 0 iff every invariant holds; 2 for what the port does
+not run yet (the ``lint`` and ``audit`` subcommands).
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
 decision log, then the JSON summary or verdict line; exit 0 iff the
 recorded violation recurs with an equal decision-log sha256, 1 if not,
-2 for a malformed artifact (a JSON summary naming the field) and for
-artifacts of engines the port does not run yet.
+2 for a malformed artifact (a JSON summary naming the field).  A sharded
+artifact (``engine: "sharded"``) replays on a mesh of its recorded
+``devices``.
 
 ``python -m tpu_paxos_torch trace <artifact> [--stdout] [--device
 {cuda,cpu}]`` re-runs a repro artifact with the flight recorder armed
@@ -41,7 +45,7 @@ an open-loop value stream (``serve/harness.py``) and ``serve --fleet
 [--lanes N] ...`` a fleet of tenant streams (``serve/fleet.py``), each
 printing one JSON summary line; ``--control``, ``--control-ab`` and
 ``--save-artifact`` arm the admission controller (``serve/control.py``),
-whose artifacts ``repro`` replays; ``--mesh`` exits 2.
+whose artifacts ``repro`` replays; ``serve --fleet --mesh`` exits 2.
 
 ``python -m tpu_paxos_torch mc [--scope quick,gray,churn,control]
 [--json] [--triage-dir D] [--device {cuda,cpu}]`` model-checks the
@@ -64,11 +68,6 @@ import os
 import sys
 
 _SUBCOMMANDS = ("lint", "audit")
-
-#: Artifact engines whose replay is not ported yet, and what replays them.
-_UNPORTED_ENGINES = {
-    "sharded": "the instance-sharded engine",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,7 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-rounds", type=int, default=10_000)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--mesh", type=int, default=0,
-                   help="sharding the instance axis is not ported yet")
+                   help="shard the instance axis over this many ranks "
+                   "(0 = unsharded)")
+    p.add_argument("--dcn-hosts", type=int, default=1,
+                   help="with --mesh, arrange the ranks as a 2-D "
+                   "(dcn-hosts x chips) mesh; collectives reduce over "
+                   "both axes")
     p.add_argument("--engine", choices=("sim", "fast", "member"), default="sim")
     p.add_argument("--json", action="store_true",
                    help="emit a JSON summary instead of the verdict line")
@@ -167,7 +171,18 @@ def run_sim(args) -> int:
         "sim: %d nodes, %d clients x %d ids, seed %d",
         args.srvcnt, args.cltcnt, args.idcnt, args.seed,
     )
-    res = sim.run(cfg, workload, gates, device=args.device)
+    if args.mesh:
+        from tpu_paxos_torch.parallel import mesh as pmesh
+        from tpu_paxos_torch.parallel import sharded_sim
+
+        # The chain-aware split keeps each client's gate chain on one
+        # shard, so per-shard demand is set by the largest chain cluster
+        mesh = pmesh.make_instance_mesh(args.mesh, dcn_hosts=args.dcn_hosts, device=args.device)
+        cfg = sharded_sim.padded_config(cfg, workload, gates, mesh.size)
+        logger.info("instance axis sharded over %d devices", mesh.size)
+        res = sharded_sim.run_sharded(cfg, mesh, workload, gates)
+    else:
+        res = sim.run(cfg, workload, gates, device=args.device)
     if args.save_state:
         np.savez(
             args.save_state,
@@ -219,18 +234,30 @@ def run_fast(args) -> int:
     logger = logm.get_logger("cli", logm.parse_level(args.log_level))
     n = args.cltcnt * args.idcnt
     quorum = args.srvcnt // 2 + 1
-    state = fast.init_state(n, args.srvcnt, device=args.device)
-    vids = torch.arange(n, dtype=torch.int32, device=state.learned.device)
-    state, n_chosen = fast.choose_all(state, vids, proposer=0, quorum=quorum)
+    n_devices = 1
+    if args.mesh:
+        from tpu_paxos_torch.parallel import mesh as pmesh
+        from tpu_paxos_torch.parallel import sharded
+
+        mesh = pmesh.make_instance_mesh(args.mesh, dcn_hosts=args.dcn_hosts, device=args.device)
+        n_devices = mesh.size
+        states = sharded.init_sharded_state(mesh, n, args.srvcnt)
+        step = sharded.sharded_choose_all(mesh, proposer=0, quorum=quorum)
+        states, n_chosen = step(states, pmesh.shard_instances(mesh, torch.arange(n, dtype=torch.int32)))
+        state = sharded.gather_state(states)
+    else:
+        state = fast.init_state(n, args.srvcnt, device=args.device)
+        vids = torch.arange(n, dtype=torch.int32, device=state.learned.device)
+        state, n_chosen = fast.choose_all(state, vids, proposer=0, quorum=quorum)
     n_chosen = int(n_chosen)
-    learned = fast.learned_ia(state)
+    learned = np.asarray(state.learned).T if args.mesh else fast.learned_ia(state)
     if args.save_state:
         # all tensors in the validators' [instances, nodes] convention
         np.savez(
             args.save_state,
             learned=learned,
-            acc_ballot=state.acc_ballot.cpu().numpy().T,
-            acc_vid=state.acc_vid.cpu().numpy().T,
+            acc_ballot=np.asarray(state.acc_ballot if args.mesh else state.acc_ballot.cpu()).T,
+            acc_vid=np.asarray(state.acc_vid if args.mesh else state.acc_vid.cpu()).T,
             n_chosen=np.int64(n_chosen),
         )
         logger.info("decision tensors saved to %s", args.save_state)
@@ -243,7 +270,7 @@ def run_fast(args) -> int:
     _emit(args, {
         "engine": "fast",
         "chosen": n_chosen,
-        "devices": 1,
+        "devices": n_devices,
         "invariants": ["agreement", "exactly_once"] if ok else [],
         "ok": ok and n_chosen == n,
     })
@@ -388,19 +415,16 @@ def run_repro(argv) -> int:
     from tpu_paxos_torch.utils import log as logm
 
     logger = logm.get_logger("repro", logm.parse_level(args.log_level))
-    # Peek the engine before loading: artifacts of engines the port does
-    # not run yet exit 2 by name.  Unreadable or malformed files fall
-    # through to load_artifact's field-named schema error.
+    # Peek the engine before loading (a sharded artifact replays on a
+    # mesh of its recorded device count, which run_case reads).
+    # Unreadable or malformed files fall through to load_artifact's
+    # field-named schema error.
     try:
         with open(args.artifact) as f:
             hdr = json.load(f)
         engine = hdr.get("engine", "sim") if isinstance(hdr, dict) else "sim"
     except (OSError, ValueError):
         engine = "sim"
-    if isinstance(engine, str) and engine in _UNPORTED_ENGINES:
-        print(f"tpu_paxos_torch: repro of engine '{engine}' artifacts "
-              f"({_UNPORTED_ENGINES[engine]}) is not ported yet", file=sys.stderr)
-        return 2
     from tpu_paxos_torch.analysis.artifact_schema import ArtifactSchemaError
 
     if engine == "serve":
@@ -488,10 +512,6 @@ def main(argv=None) -> int:
         print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        what = "--mesh" if args.engine == "sim" else f"--mesh with --engine={args.engine}"
-        print(f"tpu_paxos_torch: {what} is not ported yet", file=sys.stderr)
-        return 2
     if args.engine == "member":
         return run_member(args)
     return run_fast(args) if args.engine == "fast" else run_sim(args)

@@ -67,8 +67,15 @@ How the port runs what JAX compiles:
   geometry is made at the entry's true shape and padded, as JAX's
   ``lax.switch`` branches draw (:func:`_draws`).
 
-Not ported yet (raises ``NotImplementedError`` naming itself): the
-sharded build.
+- The instance-sharded build (``axis_name=``, a rank's
+  ``parallel.mesh.Collectives``, and ``n_shards``) holds one rank's block
+  of ``n_instances / n_shards`` instances with global instance ids, as
+  JAX's ``shard_map`` body does.  Every host branch JAX takes on a global
+  predicate (its ``gany``/``gall``/``gmax``/``gsum`` sites) branches on
+  the value reduced over the mesh, read to the host with the local
+  values JAX reduces in the same place, in one collective
+  (:func:`_global_max`, :func:`_global_counts`); the replicated
+  predicates (JAX's ``rany``) stay local.  See ``parallel/sharded_sim``.
 """
 
 from __future__ import annotations
@@ -358,7 +365,51 @@ def _one_lane(table):
     return type(table)(*[np.asarray(x)[None] for x in table])
 
 
-_UNPORTED_FLAGS = ("axis_name",)
+def _to_dev(b, x: np.ndarray) -> torch.Tensor:
+    return devm.to_device(torch.from_numpy(np.ascontiguousarray(x)), b.dev)
+
+
+def _global_max(b, parts: dict) -> dict:
+    """The max over every shard of each named local value (``[L, ...]``
+    bool or integer tensors), read to the host in one copy and, on a
+    sharded build, reduced in one collective; host numpy of the same
+    shapes, bools as bool.  On an unsharded build the one read gives the
+    local values.  JAX's ``gany`` and ``gmax`` sites, and ``gall(x)`` as
+    ``not max(not x)``."""
+    names = list(parts)
+    xs = [parts[n].reshape(-1) for n in names]
+    if any(x.dtype != torch.bool for x in xs):
+        xs = [x.to(torch.int64) for x in xs]
+    flat = torch.cat(xs).cpu().numpy()
+    g = flat if b.comm is None else b.comm.gmax(flat)
+    out, k = {}, 0
+    for n in names:
+        x = parts[n]
+        v = g[k:k + x.numel()].reshape(tuple(x.shape))
+        out[n] = v.astype(bool) if x.dtype == torch.bool else v
+        k += x.numel()
+    return out
+
+
+def _on_dev(b, local: torch.Tensor, reduced: np.ndarray) -> torch.Tensor:
+    """A :func:`_global_max` value on the device: ``local`` itself on an
+    unsharded build, where the two are equal."""
+    return local if b.comm is None else _to_dev(b, reduced)
+
+
+def _global_counts(b, sums: torch.Tensor, hmax: torch.Tensor):
+    """JAX's packed quiescence reduction (:1946), the ``gsum`` of the
+    counts and the ``gmax`` of the chosen high-water mark, in one
+    collective on a sharded build; both back on the device as int32.  An
+    unsharded build's are its own."""
+    if b.comm is None:
+        return sums, hmax
+    n = sums.numel()
+    local = torch.cat([sums.reshape(-1), hmax.reshape(-1)]).to(torch.int64).cpu().numpy()
+    every = b.comm.exchange(local)  # [D, n + L]
+    s = every[:, :n].sum(axis=0).reshape(tuple(sums.shape))
+    h = every[:, n:].max(axis=0).reshape(tuple(hmax.shape))
+    return _to_dev(b, s.astype(np.int32)), _to_dev(b, h.astype(np.int32))
 
 
 def _pad_edges(x: torch.Tensor, shape) -> torch.Tensor:
@@ -456,6 +507,28 @@ def _draws(b, roots, t: int, tab, knobs, running):
     return plans, rnd_delay, crash_coin, rows_d
 
 
+def _round_draws(b, roots, t: int, tab, knobs, running):
+    """:func:`_draws`, or on a sharded build the coins every rank draws
+    alike (replicated shapes from the replicated round): the first rank on
+    a device to reach round ``t`` draws them, the others read them from
+    the mesh's shared dict.
+
+    The ranks share these tensors, so the round must never write one in
+    place (no ``scatter_``, ``masked_fill_`` or ``copy_`` into a plan, a
+    coin or a row): a write would change the coins of every rank that
+    reads them after it.  ``tests/test_torch_sharded_sim.py`` hashes every
+    shared draw when it is made and again after the run."""
+    if b.comm is None:
+        return _draws(b, roots, t, tab, knobs, running)
+    key = ("draws", str(b.dev))
+    hit = b.comm.shared.get(key)
+    if hit is not None and hit[0] == t:
+        return hit[1]
+    out = _draws(b, roots, t, tab, knobs, running)
+    b.comm.shared[key] = (t, out)
+    return out
+
+
 def build_engine(
     cfg: SimConfig,
     n_pend_cap: int,
@@ -468,7 +541,8 @@ def build_engine(
     window_rounds: int = 0,
     geometry: geo.GeometryEnvelope | None = None,
     runtime_protocol: bool = False,
-    **flags,
+    axis_name=None,
+    n_shards: int = 1,
 ):
     """Returns ``round_fn(root, state, tab=None, knobs=None, tele=None,
     geom=None, pknobs=None) -> state``, the unsharded round of the JAX
@@ -512,10 +586,15 @@ def build_engine(
     The accept store and the ack fold run the simkern CUDA kernels on a
     CUDA device and their plain versions on the CPU; ``use_kernels``
     may only confirm that (``True`` on the CPU raises: there is no CUDA
-    kernel to run there).  ``flags`` are the JAX engine's
-    other build options (the sharded build's), not ported yet: any set
-    to a non-default value raises naming it."""
-    if telemetry and flags.get("axis_name") is not None:
+    kernel to run there).
+
+    The sharded build: ``axis_name`` is one rank's
+    ``parallel.mesh.Collectives`` and ``n_shards`` the mesh size; the
+    round then runs the rank's ``[.., n_instances / n_shards]`` block at
+    one lane, its instance ids global (``rank * i_loc`` on), and reduces
+    JAX's global predicates over the mesh (``parallel/sharded_sim.py``
+    drives it)."""
+    if telemetry and axis_name is not None:
         raise ValueError(
             "telemetry is not supported on the sharded engine yet "
             "(the recorder's per-instance ledger is unsharded)"
@@ -525,13 +604,6 @@ def build_engine(
             "window_rounds arms the recorder's windowed plane; it "
             "requires telemetry=True"
         )
-    for name in _UNPORTED_FLAGS:
-        if flags.pop(name, None):
-            raise NotImplementedError(f"build_engine {name} is not ported yet")
-    if flags.pop("n_shards", 1) != 1:
-        raise NotImplementedError("build_engine n_shards is not ported yet")
-    if flags:
-        raise TypeError(f"unknown build_engine options {sorted(flags)}")
     dev = devm.resolve(device)
     if use_kernels is not None and use_kernels != (dev.type == "cuda"):
         raise ValueError(
@@ -544,6 +616,19 @@ def build_engine(
     c = n_pend_cap
     w = cfg.assign_window
     fc = cfg.faults
+    if i_cap % n_shards:
+        raise ValueError(f"n_instances {i_cap} not divisible by {n_shards}")
+    i_loc = i_cap // n_shards  # instances per shard ([I]-axis array size)
+    if axis_name is not None:
+        from tpu_paxos_torch.parallel import mesh as pmesh
+
+        if not isinstance(axis_name, pmesh.Collectives):
+            raise TypeError("axis_name must be a rank's parallel.mesh.Collectives")
+        if axis_name.size != n_shards:
+            raise ValueError(f"n_shards {n_shards} differs from the mesh's {axis_name.size} ranks")
+    elif n_shards != 1:
+        raise ValueError("n_shards > 1 needs axis_name (a rank's mesh collectives)")
+    off = 0 if axis_name is None else axis_name.rank * i_loc
     if geometry is not None:
         if not isinstance(geometry, geo.GeometryEnvelope):
             raise TypeError("geometry must be a GeometryEnvelope or None")
@@ -591,8 +676,8 @@ def build_engine(
     # `crashed` without an i.i.d. draw: the crash-coupled cached blocks
     # then refresh every round.
     crash_faults = draw_crash or has["crash"]
-    r_cap = min(w, i_cap)
-    span = min(2 * r_cap, i_cap)
+    r_cap = min(w, i_loc)
+    span = min(2 * r_cap, i_loc)
     # the seven send sites in message order: True = proposer->node [P, A]
     site_pa = [True, False, False, True, False, True, False]
 
@@ -620,7 +705,11 @@ def build_engine(
         runtime_schedule=runtime_schedule, runtime_knobs=runtime_knobs,
         delivery_cut=delivery_cut, comp=comp, has=has, fc=fc,
         r_cap=r_cap, span=span,
-        idx=torch.arange(i_cap, dtype=_I32, device=dev),
+        # global instance ids of this shard (noop encoding, high-water
+        # marks, conflict spans and the decision log use global ids)
+        i_loc=i_loc, off=off, comm=axis_name,
+        idx=torch.arange(off, off + i_loc, dtype=_I32, device=dev),
+        lidx=torch.arange(i_loc, dtype=_I32, device=dev),
         offs_w=torch.arange(w, dtype=_I32, device=dev),
         vid_cap=vid_cap, dev=dev,
         telemetry=telemetry, window_rounds=int(window_rounds),
@@ -710,6 +799,8 @@ def build_engine(
         batched ``while_loop``.  Returns the state, or ``(state, tele)``
         when armed."""
         check_call(tab, knobs, tele, geom, pknobs)
+        if axis_name is not None and (st.t.shape[0] != 1 or running is not None):
+            raise ValueError("a sharded engine runs one lane, every round")
         for name in ("pend", "gate"):
             width = getattr(st.prop, name).shape[-1]
             if width != c + w:
@@ -739,7 +830,10 @@ def build_engine(
         nothing arrives, whatever the slot), no crash can come (the
         lane's crash rate is 0 or its crash room is spent) and the
         schedule is past its horizon.  Where one such round changes
-        nothing, no later round does."""
+        nothing, no later round does.  Never on a sharded build: its loop
+        stops on the global ``done`` alone, as JAX's."""
+        if axis_name is not None:
+            return None
         b = view(geom, pknobs)
         lanes = st.t.shape[0]
         healed = t >= (np.asarray(tab.horizon) if runtime_schedule else np.full(lanes, horizon))
@@ -776,7 +870,10 @@ def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running, tele=None):
     block), or selects per lane.  Where JAX picks a fast or a general
     form by a predicate (``_assign``'s prefix test, ``_requeue``'s
     contiguity and width tests) the fast form runs only if every lane's
-    predicate holds; the general form equals it wherever it does.
+    (on a sharded build, every shard's) predicate holds; the general form
+    equals it wherever it does.  A sharded build runs one lane and takes
+    each block JAX takes on a global predicate on the value reduced over
+    the mesh (:func:`_global_max`), so every shard runs the same blocks.
 
     With ``tele`` (an armed build) the round also returns the recorder
     updated by :func:`_record`, frozen with the state on lanes that are
@@ -787,7 +884,7 @@ def _lane_round(b, roots, st: SimState, t: int, tab, knobs, running, tele=None):
     slot = t % s
     ar = netm.NetBuffers(*[x[:, slot] for x in st.net])
     net = netm.clear_slot(st.net, slot)
-    plans, rnd_delay, crash_coin, rows = _draws(b, roots, t, tab, knobs, running)
+    plans, rnd_delay, crash_coin, rows = _round_draws(b, roots, t, tab, knobs, running)
     run_d = rows.get("run")  # [L] bool, None when every lane runs
 
     # I/O-alive mask: crashed or currently paused nodes neither
@@ -886,8 +983,9 @@ def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign, lane_pred):
     open tail (ref unproposed_instance_ids_.Next).  ``lane_pred [L]`` is
     the block's predicate per lane; a lane where it is false takes
     nothing and keeps its queue and head.  Returns (cur_batch,
-    own_assign, pend, head, k)."""
-    p, w, i_cap, idx = b.p, b.w, b.i_cap, b.idx
+    own_assign, pend, head, added) with ``added [L, P]`` the proposers
+    that took a value (on a sharded build, on any shard)."""
+    p, w, idx = b.p, b.w, b.idx
     own_assign, pend, head = pr.own_assign, pr.pend, pr.head
     lanes = head.shape[0]
     if b.vid_cap:
@@ -906,24 +1004,30 @@ def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign, lane_pred):
         | (own_assign != val.NONE)
     )
     # Free instances are the contiguous suffix above the activity
-    # high-water mark, so ranks are closed-form.
+    # high-water mark, so ranks are closed-form.  The frontier is
+    # shard-local: each shard first-fits its queue onto its own lowest
+    # free instances.
     hi2 = torch.where(activity, idx, -1).amax(dim=2)  # [L, P]
-    hi2l = torch.clamp(hi2, min=-1)
+    hi2l = torch.clamp(hi2, min=b.off - 1)  # the sentinel clamped into the shard
     free = idx > hi2l[..., None]
     free_rank = idx - hi2l[..., None] - 1
-    n_free = (i_cap - 1) - hi2l
+    n_free = (b.off + b.i_loc - 1) - hi2l
     ok_rank = torch.cumsum(ok.to(_I32), dim=2, dtype=_I32) - 1
     k = torch.minimum(_sum32(ok, dim=2), n_free)
     k = torch.where(can_assign & lane_pred[:, None], k, 0)
     take_q = ok & (ok_rank < k[..., None])
     takev = free & (free_rank < k[..., None])
-    start = torch.clamp(hi2l + 1, 0, i_cap)
-    if _any(k > 0):
-        # the O(W) rank scatter equals the prefix read wherever the
-        # taken entries are a prefix, so one lane off the prefix sends
-        # every lane through it
-        is_prefix = bool((take_q == (b.offs_w < k[..., None])).all())
-        if is_prefix:
+    start = torch.clamp(hi2l + 1 - b.off, 0, b.i_loc)
+    added = k > 0
+    # JAX's any_assign and added (gany of k > 0, :1227 and :1301) and its
+    # prefix vote (gall, :1241) in one read: the O(W) rank scatter equals
+    # the prefix read wherever the taken entries are a prefix, so one
+    # lane (or shard) off the prefix sends every lane through it
+    scatter = (take_q != (b.offs_w < k[..., None])).any(dim=2)
+    g = _global_max(b, {"added": added, "scatter": scatter})
+    added = _on_dev(b, added, g["added"])
+    if g["added"].any():
+        if not g["scatter"].any():
             by_rank = torch.where(take_q, qvid, val.NONE)
         else:
             # untaken slots go to a spill column
@@ -932,8 +1036,8 @@ def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign, lane_pred):
             by_rank.scatter_(2, rank_pos, qvid)
             by_rank = by_rank[..., :w]
         # place the ranked vids at the contiguous free window starting
-        # at `start` (in [0, i_cap], so nothing clamps)
-        rel = idx - start[..., None]
+        # at `start` (in [0, i_loc], so nothing clamps)
+        rel = b.lidx - start[..., None]
         inside = (rel >= 0) & (rel < w)
         newv = torch.where(
             inside, by_rank.gather(2, rel.clamp(0, w - 1).long()), val.NONE
@@ -949,7 +1053,7 @@ def _assign(b, pr, st, learned, cur_batch, live, qvid, can_assign, lane_pred):
     ) & (new_win == val.NONE)
     adv = torch.cumprod(lead_dead.to(_I32), dim=2).sum(dim=2).to(_I32)
     head = head + torch.where(lane_pred[:, None], adv, 0)
-    return cur_batch, own_assign, pend, head, k
+    return cur_batch, own_assign, pend, head, added
 
 
 def _requeue(b, pend, own_assign, ptail, conflict, lane_pred):
@@ -959,7 +1063,7 @@ def _requeue(b, pend, own_assign, ptail, conflict, lane_pred):
     own_assign)."""
     p, i_cap, r_cap, span, idx = b.p, b.i_cap, b.r_cap, b.span, b.idx
     lanes = conflict.shape[0]
-    idxb = idx.expand(lanes, p, i_cap)
+    idxb = idx.expand(conflict.shape)
     has_c = conflict.any(dim=2)
     ncf = _sum32(conflict, dim=2)
     cmin = torch.where(conflict, idxb, _I32_MAX).amin(dim=2)
@@ -967,11 +1071,14 @@ def _requeue(b, pend, own_assign, ptail, conflict, lane_pred):
     nreq = torch.clamp(ncf, max=r_cap)
     # Each form below gives the first nreq conflicted values in instance
     # order; the padded slice and the windowed sort only where every
-    # lane's conflicts fit them.
-    contig = bool((~has_c | (ncf == cmax - cmin + 1)).all())
+    # lane's (on a sharded build, every shard's) conflicts fit them:
+    # JAX's two ``gall`` votes (:1541 and :1566), read in one go.
+    spread = cmax - cmin
+    g = _global_max(b, {"split": has_c & (ncf != spread + 1), "wide": has_c & (spread >= span)})
+    contig, narrow = not g["split"].any(), not g["wide"].any()
     if contig:
         # fully-conflicted contiguous runs: a padded slice at cmin
-        startc = torch.where(has_c, cmin, 0)
+        startc = torch.where(has_c, cmin - b.off, 0)
         rowpad = torch.cat(
             [own_assign, torch.full((lanes, p, r_cap), val.NONE, dtype=_I32, device=own_assign.device)],
             dim=2,
@@ -981,9 +1088,8 @@ def _requeue(b, pend, own_assign, ptail, conflict, lane_pred):
     else:
         req_rank = torch.cumsum(conflict.to(_I32), dim=2, dtype=_I32) - 1
         take_req = conflict & (req_rank < r_cap)
-        narrow = bool((~has_c | (cmax - cmin < span)).all())
         if narrow:
-            startn = torch.clamp(torch.where(has_c, cmin, 0), 0, i_cap - span)
+            startn = torch.clamp(torch.where(has_c, cmin - b.off, 0), 0, b.i_loc - span)
             win_conf = _window_read(conflict, startn, span)
             win_vids = _window_read(own_assign, startn, span)
             keys = torch.where(
@@ -1052,6 +1158,11 @@ def _proposer_round(
     n_prom = promises2.sum(dim=2)
     now_prepared = (pr.mode == PREPARING) & (n_prom >= quorum) & prop_alive
     any_p1 = _any(now_prepared)
+    mode = torch.where(now_prepared, PREPARED, pr.mode)
+    # New-value assignment (only on rounds with a live window entry).
+    can_assign = (mode == PREPARED) & prop_alive
+    qvid, live = _assignable_window(pr.pend, pr.gate, pr.head, pr.tail, None, b.w)
+    win_l = _lane_any(live & can_assign[..., None])
     cur_batch, acks = pr.cur_batch, pr.acks
     if any_p1:
         idx = b.idx
@@ -1059,6 +1170,24 @@ def _proposer_round(
         use_adopt = ~committed_p & (adopted_b != bal.NONE)
         covered0 = committed_p | use_adopt
         hi_cov = torch.where(covered0, idx, -1).amax(dim=2)
+    # JAX's window predicate (gany, :1182) and, on a phase-1 round, its
+    # hole-fill frontier (gmax, :1136) in one read
+    parts = {"win": win_l}
+    if any_p1:
+        parts["hi"] = hi_cov
+    g = _global_max(b, parts)
+    any_window = bool(g["win"].any())
+    win_l = _on_dev(b, win_l, g["win"])
+    if any_p1:
+        # the frontier is the global one once every proposer's queue on
+        # this shard is drained (crashed proposers excused): until then
+        # the space below it is this shard's capacity, not holes
+        drained = (
+            (pr.head >= pr.tail) & (pr.own_assign == val.NONE).all(dim=2)
+        ) | st.crashed[:, pn]
+        hi_cov = torch.where(drained.all(dim=1, keepdim=True),
+                             _on_dev(b, hi_cov, g["hi"]).to(_I32), hi_cov)
+    if any_p1:
         below = idx <= hi_cov[..., None]
         noop_fill = below & ~covered0
         use_own = ~below & (pr.own_assign != val.NONE)
@@ -1076,24 +1205,18 @@ def _proposer_round(
         acks = torch.where(
             now_prepared[..., None, None], torch.zeros((), dtype=torch.int8, device=acks.device), acks
         )
-    mode = torch.where(now_prepared, PREPARED, pr.mode)
     acc_retries = torch.where(now_prepared, pk.accept_retry_count, pr.acc_retries)
     acc_deadline = torch.where(
         now_prepared, t + 1 + pk.accept_retry_timeout, pr.acc_deadline
     )
 
-    # New-value assignment (only on rounds with a live window entry).
-    can_assign = (mode == PREPARED) & prop_alive
-    qvid, live = _assignable_window(pr.pend, pr.gate, pr.head, pr.tail, None, b.w)
-    win_l = _lane_any(live & can_assign[..., None])
-    any_window = _any(win_l)
     own_assign, pend, head = pr.own_assign, pr.pend, pr.head
-    k = torch.zeros((lanes, p), dtype=_I32, device=mode.device)
+    added = torch.zeros((lanes, p), dtype=torch.bool, device=mode.device)
     if any_window:
-        cur_batch, own_assign, pend, head, k = _assign(
+        # added [L, P] -> (re)send accepts
+        cur_batch, own_assign, pend, head, added = _assign(
             b, pr, st, learned, cur_batch, live, qvid, can_assign, win_l
         )
-    added = k > 0  # [L, P] -> (re)send accepts
 
     # ACCEPT_REPLY arrivals: per-instance acks derived at delivery.
     aecho = torch.where(rx_p, ar.acc_echo, bal.NONE)  # [L, A, P]
@@ -1137,6 +1260,7 @@ def _proposer_round(
     crep = ar.com_rep & rx_p  # [L, A, P]
     commit_acked, commit_wait = pr.commit_acked, pr.commit_wait
     crep_l = None if b.crash_faults else _lane_any(crep)
+    fresh = None
     if b.crash_faults or _any(crep_l):
         commit_acked = commit_acked | (
             crep.transpose(1, 2)[..., None]
@@ -1148,26 +1272,68 @@ def _proposer_round(
             (commit_vid != val.NONE)
             & ~(commit_acked | excused[:, None, :, None]).all(dim=2)
         ).any(dim=2)  # [L, P]
-        # a lane without a reply keeps its cached flag
-        commit_wait = fresh if crep_l is None else torch.where(crep_l[:, None], fresh, commit_wait)
 
     # Commit TAKEOVER on stall-threshold rounds (see the JAX module);
     # masked per proposer.
     take_commit = (pr.mode == PREPARED) & (pr.stall >= pk.stall_patience) & prop_alive
     if b.wedge:
         take_commit = torch.zeros_like(take_commit)
+    took = None
     if _any(take_commit):
         learned_pn = learned[:, pn]
         taken = (
             take_commit[..., None] & (learned_pn != val.NONE) & (commit_vid == val.NONE)
         )
         commit_vid = torch.where(taken, learned_pn, commit_vid)
-        commit_wait = commit_wait | taken.any(dim=2)
+        took = taken.any(dim=2)
     # A fresh decision is by construction not fully acked yet.
     if newly is not None:
         any_newly = newly.any(dim=2)
     else:
         any_newly = torch.zeros((lanes, p), dtype=torch.bool, device=mode.device)
+
+    # Conflict re-proposal + own-value completion (ref OnCommit), and the
+    # accept deadline's outstanding scan (its inputs are final here).
+    learned_p = learned[:, pn]
+    own_has2 = own_assign != val.NONE
+    conflict = own_has2 & (learned_p != val.NONE) & (learned_p != own_assign)
+    own_done = own_has2 & (learned_p == own_assign)
+    ddl_hit = (mode == PREPARED) & (t >= acc_deadline) & prop_alive
+    any_ddl = _any(ddl_hit)
+    outstanding = None
+    if any_ddl:
+        outstanding = (
+            (cur_batch != val.NONE) & (commit_vid == val.NONE)
+            & (learned[:, pn] == val.NONE)
+        ).any(dim=2)  # [L, P]
+    # one read (on a sharded build, one collective) for JAX's gany sites
+    # at :1406 (the commit-ack flag), :1462 (the takeover), :1475 (fresh
+    # decisions), :1492 (completions), :1514 (conflicts), :1664
+    # (outstanding accepts) and :1752 (the accept send's batch test,
+    # taken before the restart clears: a cleared proposer sends nothing)
+    conf_l = _lane_any(conflict)
+    batch_l = (cur_batch != val.NONE).any(dim=2)
+    parts = {
+        "newly": any_newly, "own_done": _lane_any(own_done), "conflict": conf_l,
+        "batch": batch_l,
+    }
+    for name, x in (("fresh", fresh), ("took", took), ("outstanding", outstanding)):
+        if x is not None:
+            parts[name] = x
+    g = _global_max(b, parts)
+    if fresh is not None:
+        fresh = _on_dev(b, fresh, g["fresh"])
+        # a lane without a reply keeps its cached flag
+        commit_wait = fresh if crep_l is None else torch.where(crep_l[:, None], fresh, commit_wait)
+    if took is not None:
+        commit_wait = commit_wait | _on_dev(b, took, g["took"])
+    any_newly = _on_dev(b, any_newly, g["newly"])
+    any_own_done = bool(g["own_done"].any())
+    any_conflict = bool(g["conflict"].any())
+    conf_l = _on_dev(b, conf_l, g["conflict"])
+    if outstanding is not None:
+        outstanding = _on_dev(b, outstanding, g["outstanding"])
+    batch_l = _on_dev(b, batch_l, g["batch"])
     commit_wait = commit_wait | any_newly
     resend_c = (t >= pr.commit_deadline) & commit_wait
     send_commit = (any_newly | resend_c | (take_commit & commit_wait)) & prop_alive
@@ -1175,16 +1341,8 @@ def _proposer_round(
         send_commit, t + 1 + pk.commit_retry_timeout, pr.commit_deadline
     )
 
-    # Conflict re-proposal + own-value completion (ref OnCommit).
-    learned_p = learned[:, pn]
-    own_has2 = own_assign != val.NONE
-    conflict = own_has2 & (learned_p != val.NONE) & (learned_p != own_assign)
-    own_done = own_has2 & (learned_p == own_assign)
-    any_own_done = _any(own_done)
     if any_own_done:
         own_assign = torch.where(own_done, val.NONE, own_assign)
-    conf_l = _lane_any(conflict)
-    any_conflict = _any(conf_l)
     nreq = torch.zeros((lanes, p), dtype=_I32, device=mode.device)
     if any_conflict:
         pend, nreq, own_assign = _requeue(b, pend, own_assign, pr.tail, conflict, conf_l)
@@ -1199,15 +1357,7 @@ def _proposer_round(
     prep_deadline = torch.where(
         resend_prep, t + 1 + pk.prepare_retry_timeout, pr.prep_deadline
     )
-    ddl_hit = (mode == PREPARED) & (t >= acc_deadline) & prop_alive
-    if _any(ddl_hit):
-        outstanding = (
-            (cur_batch != val.NONE) & (commit_vid == val.NONE)
-            & (learned[:, pn] == val.NONE)
-        )
-        adl = ddl_hit & outstanding.any(dim=2)
-    else:
-        adl = ddl_hit
+    adl = ddl_hit & outstanding if any_ddl else ddl_hit
     resend_acc = adl & (acc_retries > 1)
     acc_fail = adl & (acc_retries <= 1)
     acc_retries = torch.where(resend_acc, acc_retries - 1, acc_retries)
@@ -1242,10 +1392,7 @@ def _proposer_round(
 
     send_prep = start_prep | resend_prep
     want_acc_send = now_prepared | added | resend_acc
-    if _any(want_acc_send):
-        send_accept = want_acc_send & (cur_batch != val.NONE).any(dim=2)
-    else:
-        send_accept = want_acc_send
+    send_accept = want_acc_send & ~do_restart & batch_l
 
     # ---------------- network writes ----------------
     # Every send mask passes through the reachability cut; the message
@@ -1327,6 +1474,7 @@ def _proposer_round(
             _sum32(own_assign != val.NONE, dim=2),  # [L, P]
         ], dim=1)
         hmax = torch.where(met.chosen_vid != val.NONE, b.idx, -1).amax(dim=1)
+        sums, hmax = _global_counts(b, sums, hmax)
     else:
         sums, hmax = st.qsums, st.qhmax
     n_chosen = sums[:, 0]

@@ -27,7 +27,9 @@ Three functions per kernel:
   formulation), functional, any device;
 - ``*_cuda``: the kernel wrapper — checks device, dtype, shape and
   contiguity loudly, launches on the current stream, checks the launch
-  error, counts the launch in :data:`LAUNCHES`; raises on CPU tensors;
+  error, counts the launch in :data:`LAUNCHES` (or, in a mesh rank's
+  thread, in the rank's own counts: :func:`counting`); raises on CPU
+  tensors;
 - ``store_accepts`` / ``accum_acks``: pick the plain version for CPU
   tensors and the kernel for CUDA tensors.  A failed build or launch
   raises; nothing falls back to the plain version.
@@ -46,7 +48,9 @@ they compute one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -60,9 +64,30 @@ NAME = "simkern"
 LAUNCHES = {"store_accepts": 0, "accum_acks": 0}
 
 
+_LOCAL = threading.local()
+
+
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def counting(counts: dict):
+    """Launches this thread makes within the block go to ``counts`` (a
+    mesh rank's own dict, ``parallel/mesh.Mesh.run``), not to
+    :data:`LAUNCHES`: ranks running at once share no counter."""
+    prev = getattr(_LOCAL, "counts", None)
+    _LOCAL.counts = counts
+    try:
+        yield counts
+    finally:
+        _LOCAL.counts = prev
+
+
+def _count(name: str) -> None:
+    counts = getattr(_LOCAL, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def load():
@@ -157,7 +182,7 @@ def store_accepts_cuda(acc_ballot, acc_vid, learned, abat, abal, elig):
             abat.data_ptr(), abal.data_ptr(), elig.data_ptr(), lanes, a, p, i, stream,
         )
     kbuild.check_launch(lib, NAME, code, "simkern.store_accepts")
-    LAUNCHES["store_accepts"] += 1
+    _count("store_accepts")
     return acc_ballot, acc_vid
 
 
@@ -188,7 +213,7 @@ def accum_acks_cuda(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatc
             ballot.data_ptr(), amatch_pa.data_ptr(), lanes, a, p, i, stream,
         )
     kbuild.check_launch(lib, NAME, code, "simkern.accum_acks")
-    LAUNCHES["accum_acks"] += 1
+    _count("accum_acks")
     return acks, n_ack
 
 

@@ -68,8 +68,10 @@ class ReproCase:
     """A fully-specified deterministic run plus its judgment criteria.
 
     ``engine`` selects the runner that re-executes the case: ``"sim"``
-    (``core/sim.run``) or ``"sharded"`` (the instance-sharded engine over
-    ``devices`` devices, not ported yet: ``run_case`` raises on it)."""
+    (``core/sim.run``) or ``"sharded"`` (``parallel/sharded_sim.run_sharded``
+    over a ``devices``-rank mesh).  The sharded engine's placement differs
+    from the unsharded one's, so its decision logs compare only with
+    sharded replays at the same rank count."""
 
     cfg: SimConfig
     workload: list[np.ndarray]
@@ -252,13 +254,18 @@ def _runtime_batch_eval(case: ReproCase, device="cuda"):
 
 def run_case(case: ReproCase, device="cuda"):
     """Execute the case on ``device``; returns (SimResult,
-    violation-string-or-None)."""
+    violation-string-or-None).  A sharded case runs on a mesh of its
+    recorded ``devices`` ranks; the ranks are threads that share the
+    cards there are, so JAX's "needs N devices" refusal has no
+    counterpart."""
     if case.engine == "sharded":
-        raise NotImplementedError(
-            "run_case engine='sharded' (the instance-sharded engine) is "
-            "not ported yet"
-        )
-    r = simm.run(case.cfg, case.workload, case.gates, device=device)
+        from tpu_paxos_torch.parallel import mesh as pmesh
+        from tpu_paxos_torch.parallel import sharded_sim
+
+        mesh = pmesh.make_instance_mesh(case.devices, device=device)
+        r = sharded_sim.run_sharded(case.cfg, mesh, case.workload, case.gates)
+    else:
+        r = simm.run(case.cfg, case.workload, case.gates, device=device)
     return r, _judge(case, r)
 
 

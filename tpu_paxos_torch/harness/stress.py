@@ -18,14 +18,16 @@ The host loop builds the round function once per mix (a seed changes
 only the PRNG root) and drives each seed as one lane of it
 (``core/sim.run_lanes``).  The fleet sweep (``sweep_fleet``) runs each
 episode mix's seeds as the lanes of one dispatch of the armed envelope
-runner; the sharded sweep waits for the sharded engine.
+runner.  The sharded sweep (``sweep_sharded``) runs the debug.conf and
+crashy mixes and every episode mix through the instance-sharded engine
+(``parallel/sharded_sim.py``) on an 8-rank mesh.
 
 CLI: ``python -m tpu_paxos_torch.harness.stress [--seeds N]
-[--base-seed S] [--triage-dir D] [--fleet] [--device {cuda,cpu}]``
-prints one JSON summary line (with ``--fleet`` two: the host-loop sweep
-over the i.i.d.-only mixes, then the fleet sweep over the episode and
-WAN mixes) and exits non-zero on any violation; ``--sharded`` exits 2
-(not ported yet).
+[--base-seed S] [--triage-dir D] [--fleet] [--sharded] [--device
+{cuda,cpu}]`` prints one JSON summary line (with ``--fleet`` two: the
+host-loop sweep over the i.i.d.-only mixes, then the fleet sweep over
+the episode and WAN mixes; ``--sharded`` adds the sharded sweep's, at 2
+seeds a mix) and exits non-zero on any violation.
 """
 
 from __future__ import annotations
@@ -464,6 +466,81 @@ def sweep_fleet(
     }
 
 
+#: Ranks of the sharded sweep's mesh (the JAX sweep's 8 virtual devices).
+SHARDED_DEVICES = 8
+
+
+def sweep_sharded(
+    n_seeds: int = 2, base_seed: int = 0, verbose: bool = True,
+    triage_dir: str | None = None, device="cuda", mesh=None,
+) -> dict:
+    """The debug.conf and crashy mixes plus every episode mix through the
+    sharded engine on ``mesh`` (default: :data:`SHARDED_DEVICES` ranks on
+    ``device``).  Chains stay shard-affine (``split_workload``), so the
+    same crash-aware suite applies.  With ``triage_dir`` a failing seed is
+    shrunk and written as an ``engine="sharded"`` repro artifact, which
+    ``repro`` replays on a mesh of the recorded size."""
+    from tpu_paxos_torch.parallel import mesh as pmesh
+    from tpu_paxos_torch.parallel import sharded_sim
+
+    logger = logm.get_logger(
+        "stress", logm.parse_level("INFO" if verbose else "WARN")
+    )
+    if mesh is None:
+        mesh = pmesh.make_instance_mesh(SHARDED_DEVICES, device=device)
+    runs, failures = 0, []
+    t0 = time.perf_counter()
+    for label, fkw, n_nodes, n_prop in (MIXES[1], MIXES[4], *EPISODE_MIXES):
+        for s in range(n_seeds):
+            seed = base_seed + s
+            rng = np.random.default_rng(
+                seed * 7919 + zlib.crc32(label.encode()) % 1000
+            )
+            workload, gates, chains = _workload(n_prop, rng)
+            cfg = sharded_sim.padded_config(SimConfig(
+                n_nodes=n_nodes,
+                n_instances=2 * sum(len(w) for w in workload),
+                proposers=tuple(range(n_prop)),
+                seed=seed,
+                max_rounds=20_000,
+                faults=FaultConfig(**fkw),
+            ), workload, gates, mesh.size)
+            r = sharded_sim.run_sharded(cfg, mesh, workload, gates)
+            runs += 1
+            try:
+                _check_run(r, cfg, workload, chains)
+            except validate.InvariantViolation as e:
+                failure = {"mix": label, "seed": seed, "error": str(e)[:300]}
+                logger.error("FAIL sharded mix=%s seed=%d: %s", label, seed, e)
+                if triage_dir:
+                    os.makedirs(triage_dir, exist_ok=True)
+                    path = os.path.join(
+                        triage_dir, f"repro_sharded_{label}_{seed}.json"
+                    )
+                    try:
+                        case = shr.ReproCase(
+                            cfg=cfg, workload=workload, gates=gates,
+                            chains=chains, engine="sharded",
+                            devices=mesh.size,
+                        )
+                        shr.triage(case, path, logger=logger, device=device)
+                        failure["artifact"] = path
+                        logger.error("repro artifact written to %s", path)
+                    except Exception as te:  # triage must never mask a failure
+                        failure["triage_error"] = str(te)[:300]
+                failures.append(failure)
+        logger.info("sharded mix %-11s: %d seeds done", label, n_seeds)
+    return {
+        "metric": "stress_sweep_sharded",
+        "runs": runs,
+        "devices": mesh.size,
+        "platform": mesh.devices[0].type,
+        "failures": failures,
+        "ok": not failures,
+        "seconds": round(time.perf_counter() - t0, 1),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=8, help="seeds per mix")
@@ -485,12 +562,9 @@ def main(argv=None) -> int:
         "i.i.d.-only mixes)",
     )
     ap.add_argument("--sharded", action="store_true",
-                    help="the sharded sweep (not ported yet)")
+                    help="also run the sharded engine on an 8-rank mesh "
+                    "(2 seeds a mix)")
     args = ap.parse_args(argv)
-    if args.sharded:
-        print("tpu_paxos_torch.harness.stress: --sharded is not ported yet",
-              file=sys.stderr)
-        return 2
     triage_dir = args.triage_dir or None
     if args.fleet:
         host_mixes = [m for m in MIXES if "schedule" not in m[1]]
@@ -506,6 +580,10 @@ def main(argv=None) -> int:
                         device=args.device)
         print(json.dumps(summary))
         ok = summary["ok"]
+    if args.sharded:
+        sharded = sweep_sharded(2, args.base_seed, triage_dir=triage_dir, device=args.device)
+        print(json.dumps(sharded))
+        ok = ok and sharded["ok"]
     return 0 if ok else 1
 
 

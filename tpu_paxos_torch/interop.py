@@ -13,6 +13,11 @@ round.  A fleet's lane-stacked states (JAX's ``vmap`` output, the port's
 lane axis) convert the same way: every leaf keeps its leading lane axis,
 and ``core/sim.lane_of`` takes one lane.  The port reads fields by name
 and imports nothing of the JAX package.
+
+A sharded run's state crosses as JAX holds it, one global tree whose
+queue leaves carry a leading shard axis, and becomes the port's list of
+per-rank slices on the mesh's devices and back, through the committed
+partition rules (``parallel/partition_rules.py``).
 """
 
 from __future__ import annotations
@@ -141,3 +146,38 @@ def control_state_from_jax(np_tree, device="cuda"):
 def control_state_to_numpy(state):
     """The same ControlLoopState with every leaf as a host numpy array."""
     return _to_numpy(state)
+
+
+def sharded_sim_state_from_jax(np_tree, mesh) -> list:
+    """The ranks' SimState slices on ``mesh``'s devices from JAX's global
+    sharded ``SimState`` (numpy leaves; queue leaves ``[D, P, C]`` and
+    ``[D, P]``), split by the partition rules."""
+    from tpu_paxos_torch.parallel import sharded_sim
+
+    host = sim_state_from_jax(np_tree, device="cpu")
+    return sharded_sim.scatter_state(mesh, host)
+
+
+def sharded_sim_state_to_numpy(states) -> sim.SimState:
+    """JAX's global sharded ``SimState`` layout (host numpy) from the
+    ranks' slices, gathered by the partition rules."""
+    from tpu_paxos_torch.parallel import sharded_sim
+
+    return sharded_sim.gather_state(states)
+
+
+def sharded_fast_state_from_jax(np_tree, mesh) -> list:
+    """The ranks' FastState slices on ``mesh``'s devices from JAX's global
+    sharded ``FastState`` (numpy leaves)."""
+    from tpu_paxos_torch.parallel import sharded
+
+    return sharded.scatter_state(mesh, fast.FastState(
+        **{f: np.asarray(getattr(np_tree, f)) for f in fast.FastState._fields}))
+
+
+def sharded_fast_state_to_numpy(states) -> fast.FastState:
+    """JAX's global sharded ``FastState`` layout (host numpy) from the
+    ranks' slices."""
+    from tpu_paxos_torch.parallel import sharded
+
+    return sharded.gather_state(states)

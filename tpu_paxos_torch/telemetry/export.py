@@ -31,8 +31,9 @@ serving stream (or one lane of a serve fleet) and renders its timeline
 renders as JAX renders it: its config and workload replayed closed-loop,
 recorder-free.  An ``mc-control`` artifact carries no engine run to
 render: it fails the repro schema, as it does for JAX's ``trace`` (the
-schema error line, exit 2).  Artifacts of engines whose replay is not
-ported yet (the sharded engine) exit 2 by name.
+schema error line, exit 2).  A sharded artifact (engine ``"sharded"``)
+replays on a mesh of its recorded devices, recorder-free, as in JAX (the
+sharded build takes no recorder): episodes and decisions render.
 """
 
 from __future__ import annotations
@@ -445,7 +446,7 @@ def trace_artifact(
     counter tracks, the per-instance phase flow spans, and the diagnosis
     plane's cause annotations.  Telemetry is recomputed at replay, never
     read from (or written to) the artifact.  Artifacts of other engines
-    (``"serve"``) replay their config and workload through
+    (``"serve"``, ``"sharded"``) replay their config and workload through
     ``shrink.run_case`` recorder-free: episodes and decisions still
     render, as in JAX."""
     from tpu_paxos_torch.core import sim as simm
@@ -746,25 +747,11 @@ def main(argv=None) -> int:
     # same determinism surface as `repro`: replay output must not
     # capture wall clock
     os.environ.setdefault("TPU_PAXOS_DETERMINISTIC", "1")
-    from tpu_paxos_torch.__main__ import _UNPORTED_ENGINES, _emit
+    from tpu_paxos_torch.__main__ import _emit
     from tpu_paxos_torch.analysis.artifact_schema import ArtifactSchemaError
     from tpu_paxos_torch.utils import log as logm
 
     logger = logm.get_logger("trace", logm.parse_level(args.log_level))
-    if not args.serve:
-        # Peek the engine before loading: artifacts of engines the port
-        # does not replay yet exit 2 by name.  Unreadable or malformed
-        # files fall through to load_artifact's field-named schema error.
-        try:
-            with open(args.artifact) as f:
-                hdr = json.load(f)
-            engine = hdr.get("engine", "sim") if isinstance(hdr, dict) else "sim"
-        except (OSError, ValueError):
-            engine = "sim"
-        if isinstance(engine, str) and engine in _UNPORTED_ENGINES:
-            print(f"tpu_paxos_torch: trace of engine '{engine}' artifacts "
-                  f"({_UNPORTED_ENGINES[engine]}) is not ported yet", file=sys.stderr)
-            return 2
     try:
         if args.serve:
             trace = trace_serve(args)
