@@ -2,7 +2,14 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught).  Phases 17 and
+18 run in a child process of this script, started before phase 11 and
+joined after phase 14, beside phases 11-14: every phase's host work is
+Python on one core and the card idles most of each round, so the two
+halves share the card (two CUDA contexts) and the host's cores, and
+their times are taken so.  The child's lines are printed when it is
+joined; its failure fails the script, and the script's failure stops it
+and every process it started.
 
 1. Report the card (``nvidia-smi`` name and power limit, the torch
    device name) and build the CUDA kernels from ``tpu_paxos_torch/csrc``
@@ -226,10 +233,10 @@ Phases (any failure exits non-zero; nothing is caught):
       then 128000 milli: per lane the decision-log sha256, decided count,
       breach flag and first breach dispatch, the host-confirmed verdicts
       of the flagged lanes, rounds, dispatches and ``done`` must equal
-      JAX's, both kernels launching on 256-lane operands; the 128000 run
-      again with the first 16 launches of each kernel held against its
-      plain version; and the 1-lane zero-load fleet must make the
-      closed-loop ``sim.run``'s decision log (and JAX's).
+      JAX's, both kernels launching on 256-lane operands; in the 128000
+      run the first 16 launches of each kernel are copied and, after it,
+      held against the plain version; and the 1-lane zero-load fleet must
+      make the closed-loop ``sim.run``'s decision log (and JAX's).
    d. ``python -m tpu_paxos_torch serve``, ``serve --fleet --lanes 8``,
       ``trace --serve --stdout`` and ``trace --serve --stdout --lanes 4
       --lane 1`` as four subprocesses started together with 15a: the
@@ -258,8 +265,8 @@ Phases (any failure exits non-zero; nothing is caught):
    c. ``control_fleet_256``: ``controlled_fleet_run`` at 15c's 128000-milli
       cell (256 lanes, 2**12 values on 2**13 instances each): per lane the
       decisions, sheds, breach flags and combined decision-log sha256
-      equal JAX's, both kernels launch on 256-lane operands; then the run
-      again with the first 16 launches of each kernel held.
+      equal JAX's, both kernels launch on 256-lane operands, and the first
+      16 launches of each kernel are copied in the run and held after it.
    d. ``serve --control --save-artifact``, ``serve --control-ab`` and
       ``serve --fleet --lanes 8 --control`` (with SLOs) as subprocesses in
       one directory, started together with ``repro`` and ``trace`` of the
@@ -294,8 +301,9 @@ Phases (any failure exits non-zero; nothing is caught):
       three mc-control artifacts equal JAX's byte for byte; ``repro``,
       ``repro --json`` and ``trace --stdout`` of the first, the variable
       unset, print JAX's stdout with its exit code.
-   c. The full scope's first two chunks: their verdict bits are the
-      certificate's prefix (the whole scope runs outside this script).
+   c. (Cut for phase 20's room: the full scope's first two chunks, whose
+      verdict bits are the certificate's prefix, run in
+      ``tests/test_torch_mc_cuda.py``, and the whole scope outside.)
    d. ``mc --scope gray --json`` (its line less timing and device equals
       JAX's, the zero pattern kept) and ``mc --scope nosuch`` (exit 2),
       subprocesses started with 17a.
@@ -349,12 +357,39 @@ Phases (any failure exits non-zero; nothing is caught):
       replicated scalars equal on every rank; instances/s printed as 8
       ranks on one card.  Then 1e7 on the (2, 4) mesh: every gathered
       FastState field equals JAX's (``sharded_fast``).
-   c. ``python -m tpu_paxos_torch 4 4 10 ... --mesh 8``, ``5 8192 1024
-      --engine=fast --mesh 8 --json`` and ``repro --json`` of the committed
-      JAX-written ``tpu_paxos_torch/data/repro_sharded_d8.json``, three
-      subprocesses started with 19a: each stdout equals the JAX CLI's.
+   c. ``python -m tpu_paxos_torch 5 8192 1024 --engine=fast --mesh 8
+      --json`` and ``repro --json`` of the committed JAX-written
+      ``tpu_paxos_torch/data/repro_sharded_d8.json``, two subprocesses
+      started with 19a: each stdout equals the JAX CLI's.  (``4 4 10 ...
+      --mesh 8`` left the script for phase 20's room:
+      ``tests/test_torch_sharded_cuda.py`` runs it.)
    The whole sharded stress sweep (12 runs at 8 ranks) runs in a call of
    its own: ``tests/test_torch_sharded_cuda.py``.
+
+20. The lane tile on the card: a fleet's lane axis split over 8 ranks of
+   one mesh (threads of this process, all on ``cuda:0``, rank ``r`` running
+   lanes ``[16 r, 16 r + 16)``; lanes are independent, so the tile makes
+   no collective), with phase 20's own seconds.  It measures the tile's
+   correctness and cost on one card, not multi-chip scaling.
+   a. Phase 9's headline cycle (``fleet_headline_128``) on the tile, 16
+      lanes a rank: the verdict vectors and every lane's decision-log
+      sha256 equal phase 9's JAX golden, both kernels launch on every rank
+      (the counts of this run, kept per rank, printed), and the first 16
+      launches of each kernel on every rank are held against the plain
+      version on their own operands, timed and their needed bytes
+      counted.  Prints wall, ms and host syncs a rank-round, lanes/s and
+      peak memory.
+   b. and c. run in a call of their own, past this script's time
+      (``tests/test_torch_lane_tile_cuda.py``, through this script's
+      ``run_tile_serve``, ``run_tile_certificate`` and the tiled CLIs):
+      phase 15c's 256-lane serve fleet at its 128000-milli cell on the
+      tile, its record equal to 15c's golden; the shard certificate's four
+      lane drivers at D = 8 and on the (2, 4) mesh equal to
+      ``tpu_paxos_torch/analysis/shard_certificate.json``; ``fleet --mesh
+      8`` (fleet-quick's arguments) and ``serve --fleet --lanes 8 --mesh
+      8``, printing JAX's summaries less the wall fields.  The same call
+      runs the 256-lane controlled fleet (16c) and the 128-lane member
+      fleet (14d) on the tile.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -369,6 +404,8 @@ import hashlib
 import io
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1072,37 +1109,56 @@ def _same_result(a, b) -> bool:
     )
 
 
-def run_fleet(sk, goldens, card) -> dict:
-    """Phase 9: the fleet runner at bench.py's fleet configuration."""
+def _fleet_config(goldens):
+    """Phase 9's configuration, workload and gates (``bench.py``'s fleet
+    cell)."""
     import numpy as np
 
     from tpu_paxos_torch import config as cfgm
-    from tpu_paxos_torch.fleet import runner as frun
-    from tpu_paxos_torch.fleet import search
     from tpu_paxos_torch.harness import stress
 
-    gold = goldens["fleet"]
-    c = gold["config"]
+    c = goldens["fleet"]["config"]
     wl, gates, _ = stress._workload(2, np.random.default_rng(0))
     cfg = cfgm.SimConfig(
         n_nodes=c["n_nodes"], n_instances=c["n_instances"], proposers=tuple(c["proposers"]),
         seed=c["seed"], max_rounds=c["max_rounds"], faults=cfgm.FaultConfig(**c["faults"]),
     )
-    n = c["lanes"]
+    return cfg, wl, gates
+
+
+def _fleet_cycle(goldens, name: str):
+    """The seeds, sampled schedules and knob mixes of phase 9's 128 lanes
+    under its ``name`` cycle (``headline`` or ``delay``)."""
+    import numpy as np
+
+    from tpu_paxos_torch import config as cfgm
+    from tpu_paxos_torch.fleet import search
+
+    gold = goldens["fleet"]
+    n = gold["config"]["lanes"]
     rng = np.random.default_rng(1)
     scheds = [search.sample_schedule(rng, 5, 4, 96) for _ in range(n)]
-    runner = frun.FleetRunner(cfg, wl, gates, device=DEV)
+    gc = gold[name]
+    mixes = gc["knob_mixes"]
+    knobs = [cfgm.FaultConfig(**mixes[i % len(mixes)]) for i in range(n)]
+    return [gc["first_seed"] + i for i in range(n)], scheds, knobs
 
-    def cycle(name, lanes):
-        gc = gold[name]
-        mixes = gc["knob_mixes"]
-        knobs = [cfgm.FaultConfig(**mixes[i % len(mixes)]) for i in range(lanes)]
-        return [gc["first_seed"] + i for i in range(lanes)], scheds[:lanes], knobs
+
+def run_fleet(sk, goldens, card) -> dict:
+    """Phase 9: the fleet runner at bench.py's fleet configuration."""
+    import numpy as np
+
+    from tpu_paxos_torch.fleet import runner as frun
+
+    gold = goldens["fleet"]
+    n = gold["config"]["lanes"]
+    cfg, wl, gates = _fleet_config(goldens)
+    runner = frun.FleetRunner(cfg, wl, gates, device=DEV)
 
     out = {}
     for name in ("headline", "delay"):
         gc = gold[name]
-        seeds, sch, knobs = cycle(name, n)
+        seeds, sch, knobs = _fleet_cycle(goldens, name)
         # the delay cycle runs its lanes that decide within DELAY_ROUNDS_MAX
         # rounds and those that park (a fixed subset, chosen by the golden)
         sub = list(range(n)) if name == "headline" else [
@@ -1133,16 +1189,19 @@ def run_fleet(sk, goldens, card) -> dict:
         out[name] = {"launches": launches, "iterations": rep.iterations, "seconds": rep.seconds,
                      "lanes_per_sec": rep.lanes_per_sec}
 
-    seeds, sch, knobs = cycle("headline", n)
-    it = {}
-    syncs = count_syncs(lambda: it.setdefault("rep", runner.run(seeds, sch, knobs=knobs)))
-    out["headline"]["syncs_per_round"] = syncs / it["rep"].iterations
-    print(f"fleet [headline] host syncs: {syncs} in {it['rep'].iterations} rounds "
-          f"({out['headline']['syncs_per_round']:.2f} a round)")
-
-    stats = {}
-    with check_launches(sk, SNAP_REPS, stats):
-        rep = runner.run(seeds, sch, knobs=knobs)
+    # the headline again, outside the timed runs: its syncs counted (a
+    # warning each) and its launches' operands copied, each held after it
+    seeds, sch, knobs = _fleet_cycle(goldens, "headline")
+    stats, it = {}, {}
+    with check_launches(sk, SNAP_REPS, stats, defer=True):
+        syncs = count_syncs(lambda: it.setdefault("rep", runner.run(seeds, sch, knobs=knobs)))
+    rep = it["rep"]
+    out["headline"]["syncs_per_round"] = syncs / rep.iterations
+    out["headline"]["checked_seconds"] = rep.seconds
+    print(f"fleet [headline] host syncs: {syncs} in {rep.iterations} rounds "
+          f"({out['headline']['syncs_per_round']:.2f} a round); this run, its syncs counted and "
+          f"its launches' operands copied: seconds={rep.seconds:.3f} ms_per_round="
+          f"{rep.seconds / rep.iterations * 1e3:.3f}")
     if [_lane_sha(rep, i, gold["stride"]) for i in range(n)] != gold["headline"]["decision_log_sha256"]:
         raise SystemExit("fleet [headline] rerun disagrees with its JAX golden")
     out["checked"] = _summarize_checked(f"fleet [headline] {n}-lane operands", stats)
@@ -2395,9 +2454,15 @@ def run_serve_fleet(sk, script, m, gold, card: str) -> dict:
     if width != gold["fleet_admit_width"]:
         raise SystemExit(f"serve fleet: admit width {width}, JAX's {gold['fleet_admit_width']}")
     out = {"launches": {"store_accepts": 0, "accum_acks": 0}}
+    stats = {}
+    last = gold["config"]["fleet"]["rates"][-1]
     for rate in gold["config"]["fleet"]["rates"]:
         sk.reset_counts()
-        with lane_counts(sk) as shapes:
+        # the last rate's run is the sample: its first launches' operands
+        # are copied in the run and held against the plain version after it
+        held = (check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=SERVE_CHECK, defer=True)
+                if rate == last else contextlib.nullcontext())
+        with held, lane_counts(sk) as shapes:
             rep, wall, syncs, peak = _serve_timed(
                 lambda rate=rate: script.serve_fleet_run(m, rate, width, device=DEV))
         launches = dict(sk.LAUNCHES)
@@ -2415,14 +2480,7 @@ def run_serve_fleet(sk, script, m, gold, card: str) -> dict:
         for key in out["launches"]:
             out["launches"][key] += launches[key]
         del rep
-    rate = gold["config"]["fleet"]["rates"][-1]
-    stats = {}
-    with check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=SERVE_CHECK):
-        rep = script.serve_fleet_run(m, rate, width, device=DEV)
-    if script.serve_fleet_record(m, rep) != gold["fleet"][str(rate)]:
-        raise SystemExit("the checked serve fleet run disagrees with its JAX golden")
     out["checked"] = _summarize_checked(f"serve_fleet_{lanes} {lanes}-lane operands", stats)
-    del rep
     zl = script.serve_zero_load(m, device=DEV)
     print(f"serve fleet 1-lane zero-load vs closed-loop sim.run: fleet_sha={zl['fleet']} "
           f"closed_sha={zl['closed']} equal={zl['fleet'] == zl['closed']} "
@@ -2631,7 +2689,11 @@ def run_control_fleet(sk, script, m, gold, card: str) -> dict:
     and its kernel sample."""
     lanes = gold["config"]["fleet"]["lanes"]
     sk.reset_counts()
-    with lane_counts(sk) as shapes:
+    stats = {}
+    # the run is the sample: its first launches' operands are copied in it
+    # and held against the plain version after it
+    with check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=SERVE_CHECK, defer=True), \
+            lane_counts(sk) as shapes:
         rep, wall, syncs, peak = _serve_timed(lambda: script.control_fleet_run(m, device=DEV))
     launches = dict(sk.LAUNCHES)
     rec = script.control_fleet_record(m, rep)
@@ -2646,12 +2708,6 @@ def run_control_fleet(sk, script, m, gold, card: str) -> dict:
         raise SystemExit(f"control fleet disagrees with its JAX golden: {_dict_diff(rec, want)}")
     if min(launches.values()) < 1 or not all(x == [lanes] * len(x) for x in shapes.values()):
         raise SystemExit(f"control fleet: a simkern kernel did not launch on {lanes}-lane operands")
-    del rep
-    stats = {}
-    with check_launches(sk, SNAP_REPS, stats, lanes=lanes, limit=SERVE_CHECK):
-        rep = script.control_fleet_run(m, device=DEV)
-    if script.control_fleet_record(m, rep) != want:
-        raise SystemExit("the checked control fleet run disagrees with its JAX golden")
     out["checked"] = _summarize_checked(f"control_fleet_{lanes} {lanes}-lane operands", stats)
     del rep
     torch.cuda.empty_cache()
@@ -2918,7 +2974,6 @@ def run_mc(goldens, here: str, card: str) -> dict:
         clis = start_mc_clis(gold, here, recall_dir)
         out = {"scopes": run_mc_scopes(sk, script, m, gold, card)}
         out["control_recall"] = run_mc_control_recall(script, m, gold, here, ctl_dir, card)
-        out["full"] = run_mc_full_prefix(script, m, gold, card)
         out["cli"] = finish_mc_clis(gold, script, here, recall_dir, clis, card)
     print(f"phase 17 (model checking) took {time.perf_counter() - t17:.1f} s")
     return out
@@ -3213,16 +3268,23 @@ def run_sharded_fast(script, goldens, card: str) -> dict:
     return {"walls_s": walls, "instances_per_sec": n / walls[-1], "peak_gb": peak}
 
 
-def start_sharded_clis(goldens, here: str):
-    """19c's three CLI processes, started together: the two ``--mesh 8``
-    lines, and ``repro --json`` of the committed sharded artifact in its
-    directory."""
+#: 19c's CLIs; ``cli_4_4_10_mesh8`` left the script for phase 20's room
+#: (``tests/test_torch_sharded_cuda.py`` runs it)
+SHARDED_CLIS = ("fast_cli_2p23_mesh8", "sharded_repro")
+
+
+def start_sharded_clis(goldens, here: str, keys=SHARDED_CLIS):
+    """19c's CLI processes, started together: ``5 8192 1024 --engine=fast
+    --mesh 8 --json`` and ``repro --json`` of the committed sharded
+    artifact in its directory (and ``4 4 10 ... --mesh 8`` when
+    ``keys`` names it)."""
     data = os.path.join(here, "tpu_paxos_torch", "data")
     runs = {
         "cli_4_4_10_mesh8": (goldens["cli_4_4_10_mesh8"]["args"], here),
         "fast_cli_2p23_mesh8": (goldens["fast_cli_2p23_mesh8"]["args"], here),
         "sharded_repro": (["repro", goldens["sharded_repro"]["artifact"], "--json"], data),
     }
+    runs = {key: runs[key] for key in keys}
     return {key: (subprocess.Popen(
         [sys.executable, "-m", "tpu_paxos_torch", *args, "--device", DEV], cwd=cwd,
         env=_port_env(here, {"TPU_PAXOS_DETERMINISTIC": "1"}), stdout=subprocess.PIPE,
@@ -3263,6 +3325,231 @@ def run_sharded(goldens, here: str, card: str) -> dict:
     return out
 
 
+TILE_RANKS = 8  # phase 20's mesh: eight ranks on the one card
+TILE_CHECK = 16  # launches of each kernel held per rank in 20a
+
+
+def run_tile_fleet(sk, goldens, mesh, card: str, untiled_s: float | None = None) -> dict:
+    """20a: phase 9's headline cycle (128 lanes) on the 8-rank tile, 16
+    lanes a rank, with the launch counts of this one run kept per rank and
+    the first 16 launches of each kernel on every rank held against the
+    plain version (their operands copied in the run, held after it).  The
+    run's syncs are counted in it, so ``untiled_s`` is phase 9's headline
+    run under the same instrumentation (its check run)."""
+    import numpy as np
+
+    from tpu_paxos_torch.fleet import runner as frun
+
+    gold = goldens["fleet"]
+    cfg, wl, gates = _fleet_config(goldens)
+    seeds, sch, knobs = _fleet_cycle(goldens, "headline")
+    n = len(seeds)
+    runner = frun.FleetRunner(cfg, wl, gates, mesh=mesh, device=DEV)
+    stats, held = {}, {}
+    with check_launches(sk, SNAP_REPS, stats, limit=TILE_CHECK, defer=True, held=held):
+        rep, wall, syncs, peak = _serve_timed(lambda: runner.run(seeds, sch, knobs=knobs))
+    launches = mesh.launches  # this run's, per rank
+    v = rep.verdict
+    gc = gold["headline"]
+    bad = [f for f in v._fields if np.asarray(getattr(v, f)).tolist() != gc[f]]
+    off = [i for i in range(n) if _lane_sha(rep, i, gold["stride"]) != gc["decision_log_sha256"][i]]
+    rank_rounds = sum(rep.rank_iterations)
+    out = {"launches": launches, "wall_s": wall, "rank_iterations": rep.rank_iterations,
+           "ms_per_rank_round": wall / rank_rounds * 1e3,
+           "syncs_per_rank_round": syncs / rank_rounds, "lanes_per_sec": n / wall,
+           "peak_gb": peak}
+    print(f"tiled fleet (20a) headline, {n} lanes over {mesh.size} ranks ({n // mesh.size} a "
+          f"rank, I={cfg.n_instances}), one card: wall_s={wall:.3f} round_calls_per_rank="
+          f"{rep.rank_iterations} ms_per_rank_round={out['ms_per_rank_round']:.3f} "
+          f"syncs_per_rank_round={out['syncs_per_rank_round']:.2f} "
+          f"lanes_per_sec={n / wall:.2f} peak_gb={peak:.3f} (with the held launches' operand "
+          f"copies) launches_per_rank={json.dumps(launches)} verdict_fields_off={bad} "
+          f"decision_log_off={off} | {card}")
+    if untiled_s:
+        out["vs_untiled"] = wall / untiled_s
+        print(f"tiled fleet (20a) wall over phase 9's untiled headline run, both with their "
+              f"syncs counted and launches' operands copied: {wall:.3f} / {untiled_s:.3f} s = "
+              f"{out['vs_untiled']:.2f}x | {card}")
+    if bad or off or not v.ok.all():
+        raise SystemExit("tiled fleet (20a) disagrees with phase 9's JAX golden")
+    if any(min(c.values()) < 1 for c in launches):
+        raise SystemExit("tiled fleet (20a): a rank did not launch both simkern kernels")
+    per_rank = {}
+    for (rank, name), k in sorted(held.items(), key=str):
+        per_rank.setdefault(rank, {})[name] = k
+    full = {"store_accepts": TILE_CHECK, "accum_acks": TILE_CHECK}
+    if any(per_rank.get(r) != full for r in range(mesh.size)):
+        raise SystemExit(f"tiled fleet (20a): not {TILE_CHECK} launches of each kernel held on "
+                         f"every rank: {per_rank}")
+    out["checked"] = _summarize_checked(
+        f"tiled fleet (20a), {TILE_CHECK} launches a kernel on each of {mesh.size} ranks "
+        f"({n // mesh.size}-lane operands)", stats)
+    del rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tile_serve(script, goldens, mesh, card: str) -> dict:
+    """20b: phase 15c's 256-lane serve fleet at its 128000-milli cell on
+    the 8-rank tile: the report, latency and SLO dicts and the breach
+    vector equal 15c's golden; launches summed per rank over the run's
+    dispatches."""
+    gold = goldens["serve"]
+    m = script.serve_modules(port=True)
+    width = script.serve_fleet_width(m)
+    rate = gold["config"]["fleet"]["rates"][-1]
+    lanes = gold["config"]["fleet"]["lanes"]
+    mesh.reset_totals()
+    rep, wall, syncs, peak = _serve_timed(
+        lambda: script.serve_fleet_run(m, rate, width, device=DEV, mesh=mesh))
+    launches = [dict(c) for c in mesh.launch_totals]
+    rec = script.serve_fleet_record(m, rep)
+    want = gold["fleet"][str(rate)]
+    line = _serve_line(f"tiled serve fleet (20b) {lanes} lanes @ {rate} milli over {mesh.size} "
+                       f"ranks (I={rep.cfg.n_instances}, one card)", rep, wall, syncs, peak,
+                       launches, card, lanes=lanes)
+    print(f"tiled serve fleet (20b): flagged={len(rec['flagged'])} equal_to_15c_golden="
+          f"{rec == want} lanes_off={[i for i in range(lanes) if rec['decision_log_sha256'][i] != want['decision_log_sha256'][i]]}")
+    if rec != want:
+        raise SystemExit(f"tiled serve fleet (20b) disagrees with 15c's JAX golden: "
+                         f"{_dict_diff(rec, want)}")
+    if any(min(c.values()) < 1 for c in launches):
+        raise SystemExit("tiled serve fleet (20b): a rank did not launch both simkern kernels")
+    del rep
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_tile_certificate(card: str) -> dict:
+    """20c: the shard certificate's four lane drivers at D = 8 and on the
+    (2, 4) mesh against ``shard_certificate.json``."""
+    from tpu_paxos_torch.analysis import shard_audit
+
+    out = {}
+    for shape in ((TILE_RANKS, 1), (TILE_RANKS, 2)):
+        results = {}
+        t0 = time.perf_counter()
+        fails = shard_audit.check_certificate((shape,), device=DEV, results=results)
+        name = shard_audit.shape_name(shape)
+        out[name] = time.perf_counter() - t0
+        print(f"shard certificate (20c) at mesh {name}: entries={sorted(results)} "
+              f"failures={fails} wall_s={out[name]:.3f} | {card}")
+        if fails:
+            raise SystemExit(f"the lane drivers disagree with shard_certificate.json: {fails[0]}")
+    return out
+
+
+def start_tile_clis(goldens, here: str, tmp: str):
+    """20c's two CLI processes, started with 20a: fleet-quick's search and
+    ``serve --fleet --lanes 8``, each on an 8-rank tile."""
+    quick = goldens["search"]["fleet_quick"]
+    runs = {
+        "fleet": ["fleet", *quick["args"], "--mesh", str(TILE_RANKS), "--triage-dir", tmp,
+                  "--quiet"],
+        "serve": ["serve", "--fleet", "--lanes", "8", "--mesh", str(TILE_RANKS)],
+    }
+    return {key: (subprocess.Popen(
+        [sys.executable, "-m", "tpu_paxos_torch", *args, "--device", DEV], cwd=here,
+        env=_port_env(here), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        time.perf_counter()) for key, args in runs.items()}
+
+
+def finish_tile_clis(goldens, script, started, tmp: str, card: str) -> None:
+    """20c: each tiled CLI's summary, less the wall fields, against the
+    JAX golden (fleet-quick's artifact bytes too)."""
+    for key, (proc, t0) in started.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        if key == "fleet":
+            gold = goldens["search"]["fleet_quick"]
+            got = _less_timing(json.loads(stdout.strip().splitlines()[-1]), SEARCH_TIMING)
+            ok = (proc.returncode == 0 and got == gold["summary"]
+                  and _file_sha256(os.path.join(tmp, gold["artifact"])) == gold["artifact_sha256"])
+        else:
+            gold = goldens["serve"]["cli"]["serve --fleet --lanes 8"]
+            got = script.less_wall(json.loads(stdout.strip().splitlines()[-1]))
+            ok = proc.returncode == gold["rc"] and got == gold["summary"]
+        print(f"tiled CLI (20c) python -m tpu_paxos_torch {' '.join(proc.args[3:-2])}: "
+              f"rc={proc.returncode} wall_s={wall:.3f} equal_to_golden={ok} | {card}")
+        if not ok:
+            print(stderr[-3000:], file=sys.stderr)
+            raise SystemExit(f"the tiled {key} CLI disagrees with the JAX golden")
+
+
+def run_tile(goldens, here: str, card: str, untiled_s: float | None = None) -> dict:
+    """Phase 20: the lane tile on the card (20a, held beside phase 9's
+    ``untiled_s``; 20b and 20c run in ``tests/test_torch_lane_tile_cuda.py``'s
+    call, past this script's time)."""
+    from tpu_paxos_torch.core import simkern as sk
+    from tpu_paxos_torch.fleet import envelope
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    t20 = time.perf_counter()
+    envelope.clear_cache()
+    mesh = pmesh.make_instance_mesh(TILE_RANKS, device=DEV)
+    print(f"phase 20: the lane tile over {TILE_RANKS} ranks, threads of this process, all on "
+          f"{torch.cuda.get_device_name(0)} (cuda:0) | {card}")
+    out = {"fleet": run_tile_fleet(sk, goldens, mesh, card, untiled_s)}
+    envelope.clear_cache()
+    print(f"phase 20 (the lane tile) took {time.perf_counter() - t20:.1f} s")
+    return out
+
+
+#: the argument that makes this script the child that runs phases 17-18
+CHILD_FLAG = "--phases-17-18"
+#: the child's last line: its results, as JSON, after this prefix
+CHILD_RESULT = "phases 17-18 result: "
+
+
+def run_child_phases(goldens, here: str, card: str) -> dict:
+    """The child's part: phases 17 and 18, and what the kernels line reads
+    of them."""
+    mc = run_mc(goldens, here, card)
+    evolve = run_evolve(goldens, here, card)
+    return {"mc": {"scopes": {k: mc["scopes"][k] for k in ("launches", "checked")}},
+            "evolve": {k: evolve[k] for k in ("launches", "checked")}}
+
+
+def start_child_phases(here: str, logs: str):
+    """Phases 17-18 in a child process of this script, in a session of its
+    own (so that stopping it stops the CLIs it starts); its stdout and
+    stderr go to files in ``logs``."""
+    out, err = (open(os.path.join(logs, name), "w") for name in ("child.out", "child.err"))
+    with out, err:
+        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), CHILD_FLAG],
+                                cwd=here, stdout=out, stderr=err, start_new_session=True)
+    return proc, logs, time.perf_counter()
+
+
+def finish_child_phases(started) -> dict:
+    """Wait for the child, print its lines (stdout here, stderr to
+    stderr) and return its results; its failure fails the script."""
+    proc, logs, t0 = started
+    rc = proc.wait(timeout=1200)
+    waited = time.perf_counter() - t0
+    with open(os.path.join(logs, "child.out")) as f:
+        text = f.read()
+    with open(os.path.join(logs, "child.err")) as f:
+        sys.stderr.write(f.read())
+    lines = text.splitlines()
+    print("\n".join(x for x in lines if not x.startswith(CHILD_RESULT)))
+    print(f"phases 17-18 (child process, beside phases 11-14) ended {waited:.1f} s after "
+          f"they started, rc={rc}")
+    results = [x for x in lines if x.startswith(CHILD_RESULT)]
+    if rc != 0 or not results:
+        raise SystemExit(f"phases 17-18 failed in their child process (exit {rc})")
+    return json.loads(results[-1][len(CHILD_RESULT):])
+
+
+def stop_child_phases(started) -> None:
+    """Stop the child and every process of its session, if it still
+    runs."""
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3286,6 +3573,10 @@ def main() -> int:
     fw.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
           f"{sorted(os.path.relpath(p, here) for p in libs.values())}")
+    if CHILD_FLAG in sys.argv[1:]:
+        out = run_child_phases(goldens, here, card)
+        print(CHILD_RESULT + json.dumps(out, default=lambda x: x.item()))
+        return 0
 
     rec = check_kernels(sk)
     print(f"kernels: {json.dumps(list(rec))}")
@@ -3302,43 +3593,50 @@ def main() -> int:
         run_scheduled(sk, goldens, key)
     fleet = run_fleet(sk, goldens, card)
     full = run_runtime_full(sk, goldens)
-    t11 = time.perf_counter()
-    run_stress_quick(goldens, here, card)
-    wedge = run_triage_wedge(sk, goldens, here, card)
-    with tempfile.TemporaryDirectory() as keep:
-        full_art = run_triage_full(sk, goldens, here, card, keep)
-        print(f"phase 11 (triage, 11c's replay in 12d) took {time.perf_counter() - t11:.1f} s")
-        t12 = time.perf_counter()
-        tele = run_telemetry_single(sk, goldens, card)
-        tele_fleet = run_telemetry_fleet(sk, goldens, card)
-        data = os.path.join(here, "tpu_paxos_torch", "data")
-        paths = {name: os.path.join(data, name)
-                 for name in ("repro_culprit.json", "repro_takeover.json")}
-        paths[goldens["triage_full"]["artifact"]] = full_art["path"]
-        # 11c's replay runs beside 12d's traces: neither writes the artifact
-        replay_full = _replay(here, full_art["path"], goldens["triage_full"], {},
-                              full_art["label"])
-        try:
-            run_trace_cli(goldens, here, paths, card)
-        finally:
-            replay_full()
-        print(f"phase 12 (flight recorder, with 11c's replay) took "
-              f"{time.perf_counter() - t12:.1f} s")
-    t13 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        # 13a's subprocess runs beside 13c's
-        quick = start_fleet_quick(goldens, here, tmp)
-        run_stress_fleet(goldens, card)
-        run_fleet_quick(goldens, here, card, quick, tmp)
-    wide = run_search_wide(sk, goldens, card)
-    env13 = run_envelope(sk, goldens, card)
-    print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
-    run_member(goldens, here, card)
+    logs = tempfile.mkdtemp(prefix="chip_smoke_child_")
+    child = start_child_phases(here, logs)
+    try:
+        t11 = time.perf_counter()
+        run_stress_quick(goldens, here, card)
+        wedge = run_triage_wedge(sk, goldens, here, card)
+        with tempfile.TemporaryDirectory() as keep:
+            full_art = run_triage_full(sk, goldens, here, card, keep)
+            print(f"phase 11 (triage, 11c's replay in 12d) took {time.perf_counter() - t11:.1f} s")
+            t12 = time.perf_counter()
+            tele = run_telemetry_single(sk, goldens, card)
+            tele_fleet = run_telemetry_fleet(sk, goldens, card)
+            data = os.path.join(here, "tpu_paxos_torch", "data")
+            paths = {name: os.path.join(data, name)
+                     for name in ("repro_culprit.json", "repro_takeover.json")}
+            paths[goldens["triage_full"]["artifact"]] = full_art["path"]
+            # 11c's replay runs beside 12d's traces: neither writes the artifact
+            replay_full = _replay(here, full_art["path"], goldens["triage_full"], {},
+                                  full_art["label"])
+            try:
+                run_trace_cli(goldens, here, paths, card)
+            finally:
+                replay_full()
+            print(f"phase 12 (flight recorder, with 11c's replay) took "
+                  f"{time.perf_counter() - t12:.1f} s")
+        t13 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            # 13a's subprocess runs beside 13c's
+            quick = start_fleet_quick(goldens, here, tmp)
+            run_stress_fleet(goldens, card)
+            run_fleet_quick(goldens, here, card, quick, tmp)
+        wide = run_search_wide(sk, goldens, card)
+        env13 = run_envelope(sk, goldens, card)
+        print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
+        run_member(goldens, here, card)
+        child_out = finish_child_phases(child)
+    finally:
+        stop_child_phases(child)
+        shutil.rmtree(logs, ignore_errors=True)
     serve = run_serve(goldens, here, card)
     control = run_control(goldens, here, card)
-    mc = run_mc(goldens, here, card)
-    evolve = run_evolve(goldens, here, card)
+    mc, evolve = child_out["mc"], child_out["evolve"]
     shard = run_sharded(goldens, here, card)
+    tile = run_tile(goldens, here, card, fleet["headline"]["checked_seconds"])
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -3415,6 +3713,10 @@ def main() -> int:
             "sharded_checked": shard["sim"]["checked"][name]["launches"],
             "sharded_ms": shard["sim"]["checked"][name]["ms"],
             "sharded_bound_ms": shard["sim"]["checked"][name]["bound_ms"],
+            "tile_launches_per_rank": [n[key] for n in tile["fleet"]["launches"]],
+            "tile_checked": tile["fleet"]["checked"][name]["launches"],
+            "tile_ms": tile["fleet"]["checked"][name]["ms"],
+            "tile_bound_ms": tile["fleet"]["checked"][name]["bound_ms"],
         })
     r = fw_rec["iota"]  # the headline run's variant
     kernels.append({
@@ -3430,7 +3732,7 @@ def main() -> int:
         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
         "library_ms": None,
     })
-    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-19)")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-20)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -106,6 +106,39 @@ def _member_json():
     return _goldens()["member"]["cli"]["record_stdout"]
 
 
+class _Tiled:
+    """A lane-tile CLI case: its last JSON line, less the wall fields
+    (``less``), equals the JAX golden's summary at ``path`` in
+    goldens.json, JAX's unmeshed CLI at the padded lane count (JAX's
+    own tiled CLI indexes lane-sharded arrays on the host, which jax
+    0.9.0 refuses)."""
+
+    def __init__(self, path, less):
+        self.path, self.less = path, less
+
+    def golden(self):
+        """The golden's exit code (0 where it records none) and summary."""
+        gold = _goldens()
+        for key in self.path[:-1]:
+            gold = gold[key]
+        return gold.get("rc", 0), gold[self.path[-1]]
+
+
+def _evolve_less(summary):
+    return _golden_script().evolve_less(summary)
+
+
+def _serve_less(summary):
+    return _golden_script().less_wall(summary)
+
+
+#: evolve-quick's arguments with the lane count cut to 5: ``--mesh 4``
+#: pads it to the golden's 8
+_EVOLVE_TILED = ["--lanes", "5", "--generations", "2", "--seed", "2",
+                 "--decision-round-max", "35", "--max-wedges", "1", "--mesh", "4",
+                 "--triage-dir", "{tmp}", "--quiet"]
+
+
 @pytest.mark.parametrize("argv,what", [
     # --mesh shards the instance axis of the general engine and the fast
     # path (tests/test_torch_sharded*.py); these cases keep their ids and
@@ -128,20 +161,27 @@ def _member_json():
     # under the case's id)
     pytest.param(["audit"], "'audit'", id="argv5-'serve'"),
     # evolve is ported on all three axes (tests/test_torch_evolve.py,
-    # test_evolve_cli_equals_the_jax_cli); its lane tile over devices is
-    # not (kept under the cases' ids)
-    pytest.param(["evolve", "--mesh", "2"], "'evolve --mesh'", id="argv6-'evolve'"),
+    # test_evolve_cli_equals_the_jax_cli), and so is its lane tile: these
+    # cases keep their ids and hold the tiled CLIs to the JAX goldens
+    pytest.param(["evolve", *_EVOLVE_TILED], _Tiled(("evolve", "quick", "summary"), _evolve_less),
+                 id="argv6-'evolve'"),
     # mc is ported (test_mc_cli_routes_to_the_model_checker)
-    pytest.param(["evolve", "--axis", "member", "--mesh", "2"], "'evolve --mesh'",
+    pytest.param(["evolve", "--axis", "member", "--lanes", "4", "--generations", "2",
+                  "--seed", "0", "--hunt", "duel-churn", "--max-wedges", "2", "--mesh", "2",
+                  "--quiet"], _Tiled(("evolve", "member", "summary"), _evolve_less),
                  id="argv7-'mc'"),
-    (["serve", "--fleet", "--mesh", "2"], "'serve --fleet --mesh'"),
+    pytest.param(["serve", "--fleet", "--lanes", "8", "--mesh", "2"],
+                 _Tiled(("serve", "cli", "serve --fleet --lanes 8", "summary"), _serve_less),
+                 id="argv8-'serve --fleet --mesh'"),
     # the controller's surfaces below are ported (tests/test_torch_control.py
     # and test_serve_control_cli_equals_the_jax_cli); their cases keep their
-    # ids on what still refuses (the controlled fleet's mesh) and on the
-    # replay and trace of sharded artifacts, which are ported and compare
-    # with the JAX CLI's
-    pytest.param(["serve", "--fleet", "--mesh", "2", "--control", "--slo-latency", "8"],
-                 "'serve --fleet --mesh'", id="argv9-'serve --fleet --control'"),
+    # ids on the controlled fleet's lane tile and on the replay and trace
+    # of sharded artifacts, which compare with the JAX CLI's
+    pytest.param(["serve", "--fleet", "--lanes", "8", "--control", "--slo-latency", "16",
+                  "--slo-budget-milli", "150", "--rate-milli", "16000", "--mesh", "4"],
+                 _Tiled(("control", "cli", "serve --fleet --lanes 8 --control --slo-latency 16 "
+                         "--slo-budget-milli 150 --rate-milli 16000", "summary"), _serve_less),
+                 id="argv9-'serve --fleet --control'"),
     pytest.param(["repro", _SHARDED_ART], None, id="argv10-'serve --control-ab'"),
     pytest.param(["trace", _SHARDED_ART, "--stdout"], None,
                  id="argv11-'serve --save-artifact'"),
@@ -152,9 +192,11 @@ def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path, monkeypatch)
     """Some cases keep the id of a surface since ported.  A refused
     surface exits 2 naming itself; a ported one (``what`` None) prints the
     JAX CLI's stdout with its exit code (``what`` callable: the committed
-    JAX golden's stdout, exit 0).  Each failure names the command line it
-    ran."""
+    JAX golden's stdout, exit 0; a :class:`_Tiled` case: the golden's
+    summary, less the wall fields, and exit code).  Each failure names the
+    command line it ran."""
     surface = f"{what}: {' '.join(argv)}"
+    argv = [str(tmp_path) if a == "{tmp}" else a for a in argv]
     for key, engine in sorted(_ARTS.items()):
         if key in argv:
             with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
@@ -173,6 +215,16 @@ def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path, monkeypatch)
         assert tcli.main(argv + ["--device", "cpu"]) == rc_jax, surface
         assert capsys.readouterr().out == want, surface
         assert want, surface
+        return
+    if isinstance(what, _Tiled):
+        from tpu_paxos_torch.fleet import envelope
+
+        envelope.clear_cache()
+        monkeypatch.chdir(str(tmp_path))
+        rc, want = what.golden()
+        assert tcli.main(argv + ["--device", "cpu"]) == rc, surface
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert what.less(got) == want, surface
         return
     if callable(what):
         assert tcli.main(argv + ["--device", "cpu"]) == 0, surface
@@ -566,10 +618,15 @@ with tempfile.TemporaryDirectory() as tmp:
         rc_ctl = cli.main(["repro", path, "--device", "cpu"])
 from tpu_paxos_torch.fleet import evolve
 from tpu_paxos_torch.serve import breach
-with contextlib.redirect_stderr(io.StringIO()):
-    rc_evolve_mesh = cli.main(["evolve", "--mesh", "2", "--device", "cpu"])
+from tpu_paxos_torch.analysis import shard_audit
+from tpu_paxos_torch.parallel import mesh as pmesh
 evo = evolve.evolve(axis="member", n_lanes=2, generations=1, verbose=False, device="cpu")
-evo_ok = (rc_evolve_mesh == 2 and evo["generations_run"] == 1 and evo["lanes_total"] == 2
+evo_tiled = evolve.evolve(axis="member", n_lanes=2, generations=1, verbose=False, device="cpu",
+                          mesh=pmesh.make_instance_mesh(2, device="cpu"))
+tile_ok = not shard_audit.check_certificate(((2, 1),), device="cpu",
+                                            entries=["member.fleet_lanes"])
+evo_ok = (tile_ok and evo_tiled["population_sha256"] == evo["population_sha256"]
+          and evo["generations_run"] == 1 and evo["lanes_total"] == 2
           and len(evo["population_sha256"]) == 64
           and breach.sample_serve_genome(np.random.default_rng(0), [[1], [2]], "calm").weather
           == "calm")
@@ -582,7 +639,6 @@ with contextlib.redirect_stderr(io.StringIO()):
 mc_ok = (rc_nosuch == 2 and mc_control.run_scope(tiny, verbose=False, device="cpu")["ok"]
          and len(mc_member.ChurnEnum(modelcheck.load_scopes()["churn"]).reduced) == 302
          and triage.dump_name("mc", "scenario_1", "json") == "mc_scenario_1.json")
-from tpu_paxos_torch.parallel import mesh as pmesh
 from tpu_paxos_torch.parallel import sharded, sharded_sim
 smesh = pmesh.make_instance_mesh(2, device="cpu")
 sres = sharded_sim.run_sharded(config.SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1)), smesh)

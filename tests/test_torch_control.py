@@ -643,9 +643,14 @@ def test_fleet_policy_rejects_ladder_and_missing_slo():
                                              slo=slo, **extra)
             errs.append(str(e.value))
         assert errs[0] == errs[1]
-    with pytest.raises(NotImplementedError, match="controlled_fleet_run mesh="):
+    # the lane tile refuses a lane count that does not tile its mesh, by
+    # JAX's name
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    with pytest.raises(ValueError, match="^1 lanes do not tile over 2 devices$"):
         tctl.controlled_fleet_run(tc, [tfl.ServeLane(WL, _arrs(), 0)], control=tctl.ControlPolicy(),
-                                  slo=th.ServeSLO(latency_rounds=16), mesh=object(), device="cpu")
+                                  slo=th.ServeSLO(latency_rounds=16),
+                                  mesh=pmesh.make_instance_mesh(2, device="cpu"), device="cpu")
 
 
 # ---------------- bench guard: the record-or-error gate -------------
@@ -805,15 +810,20 @@ def test_window_cache_builds_once_for_the_ab_twins_and_refuses_schedules():
         with pytest.raises(ValueError) as je:
             jcall()
         assert str(te.value) == str(je.value)
-    for call, name in (
-        (lambda: tenv.serve_control_for(tc, 68, 30, R_WINDOW, window_rounds=32, mesh=object(),
-                                        device="cpu"), "serve_control_for mesh="),
-        (lambda: tctl.ControlFleetRunner(tc, 68, 30, R_WINDOW, 32, mesh=object(), device="cpu"),
-         "ControlFleetRunner mesh="),
-        (tctl.audit_entries, "audit_entries"),
-    ):
-        with pytest.raises(NotImplementedError, match=name):
-            call()
+    # the lane tile is ported: a tiled runner is cached apart from the
+    # untiled one, and shared by meshes of one layout
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    m2 = pmesh.make_instance_mesh(2, device="cpu")
+    tiled = tenv.serve_control_for(tc, 68, 30, R_WINDOW, window_rounds=32, mesh=m2, device="cpu")
+    assert tiled.mesh is m2 and isinstance(tiled, tctl.ControlFleetRunner)
+    assert tiled is not tenv.serve_control_for(tc, 68, 30, R_WINDOW, window_rounds=32,
+                                               device="cpu")
+    assert tenv.serve_control_for(tc, 68, 30, R_WINDOW, window_rounds=32, device="cpu",
+                                  mesh=pmesh.make_instance_mesh(2, device="cpu")) is tiled
+    assert tctl.ControlFleetRunner(tc, 68, 30, R_WINDOW, 32, mesh=m2, device="cpu").mesh is m2
+    with pytest.raises(NotImplementedError, match="audit_entries"):
+        tctl.audit_entries()
 
 
 def test_controlled_run_argument_errors_equal_jax():

@@ -446,8 +446,13 @@ def test_evolve_rejects_unknown_axis_and_hunt():
         evo.evolve(axis="bogus", device=DEV)
     with pytest.raises(ValueError):
         evo.evolve(axis="fleet", hunt="not-a-cause", device=DEV)
-    with pytest.raises(NotImplementedError, match="evolve mesh= .* is not ported yet"):
-        evo.evolve(axis="fleet", mesh=2, device=DEV)
+    # the lane tile: a population that does not tile the mesh is refused
+    # by JAX's name
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    with pytest.raises(ValueError, match="^3 lanes do not tile over 2 devices$"):
+        evo.evolve(axis="fleet", n_lanes=3, generations=1, verbose=False,
+                   mesh=pmesh.make_instance_mesh(2, device=DEV), device=DEV)
 
 
 def test_certified_needs_certificate(tmp_path):

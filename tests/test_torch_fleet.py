@@ -299,7 +299,8 @@ def test_runner_rejections_match_jax():
 
 @pytest.mark.parametrize("what", ["telemetry", "geometry", "mesh", "regions"])
 def test_unported_runner_options_raise_by_name(what):
-    """``mesh=`` is not ported and raises by name.  The recorder is:
+    """``mesh=`` (the lane tile) pins JAX's refusal of a lane count that
+    does not tile the mesh.  The recorder:
     ``telemetry`` pins JAX's refusal of region maps on a plain runner,
     ``regions`` its refusal of a wrong number of maps.  The padded runner
     is: ``geometry`` pins JAX's refusal of one built off its envelope's
@@ -326,8 +327,16 @@ def test_unported_runner_options_raise_by_name(what):
                 [0, 1], [None] * 2, regions=[None]),
         )
         return
-    with pytest.raises(NotImplementedError, match=what):
-        trun.FleetRunner(cfg, WL, device="cpu", **{what: object()})
+    from tpu_paxos.parallel import mesh as jpmesh
+    from tpu_paxos_torch.parallel import mesh as tpmesh
+
+    _same_error(
+        lambda: jrun.FleetRunner(_cfg(jcfg), WL, mesh=jpmesh.make_instance_mesh(2)).run(
+            [0, 1, 2], [None] * 3),
+        lambda: trun.FleetRunner(cfg, WL, device="cpu",
+                                 mesh=tpmesh.make_instance_mesh(2, device="cpu")).run(
+            [0, 1, 2], [None] * 3),
+    )
 
 
 def test_envelope_cache_identity_and_keying():
@@ -351,15 +360,15 @@ def test_envelope_cache_identity_and_keying():
     # budget and ring-bound changes are different envelopes
     assert tenv.runner_for(cfg(max_rounds=2000, max_delay=2)[1], WL, device="cpu") is not t1
     assert tenv.runner_for(tc, WL, delay_bound=12, device="cpu") is not t1
-    # the same facts as JAX's key (the geometry entry included), without
-    # its mesh entry, and with the device; the recorder flag leads both
+    # the same facts as JAX's key (the geometry and mesh entries
+    # included), and the device; the recorder flag leads both
     key = tenv.envelope_key(tc, WL, None, trun.MAX_EPISODES, 8)
     jkey = jenv.envelope_key(jc, WL, None, jrun.MAX_EPISODES, 8, None)
     assert jkey[0] is False and jkey[9] is None and jkey[-1] is None
-    assert key == jkey[:-1] + (None,)
+    assert key == jkey + (None,)
     tkey = tenv.envelope_key(tc, WL, None, trun.MAX_EPISODES, 8, telemetry=True)
     jtkey = jenv.envelope_key(jc, WL, None, jrun.MAX_EPISODES, 8, None, telemetry=True)
-    assert tkey == jtkey[:-1] + (None,) and tkey != key
+    assert tkey == jtkey + (None,) and tkey != key
     _same_error(lambda: jenv.runner_for(cfg(max_delay=6)[0], WL, delay_bound=4),
                 lambda: tenv.runner_for(cfg(max_delay=6)[1], WL, delay_bound=4, device="cpu"))
     # cache-shared runners refuse implicit inputs
@@ -369,10 +378,19 @@ def test_envelope_cache_identity_and_keying():
                 lambda: t1.run([0], [None], knobs=[tcfg.FaultConfig()]))
     # member_runner_for, serve_fleet_for and serve_control_for are ported
     # (tests/test_torch_member_fleet.py, test_torch_serve_fleet.py,
-    # test_torch_control.py); their mesh tile is not
+    # test_torch_control.py), and so is the lane tile: a tiled runner has
+    # a cache entry of its own, which meshes of one layout share
+    from tpu_paxos_torch.parallel import mesh as tpmesh
+
+    m2 = tpmesh.make_instance_mesh(2, device="cpu")
+    tiled = tenv.runner_for(tc, WL, mesh=m2, device="cpu")
+    assert tiled is not t1 and tiled.mesh is m2
+    assert tenv.runner_for(tc, WL, mesh=tpmesh.make_instance_mesh(2, device="cpu"),
+                           device="cpu") is tiled
     for name in ("serve_control_for", "serve_fleet_for"):
-        with pytest.raises(NotImplementedError, match=f"{name} mesh="):
-            getattr(tenv, name)(tc, 64, 30, 8, window_rounds=32, mesh=object(), device="cpu")
+        fn = getattr(tenv, name)
+        st = fn(tc, 64, 30, 8, window_rounds=32, mesh=m2, device="cpu")
+        assert st.mesh is m2 and st is not fn(tc, 64, 30, 8, window_rounds=32, device="cpu")
     tenv.clear_cache()
     jenv.clear_cache()
 

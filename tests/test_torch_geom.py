@@ -299,11 +299,12 @@ def test_envelope_cache_collapses_over_geometry_and_protocol():
     assert tenv.runner_for(c5, TMPL, geometry=ENV35, device="cpu") is rp
     assert tenv.cache_misses() - before == 1
     assert (rp.cfg.n_nodes, rp.cfg.proposers, rp.geometry) == (5, (0, 1), ENV35)
-    # the same facts as JAX's padded key, less its mesh entry, with the device
+    # the same facts as JAX's padded key, its mesh entry included, and the
+    # device
     bound, jbound = ENV35.bound_cfg(c3), JENV35.bound_cfg(_cfg(jcfg, 3, (0,), max_delay=2))
     key = tenv.envelope_key(bound, TMPL, None, trun.MAX_EPISODES, 8, geometry=ENV35)
     jkey = jenv.envelope_key(jbound, TMPL, None, jrun.MAX_EPISODES, 8, None, geometry=JENV35)
-    assert key == jkey[:-1] + (None,)
+    assert key == jkey + (None,)
     assert tenv.runner_for(c3, TMPL, geometry=ENV35, device="cpu", telemetry=True) is not rp
     tenv.clear_cache()
 

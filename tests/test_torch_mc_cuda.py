@@ -97,3 +97,22 @@ def test_gray_scope_rides_the_quick_envelope_on_the_card(card):
     assert gray["ok"] and quick["ok"]
     for name, lanes in seen.items():
         assert lanes and set(lanes) == {16}, name
+
+
+@pytest.mark.cuda
+def test_full_scope_prefix_on_the_card(card):
+    """``chip_smoke.py``'s former 17c (cut for phase 20's room): the full
+    scope's first two chunks on the card, their verdict bits the prefix of
+    its certificate's."""
+    import importlib.util
+
+    import chip_smoke
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_goldens", os.path.join(ROOT, "scripts", "torch_port_goldens.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    chip_smoke.DEV = str(card)
+    out = chip_smoke.run_mc_full_prefix(script, script.mc_modules(port=True), _mc_gold(),
+                                        chip_smoke._card_line())
+    assert out["wall_s"] > 0

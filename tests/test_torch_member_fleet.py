@@ -5,7 +5,8 @@ for state, verdict for verdict and decision log for decision log; a lane
 equals its single ``ChurnEngine.run``; the on-device verdict reds on each
 crafted violation as JAX's does; the geometry-padded dispatch equals the
 bound-free one (and JAX's padded dispatch); the envelope cache keys as
-JAX's does; ``mesh=`` raises by name."""
+JAX's does; the lane tile (``mesh=``) refuses a lane count that does not
+tile it (tests/test_torch_lane_tile.py holds the tile itself)."""
 
 import numpy as np
 import pytest
@@ -221,11 +222,12 @@ def test_member_envelope_cache_and_key_equal_jax():
                                device="cpu")
     assert b is not a and tenv.cache_misses() - before == 2
     jkey = jenv.member_envelope_key(N, I, 16, 4, 0, 500)
-    assert tenv.member_envelope_key(N, I, 16, 4, 0, 500) == jkey + (None,)
+    # JAX's key, then the lane tile's mesh entry and the device
+    assert tenv.member_envelope_key(N, I, 16, 4, 0, 500) == jkey + (None, None)
     jg = jgeo.GeometryEnvelope(((3, (0,)), (5, (0,))))
     tg = tgeo.GeometryEnvelope(((3, (0,)), (5, (0,))))
     assert tenv.member_envelope_key(5, I, 16, 4, 0, 500, geometry=tg) == (
-        jenv.member_envelope_key(5, I, 16, 4, 0, 500, geometry=jg) + (None,))
+        jenv.member_envelope_key(5, I, 16, 4, 0, 500, geometry=jg) + (None, None))
     g3 = tenv.member_runner_for(3, I, geometry=tg, device="cpu")
     assert tenv.member_runner_for(5, I, geometry=tg, device="cpu") is g3 and g3.n == 5
     _same_error(lambda: jenv.member_runner_for(4, I, geometry=jg),
@@ -253,8 +255,14 @@ def test_lane_shape_validation_equals_jax():
 
 
 def test_unported_member_fleet_surfaces_raise_by_name():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmr.MemberFleetRunner(N, I, mesh=object(), device="cpu")
+    # the lane tile is ported: it refuses a lane count that does not tile
+    # its mesh, by JAX's name
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    tiled = tmr.MemberFleetRunner(N, I, mesh=pmesh.make_instance_mesh(2, device="cpu"),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="^1 lanes do not tile over 2 devices$"):
+        tiled.run([0], [_churns(tct)[0]], [None])
     with pytest.raises(NotImplementedError, match="audit_entries"):
         tmr.audit_entries()
     with pytest.raises(NotImplementedError, match="audit_entries"):

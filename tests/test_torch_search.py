@@ -141,11 +141,17 @@ def test_fleet_cli_prints_the_search_summary(triaged, capsys):
     assert _less_timing(got) == want
 
 
-def test_unported_search_surfaces_raise_by_name():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tsearch.search(n_lanes=2, generations=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        tsearch.main(["--mesh", "2", "--device", "cpu"])
+def test_unported_search_surfaces_raise_by_name(capsys):
+    # the lane tile is ported: search refuses lanes that do not tile the
+    # mesh by JAX's name, and the CLI pads the lane count to tile it
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    with pytest.raises(ValueError, match="^3 lanes do not tile over 2 devices$"):
+        tsearch.search(n_lanes=3, generations=1, verbose=False,
+                       mesh=pmesh.make_instance_mesh(2, device="cpu"), device="cpu")
+    assert tsearch.main(["--mesh", "2", "--lanes", "1", "--generations", "0", "--quiet",
+                         "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["lanes"] == 2
     # the membership samplers are ported (test_member_samplers_equal_jax)
     assert tsearch.churn_targets(None) == set()
 

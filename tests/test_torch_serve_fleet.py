@@ -7,8 +7,8 @@ per-region series equal the single harness's host twin; the on-device
 SLO verdict is a superset of the host judge and equals JAX's exactly;
 flagged lanes are confirmed and named per region as JAX names them; the
 envelope cache keys and refuses as JAX's; lane validation messages are
-JAX's.  ``mesh=`` raises by name (the controller is
-tests/test_torch_control.py's).
+JAX's.  The lane tile (``mesh=``) is tests/test_torch_lane_tile_serve.py's
+(the controller is tests/test_torch_control.py's).
 
 The module shares one JAX fleet shape (2 lanes, S = 2, K = 10) and one
 JAX ``serve_run`` shape, as test_serve_fleet.py does.
@@ -277,18 +277,21 @@ def test_envelope_cache_identity_and_schedule_rejection():
     with pytest.raises(ValueError) as je:
         jenv.serve_fleet_for(jsched, c, 30, R_WINDOW, window_rounds=32)
     assert str(te.value) == str(je.value)
-    for call, name in (
-        (lambda: tenv.serve_fleet_for(tc, c, 30, R_WINDOW, window_rounds=32, mesh=object(),
-                                      device="cpu"), "serve_fleet_for mesh="),
-        (lambda: tenv.serve_control_for(tc, c, 30, R_WINDOW, window_rounds=32, mesh=object(),
-                                        device="cpu"), "serve_control_for mesh="),
-        (lambda: tfl.ServeFleetRunner(tc, c, 30, R_WINDOW, 32, mesh=object(), device="cpu"),
-         "ServeFleetRunner mesh="),
-        (lambda: tfl.sweep_fleet_load(tc, 8, [1], [1000], mesh=object(), device="cpu"),
-         "serve_fleet_run mesh="),
-    ):
-        with pytest.raises(NotImplementedError, match=name):
-            call()
+    # the lane tile is ported: a tiled runner has a cache entry of its
+    # own, which meshes of one layout share, and a lane count that does
+    # not tile the mesh is refused by JAX's name
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    m2 = pmesh.make_instance_mesh(2, device="cpu")
+    for fn in (tenv.serve_fleet_for, tenv.serve_control_for):
+        tiled = fn(tc, c, 30, R_WINDOW, window_rounds=32, mesh=m2, device="cpu")
+        assert tiled.mesh is m2 and tiled is not fn(tc, c, 30, R_WINDOW, window_rounds=32,
+                                                    device="cpu")
+        assert fn(tc, c, 30, R_WINDOW, window_rounds=32, device="cpu",
+                  mesh=pmesh.make_instance_mesh(2, device="cpu")) is tiled
+    assert tfl.ServeFleetRunner(tc, c, 30, R_WINDOW, 32, mesh=m2, device="cpu").mesh is m2
+    with pytest.raises(ValueError, match="^1 lanes do not tile over 2 devices$"):
+        tfl.sweep_fleet_load(tc, 8, [1], [1000], mesh=m2, device="cpu")
     tenv.clear_cache()
 
 

@@ -123,3 +123,14 @@ def test_stress_sweep_sharded_on_the_card_equals_jax(card):
     assert s["platform"] == "cuda"
     assert {k: v for k, v in s.items() if k not in ("seconds", "platform")} == \
         _goldens()["stress_sharded"]["summary"]
+
+
+@pytest.mark.cuda
+def test_mesh8_general_engine_cli_on_the_card(card):
+    """``chip_smoke.py``'s former 19c ``4 4 10 ... --mesh 8`` CLI (cut for
+    phase 20's room): its stdout equals the JAX CLI's golden."""
+    import chip_smoke
+
+    chip_smoke.DEV = str(card)
+    started = chip_smoke.start_sharded_clis(_goldens(), ROOT, keys=("cli_4_4_10_mesh8",))
+    chip_smoke.finish_sharded_clis(_goldens(), started, chip_smoke._card_line())

@@ -45,7 +45,9 @@ an open-loop value stream (``serve/harness.py``) and ``serve --fleet
 [--lanes N] ...`` a fleet of tenant streams (``serve/fleet.py``), each
 printing one JSON summary line; ``--control``, ``--control-ab`` and
 ``--save-artifact`` arm the admission controller (``serve/control.py``),
-whose artifacts ``repro`` replays; ``serve --fleet --mesh`` exits 2.
+whose artifacts ``repro`` replays; ``serve --fleet --mesh N [--dcn-hosts
+H]`` tiles the fleet's lanes over an ``N``-rank mesh (the lane count must
+tile it).
 
 ``python -m tpu_paxos_torch mc [--scope quick,gray,churn,control]
 [--json] [--triage-dir D] [--device {cuda,cpu}]`` model-checks the
@@ -56,8 +58,9 @@ artifacts (``analysis/mc_control.reproduce``).
 ``python -m tpu_paxos_torch evolve [--axis {fleet,member,serve}]
 [--lanes N] [--generations G] [--hunt CAUSE] [--certified] [--bench-out
 F] [--device {cuda,cpu}] ...`` runs the certified selection loop
-(``fleet/evolve.py``) and prints its one JSON summary line; ``--mesh``
-exits 2.
+(``fleet/evolve.py``) and prints its one JSON summary line.  ``fleet
+--mesh N`` and ``evolve --mesh N`` tile each generation's lanes over an
+``N``-rank mesh, the lane count padded to tile it.
 """
 
 from __future__ import annotations

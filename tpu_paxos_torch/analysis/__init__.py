@@ -1,6 +1,7 @@
 """The port's analysis tier: artifact schema validation, lane chunking,
-the bounded triage-dump namespace and the model checker (``modelcheck``
-with its churn and controller siblings ``mc_member`` and ``mc_control``).
+the bounded triage-dump namespace, the model checker (``modelcheck``
+with its churn and controller siblings ``mc_member`` and ``mc_control``)
+and the shard certificate's lane drivers (``shard_audit``).
 
 Submodules load lazily, as the JAX package's ``analysis`` does: the
 schema, chunking, triage and the checker's codec half import no torch.
@@ -8,7 +9,7 @@ schema, chunking, triage and the checker's codec half import no torch.
 
 _SUBMODULES = (
     "artifact_schema", "chunking", "mc_control", "mc_member",
-    "modelcheck", "triage",
+    "modelcheck", "shard_audit", "triage",
 )
 
 

@@ -221,7 +221,9 @@ def _init_lanes(cfg: SimConfig, pend, gate, tail, roots, device,
         return torch.zeros((lanes, *sh), dtype=dtype, device=device)
 
     def rows(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+        # a copy: a one-lane block of a broadcast template is a read-only
+        # view the state must not share
+        return torch.from_numpy(np.array(x, np.int32, order="C")).to(device)
 
     return SimState(
         t=zeros(),

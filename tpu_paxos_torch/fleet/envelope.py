@@ -24,7 +24,9 @@ under the bound, with any protocol mix, shares one padded runner.
 
 The serve fleet (``serve_fleet_for``), the controlled serve fleet
 (``serve_control_for``) and the membership fleet (``member_runner_for``)
-memoize their runners in the same cache.
+memoize their runners in the same cache.  Every key carries the lane
+tile's mesh (:func:`_mesh_key`, as JAX's): a tiled and an untiled runner
+never share an entry.
 """
 
 from __future__ import annotations
@@ -76,6 +78,24 @@ def memo(key, build, cache: dict | None = None):
     return obj
 
 
+def _mesh_key(mesh):
+    """The mesh part of a cache key: its shape, axis names and rank
+    devices (None untiled).  Two meshes of one layout share a runner,
+    which dispatches on its latest caller's mesh (:func:`_on_mesh`)."""
+    if mesh is None:
+        return None
+    return (mesh.shape, tuple(mesh.axis_names), tuple(str(d) for d in mesh.devices))
+
+
+def _on_mesh(runner, mesh):
+    """``runner`` set to dispatch on the caller's ``mesh`` (of the layout
+    its key names), so that each run's per-rank launch counts land on
+    the mesh its caller passed and reads."""
+    if mesh is not None:
+        runner.mesh = mesh
+    return runner
+
+
 def envelope_key(
     cfg: SimConfig,
     workload,
@@ -85,12 +105,13 @@ def envelope_key(
     device=None,
     telemetry: bool = False,
     geometry=None,
+    mesh=None,
 ) -> tuple:
     """The hashable envelope of a (cfg, workload-template) pair: exactly
     the facts a runner fixes when it is built, including whether the
     flight recorder is armed, the seeded-wedge flag
-    (``core/sim.seeded_wedge``: an armed build leaves the takeover out)
-    and the device the runner's states live on.
+    (``core/sim.seeded_wedge``: an armed build leaves the takeover out),
+    the lane tile's mesh and the device the runner's states live on.
 
     Under a ``geometry`` envelope ``cfg`` must already be the bound cfg:
     the menu stands for the per-geometry facts and the protocol knobs
@@ -122,6 +143,7 @@ def envelope_key(
         tuple(int(v) for v in expected),
         tuple(int(o) for o in owner),
         simm.gates_vid_cap(wl, gates),
+        _mesh_key(mesh),
         None if device is None else str(device),
     )
 
@@ -155,9 +177,10 @@ def runner_for(
     ``geometry.bound_cfg``), the workload template pads to the proposer
     bound, and every such geometry and protocol mix shares the one
     runner.  Dispatch with ``run(geometry=(n_nodes, proposers),
-    protocol=...)``."""
-    if mesh is not None:
-        raise NotImplementedError("runner_for mesh= is not ported yet")
+    protocol=...)``.
+
+    ``mesh`` hands back the runner that tiles the lane axis over its
+    ranks (``FleetRunner(mesh=)``), keyed apart from the untiled one."""
     if delay_bound is None:
         delay_bound = max(cfg.faults.max_delay, MAX_DELAY_BOUND)
     if cfg.faults.max_delay > delay_bound:
@@ -181,9 +204,9 @@ def runner_for(
         workload, gates = frun._pad_geometry_workload(
             workload, gates, geometry.bound_proposers
         )
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     key = envelope_key(cfg, workload, gates, max_episodes, delay_bound, dev,
-                       telemetry=telemetry, geometry=geometry)
+                       telemetry=telemetry, geometry=geometry, mesh=mesh)
 
     def build():
         base = dataclasses.replace(
@@ -194,12 +217,12 @@ def runner_for(
         )
         runner = frun.FleetRunner(
             base, workload, gates, max_episodes=max_episodes, device=dev,
-            telemetry=telemetry, geometry=geometry,
+            telemetry=telemetry, geometry=geometry, mesh=mesh,
         )
         runner.explicit_inputs_only = True
         return runner
 
-    return memo(key, build)
+    return _on_mesh(memo(key, build), mesh)
 
 
 def serve_envelope_key(
@@ -215,8 +238,8 @@ def serve_envelope_key(
     facts (from the serve driver's one list,
     ``serve/driver.engine_static_key``, shared with its ``window_for``),
     the queue capacity and ingest-table vid bound, the admission-window
-    span, the windowed-plane bucket width, the mesh (None: the port has
-    no mesh tile yet) and the device.  Lane count, windows per dispatch
+    span, the windowed-plane bucket width, the lane tile's mesh and the
+    device.  Lane count, windows per dispatch
     and admit width are call shapes, not key parts; seeds, arrivals and
     SLOs are per-dispatch data."""
     import importlib
@@ -224,8 +247,6 @@ def serve_envelope_key(
     # imported late: the serve stack stays out of the import closure of
     # the triage modules that use this cache
     sdrv = importlib.import_module("tpu_paxos_torch.serve.driver")
-    if mesh is not None:
-        raise NotImplementedError("serve_envelope_key mesh= is not ported yet")
     return (
         "serve",
         sdrv.engine_static_key(cfg),
@@ -233,7 +254,7 @@ def serve_envelope_key(
         int(vid_bound),
         int(rounds_per_window),
         int(window_rounds),
-        None,
+        _mesh_key(mesh),
         None if device is None else str(device),
     )
 
@@ -256,8 +277,6 @@ def serve_fleet_for(
     import importlib
 
     sflt = importlib.import_module("tpu_paxos_torch.serve.fleet")
-    if mesh is not None:
-        raise NotImplementedError("serve_fleet_for mesh= is not ported yet")
     if cfg.faults.schedule is not None:
         # checked here: the key ignores the schedule, so a
         # schedule-bearing cfg would otherwise hit a warm cache and
@@ -266,13 +285,13 @@ def serve_fleet_for(
             "serve engines take no fault schedule (correlated-fault "
             "serving rides the stress fleet envelope, not this driver)"
         )
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     key = serve_envelope_key(
-        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, mesh=mesh, device=dev,
     )
-    return memo(key, lambda: sflt.ServeFleetRunner(
-        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
-    ))
+    return _on_mesh(memo(key, lambda: sflt.ServeFleetRunner(
+        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, mesh=mesh, device=dev,
+    )), mesh)
 
 
 def serve_control_for(
@@ -293,24 +312,22 @@ def serve_control_for(
     import importlib
 
     sctl = importlib.import_module("tpu_paxos_torch.serve.control")
-    if mesh is not None:
-        raise NotImplementedError("serve_control_for mesh= is not ported yet")
     if cfg.faults.schedule is not None:
         # checked here like serve_fleet_for: the key ignores the schedule
         raise ValueError(
             "serve engines take no fault schedule (correlated-fault "
             "serving rides the stress fleet envelope, not this driver)"
         )
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     key = (
         "serve_control",
         *serve_envelope_key(
-            cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
+            cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, mesh=mesh, device=dev,
         )[1:],
     )
-    return memo(key, lambda: sctl.ControlFleetRunner(
-        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, device=dev,
-    ))
+    return _on_mesh(memo(key, lambda: sctl.ControlFleetRunner(
+        cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, mesh=mesh, device=dev,
+    )), mesh)
 
 
 def member_envelope_key(
@@ -322,11 +339,12 @@ def member_envelope_key(
     max_rounds: int,
     geometry=None,
     device=None,
+    mesh=None,
 ) -> tuple:
     """The hashable envelope of a membership fleet: the static facts a
     member runner fixes (cluster geometry, churn-table event capacity,
     fault-schedule episode capacity, the i.i.d. crash rate, the round
-    budget) and the device its states live on.  Seeds, churn scenarios
+    budget), the lane tile's mesh and the device its states live on.  Seeds, churn scenarios
     and episode mixes are per-dispatch inputs.  Under a ``geometry``
     envelope the node count collapses to the menu."""
     return (
@@ -337,6 +355,7 @@ def member_envelope_key(
         int(max_episodes),
         int(crash_rate),
         int(max_rounds),
+        _mesh_key(mesh),
         None if device is None else str(device),
     )
 
@@ -350,9 +369,11 @@ def member_runner_for(
     crash_rate: int = 0,
     max_rounds: int = 2000,
     geometry=None,
+    mesh=None,
     device="cuda",
 ):
     """The shared membership-fleet runner for this envelope on ``device``
+    (on ``mesh``'s ranks, its lane axis tiled, when given)
     (``fleet/member_runner.MemberFleetRunner``), memoized in the cache the
     sim envelopes share.  With a ``geometry`` envelope ``n_nodes`` may be
     any menu node count (it normalizes to the bound and is declared per
@@ -366,13 +387,13 @@ def member_runner_for(
     if geometry is not None:
         geometry.index_of_nodes(n_nodes)  # named menu/bound rejection
         n_nodes = geometry.bound_nodes
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     key = member_envelope_key(
         n_nodes, n_instances, max_events, max_episodes, crash_rate,
-        max_rounds, geometry=geometry, device=dev,
+        max_rounds, geometry=geometry, device=dev, mesh=mesh,
     )
-    return memo(key, lambda: mrun.MemberFleetRunner(
+    return _on_mesh(memo(key, lambda: mrun.MemberFleetRunner(
         n_nodes, n_instances, max_events=max_events,
         max_episodes=max_episodes, crash_rate=crash_rate,
-        max_rounds=max_rounds, geometry=geometry, device=dev,
-    ))
+        max_rounds=max_rounds, geometry=geometry, mesh=mesh, device=dev,
+    )), mesh)

@@ -69,8 +69,16 @@ Where the port differs:
 - **An explicit device.**  :func:`evolve` takes ``device`` (default
   ``"cuda"``) and the CLI ``--device {cuda,cpu}`` (in place of
   ``--backend``); there is no fallback.  ``--lanes 0`` takes
-  ``runner.default_lane_count(device)``.  ``mesh=`` and ``--mesh`` (the
-  lane tile over devices) are not ported yet and refuse by name.
+  ``runner.default_lane_count(device)``.  ``mesh=`` and ``--mesh N``
+  tile each generation's lanes over a mesh's ranks; the CLI pads the
+  lane count to tile it, as JAX's does.
+- **The lane tile on every axis.**  JAX's :func:`evolve` tiles only the
+  fleet axis and runs the member and serve axes untiled whatever the
+  mesh.  The port tiles all three: the member fleet's lanes, and each
+  weather preset's group of serve lanes (``serve/breach.evaluate``), lie
+  over the mesh's ranks, so a lane count or a weather group that does
+  not tile the mesh raises the tile's ``ValueError`` where JAX's runs
+  untiled.  Where they tile, every lane's results are JAX's.
 """
 
 from __future__ import annotations
@@ -363,7 +371,7 @@ def _budget_lanes(axis: str, cert_path: str | None) -> tuple:
 def _evolve_fleet(
     n_lanes, generations, base_seed, alphabet, hunt, certified,
     budget, triage_dir, decision_round_max, n_nodes, n_prop,
-    fault_kw, max_wedges, logger, device,
+    fault_kw, max_wedges, logger, device, mesh=None,
 ):
     from tpu_paxos_torch.core.sim import IDLE_RESTART_ROUNDS
     from tpu_paxos_torch.fleet import envelope as env
@@ -390,7 +398,7 @@ def _evolve_fleet(
     # the runner is built here: generation 0's count starts before it
     misses = env.cache_misses()
     runner = env.runner_for(
-        cfg, workload, gates,
+        cfg, workload, gates, mesh=mesh,
         max_episodes=max(alphabet.max_episodes, frun.MAX_EPISODES),
         telemetry=True, device=device,
     )
@@ -599,7 +607,7 @@ def _evolve_fleet(
 def _evolve_member(
     n_lanes, generations, base_seed, alphabet, hunt, certified,
     budget, triage_dir, n_nodes, n_instances, max_rounds,
-    max_wedges, logger, device,
+    max_wedges, logger, device, mesh=None,
 ):
     from tpu_paxos_torch.fleet import envelope as env
 
@@ -609,7 +617,7 @@ def _evolve_member(
     runner = env.member_runner_for(
         n_nodes, n_instances,
         max_episodes=max(alphabet.max_episodes, 2),
-        max_rounds=max_rounds, device=device,
+        max_rounds=max_rounds, mesh=mesh, device=device,
     )
     horizon = min(alphabet.horizon, max_rounds)
     alphabet = dataclasses.replace(alphabet, horizon=horizon)
@@ -764,7 +772,7 @@ def _serve_workload(n_prop: int) -> list:
 
 def _evolve_serve(
     n_lanes, generations, base_seed, hunt, triage_dir,
-    max_wedges, logger, latency_rounds, budget_milli, device,
+    max_wedges, logger, latency_rounds, budget_milli, device, mesh=None,
 ):
     from tpu_paxos_torch.fleet import envelope as env
     from tpu_paxos_torch.serve import breach as brch
@@ -799,7 +807,7 @@ def _evolve_serve(
         misses = env.cache_misses()
         ev = brch.evaluate(
             cfg, pop, workload, slo=slo, admit_width=admit_width,
-            device=device,
+            mesh=mesh, device=device,
         )
         compiles_per_gen.append(env.cache_misses() - misses)
         lanes_total += n_lanes
@@ -934,16 +942,13 @@ def evolve(
     run is ok IFF the hunt found (and, on the fleet axis, shrank) a
     wedge within the certificate-derived lane budget, the artifact
     replays byte-identically, and warm compiles are zero.  Runs on
-    ``device``; ``mesh`` (the lane tile over devices) is not ported
-    yet."""
+    ``device``, or with ``mesh`` on its ranks: each generation's lanes
+    tile the mesh (a lane count, or on the serve axis a weather group's,
+    that does not tile it raises the tile's ``ValueError``, as JAX's)."""
     from tpu_paxos_torch.telemetry import diagnose as diag
     from tpu_paxos_torch.utils import device as devm
     from tpu_paxos_torch.utils import log as logm
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "evolve mesh= (the lane tile over devices) is not ported yet"
-        )
     if axis not in ("fleet", "member", "serve"):
         raise ValueError(f"unknown axis {axis!r}")
     if hunt is not None:
@@ -963,25 +968,25 @@ def evolve(
             f"--certified needs a '{BUDGET_SCOPES.get(axis)}' mc "
             "certificate (run make mc-quick / the churn scope first)"
         )
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     t0 = time.perf_counter()  # paxlint: allow[DET001] lanes/sec metric only; never reaches artifacts
     if axis == "fleet":
         r = _evolve_fleet(
             n_lanes, generations, base_seed, alphabet, hunt,
             certified, budget, triage_dir, decision_round_max,
-            n_nodes, n_prop, fault_kw, max_wedges, logger, dev,
+            n_nodes, n_prop, fault_kw, max_wedges, logger, dev, mesh,
         )
     elif axis == "member":
         r = _evolve_member(
             n_lanes, generations, base_seed, alphabet, hunt,
             certified, budget, triage_dir, member_nodes,
-            member_instances, member_rounds, max_wedges, logger, dev,
+            member_instances, member_rounds, max_wedges, logger, dev, mesh,
         )
     else:
         r = _evolve_serve(
             n_lanes, generations, base_seed, hunt, triage_dir,
             max_wedges, logger, serve_latency_rounds,
-            serve_budget_milli, dev,
+            serve_budget_milli, dev, mesh,
         )
     seconds = time.perf_counter() - t0  # paxlint: allow[DET001] lanes/sec metric only; never reaches artifacts
     compiles = r["compiles_per_generation"]
@@ -1109,19 +1114,20 @@ def main(argv=None) -> int:
                     "committed analysis/mc_certificate.json)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="tile the lane axis over this many devices "
-                    "(not ported yet: exits 2)")
+                    help="tile the lane axis over this many ranks (the "
+                    "lane count is padded to tile it)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    if args.mesh:
-        print(
-            "tpu_paxos_torch: 'evolve --mesh' is not ported yet",
-            file=sys.stderr,
-        )
-        return 2
     from tpu_paxos_torch.fleet import runner as frun
 
+    mesh = None
+    if args.mesh:
+        from tpu_paxos_torch.parallel import mesh as pm
+
+        mesh = pm.make_instance_mesh(args.mesh, device=args.device)
     n_lanes = args.lanes or frun.default_lane_count(args.device)
+    if mesh is not None:
+        n_lanes += (-n_lanes) % mesh.size
     summary = evolve(
         axis=args.axis,
         n_lanes=n_lanes,
@@ -1134,6 +1140,7 @@ def main(argv=None) -> int:
         n_nodes=args.nodes,
         n_prop=args.proposers,
         max_wedges=args.max_wedges,
+        mesh=mesh,
         verbose=not args.quiet,
         gray=args.gray,
         wan=args.wan,

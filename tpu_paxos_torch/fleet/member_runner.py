@@ -29,8 +29,14 @@ Lane for lane the fleet is decision-log identical to single
 ``ChurnEngine.run`` executions of the same (churn, schedule, seed): the
 lane-batched threefry draws equal the per-lane ones.
 
-Not ported yet: ``mesh=`` (a lane tile over several cards) and
-``audit_entries`` (the JAX IR tooling); each raises naming itself.
+A ``mesh=`` runner tiles the lane axis over the mesh's ranks as the sim
+fleet's does (``fleet/runner.py``): rank ``r`` runs its block of lanes on
+its device from the broadcast initial state, which every rank builds
+whole (JAX's replicated in-spec), and the report gathers the ranks'
+states and verdicts in lane order.
+
+Not ported yet: ``audit_entries`` (the JAX IR tooling); it raises naming
+itself.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from tpu_paxos_torch.fleet import runner as frun
 from tpu_paxos_torch.fleet import schedule_table as stm
 from tpu_paxos_torch.membership import churn_table as ctm
 from tpu_paxos_torch.membership import engine as meng
+from tpu_paxos_torch.parallel import mesh as pmesh
 from tpu_paxos_torch.utils import device as devm
 from tpu_paxos_torch.utils import prng
 
@@ -154,15 +161,13 @@ class MemberFleetRunner:
         geometry=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("MemberFleetRunner mesh= is not ported yet")
         if geometry is not None and n_nodes != geometry.bound_nodes:
             raise ValueError(
                 "a geometry-padded member fleet must be built at the "
                 f"envelope node bound ({geometry.bound_nodes}), got "
                 f"n_nodes={n_nodes}"
             )
-        self.dev = devm.resolve(device)
+        self.dev = devm.resolve(device) if mesh is None else mesh.devices[0]
         self.geometry = geometry
         self.n = n_nodes
         self.i = n_instances
@@ -172,11 +177,11 @@ class MemberFleetRunner:
         self.crash_rate = int(crash_rate)
         self.max_rounds = int(max_rounds)
         self.mesh = mesh
-        # the round and the whole-run loop ChurnEngine.run drives
-        self._round = meng._build_round(
-            n_nodes, n_instances, self.c, crash_rate,
-            runtime_schedule=True, geometry=geometry, device=self.dev,
-        )
+        # the round the whole-run loop of ChurnEngine.run drives
+        self._rounds = pmesh.per_device(
+            [self.dev] if mesh is None else mesh.devices,
+            lambda dev: meng._build_round(n_nodes, n_instances, self.c, crash_rate,
+                                          runtime_schedule=True, geometry=geometry, device=dev))
 
     def run(self, seeds, churns, schedules, n_nodes=None) -> MemberFleetReport:
         """One fleet dispatch: ``seeds[i]``, ``churns[i]`` (ChurnSchedule
@@ -204,6 +209,7 @@ class MemberFleetRunner:
         n_lanes = len(seeds)
         if len(churns) != n_lanes or len(schedules) != n_lanes:
             raise ValueError("one churn + one schedule per lane required")
+        pmesh.check_lanes(self.mesh, n_lanes)
         for s in schedules:
             meng._check_member_schedule(s)
         # the single-run engine's capacity proof, per lane
@@ -214,15 +220,13 @@ class MemberFleetRunner:
             )
         ctabs = ctm.encode_churn_batch(churns, self.n, self.max_events)
         ftabs = stm.encode_batch(schedules, self.n, self.max_episodes)
-        roots = prng.root_keys(seeds)
-        st0 = meng._init_lanes(self.n, self.i, self.c, n_lanes, self.dev)
+        lane_in = (prng.root_keys(seeds), ctabs, ftabs,
+                   self.max_rounds + np.asarray(ftabs.horizon, np.int64))
         t0 = time.perf_counter()
-        final, cur, done = meng._run_churn_lanes(
-            self._round, roots, st0, ctabs, ftabs,
-            self.max_rounds + np.asarray(ftabs.horizon, np.int64), gidx=gidx,
-        )
-        verdict, inj = devm.to_host(
-            member_lane_verdict(final, meng._device_table(ctabs, self.dev), done), _Injected(cur))
+        outs = pmesh.on_lanes(self.mesh, "member", lambda _r, dev, blk: self._dispatch(dev, blk, gidx),
+                              self.dev, lane_in)
+        final = pmesh.gather_lanes(self.mesh, "member", [o[0] for o in outs])
+        verdict, inj = pmesh.gather_lanes(self.mesh, "member", [o[1] for o in outs])
         seconds = time.perf_counter() - t0  # the verdict copy is the sync
         return MemberFleetReport(
             n_nodes=self.n if self.geometry is None else int(n_nodes),
@@ -236,6 +240,64 @@ class MemberFleetRunner:
             seconds=seconds,
             iterations=int(verdict.rounds.max()) if n_lanes else 0,
         )
+
+    def _dispatch(self, dev, lane_in, gidx):
+        """One block of lanes on ``dev`` from the broadcast initial state:
+        ``(final states, (host verdict, host injected counts))``."""
+        roots, ctabs, ftabs, budgets = lane_in
+        st0 = meng._init_lanes(self.n, self.i, self.c, roots.shape[0], dev)
+        final, cur, done = meng._run_churn_lanes(
+            self._rounds[str(dev)], roots, st0, ctabs, ftabs, budgets, gidx=gidx)
+        return final, tuple(devm.to_host(
+            member_lane_verdict(final, meng._device_table(ctabs, dev), done), _Injected(cur)))
+
+
+def _audit_scenarios(n_lanes: int):
+    """JAX's two canonical (churn, schedule) pairs of the member audit,
+    cycled over the lane count."""
+    from tpu_paxos_torch.core import faults as fltm
+
+    churns = [
+        ctm.ChurnSchedule((
+            ctm.ChurnEvent(vid=100),
+            ctm.ChurnEvent(vid=meng.change_vid(1, meng.ADD_ACCEPTOR), wait=ctm.WAIT_CHOSEN),
+        )),
+        ctm.ChurnSchedule((
+            ctm.ChurnEvent(vid=200),
+            ctm.ChurnEvent(vid=201, wait=ctm.WAIT_CHOSEN),
+            ctm.ChurnEvent(vid=meng.change_vid(2, meng.ADD_ACCEPTOR), wait=ctm.WAIT_APPLIED),
+        )),
+    ]
+    scheds = [
+        fltm.FaultSchedule((fltm.pause(2, 5, 1),)),
+        fltm.FaultSchedule((fltm.crash(8, 2),)),
+    ]
+    return [churns[i % 2] for i in range(n_lanes)], [scheds[i % 2] for i in range(n_lanes)]
+
+
+def shard_parity(n_devices: int, dcn_hosts: int = 1, device="cuda") -> dict:
+    """The certificate's ``member.fleet_lanes`` driver (JAX's
+    ``audit_entries`` ``shard_parity``): one 8-lane member-fleet dispatch
+    (3 nodes, 8 instances, crash rate 500, 64 rounds) on an
+    ``n_devices``-rank tile; per-lane verdict nibbles
+    (quorum|catchup|coverage|completed) and decision-log sha256."""
+    import hashlib
+
+    mesh = frun._parity_mesh(n_devices, dcn_hosts, device)
+    runner = MemberFleetRunner(3, 8, max_events=4, max_episodes=2, crash_rate=500,
+                               max_rounds=64, mesh=mesh, device=device)
+    churns, scheds = _audit_scenarios(8)
+    rep = runner.run(list(range(8)), churns, scheds)
+    v = rep.verdict
+    return {
+        "verdicts": "".join(
+            format((int(bool(v.quorum[i])) << 3) | (int(bool(v.catchup[i])) << 2)
+                   | (int(bool(v.coverage[i])) << 1) | int(bool(v.completed[i])), "x")
+            for i in range(rep.n_lanes)
+        ),
+        "lane_logs": [hashlib.sha256(rep.lane_log(i).encode()).hexdigest()
+                      for i in range(rep.n_lanes)],
+    }
 
 
 def audit_entries():

@@ -25,6 +25,15 @@ the envelope's bound and serves every true geometry of its menu: each
 ``run(geometry=(n_nodes, proposers), protocol=...)`` dispatch names its
 true geometry and protocol knobs, and its lanes make the decisions of
 the bound-free runner of that geometry.
+
+A ``mesh=`` runner (``parallel/mesh.Mesh``) tiles the lane axis over the
+mesh's ranks, as JAX's ``shard_map`` over ``instance_spec(mesh)`` does:
+rank ``r`` runs lanes ``[r L / D, (r + 1) L / D)`` on its device to its
+own lanes' fixed point (lanes are independent: no collective), and the
+report gathers the ranks' states and verdicts in lane order.  A rank
+runs its whole loop in one turn of ``Mesh.run`` (the turn passes in
+collectives, and the tile makes none), so on one card the ranks' rounds
+run one rank after another.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from tpu_paxos_torch.core import sim as simm
 from tpu_paxos_torch.core import values as val
 from tpu_paxos_torch.fleet import schedule_table as stm
 from tpu_paxos_torch.fleet import verdict as vdt
+from tpu_paxos_torch.parallel import mesh as pmesh
 from tpu_paxos_torch.utils import device as devm
 from tpu_paxos_torch.utils import prng
 
@@ -108,6 +118,8 @@ class FleetReport:
     #: (``telemetry/recorder.WindowSummary``, bucket width
     #: ``recorder.WINDOW_ROUNDS``); None when recorder-free
     windows: object = None
+    #: a tiled dispatch's round calls on each rank (empty untiled)
+    rank_iterations: list = dataclasses.field(default_factory=list)
 
     @property
     def lanes_per_sec(self) -> float:
@@ -168,8 +180,6 @@ class FleetRunner:
         geometry=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("FleetRunner mesh= is not ported yet")
         if cfg.faults.schedule is not None:
             raise ValueError(
                 "fleet base cfg must not bake a schedule; schedules "
@@ -191,7 +201,10 @@ class FleetRunner:
                 workload, gates, geometry.bound_proposers
             )
         self.geometry = geometry
-        self.device = devm.resolve(device)
+        self.mesh = mesh
+        # a tiled runner's states live on its ranks' devices; the report
+        # gathers them on the first
+        self.device = devm.resolve(device) if mesh is None else mesh.devices[0]
         self.cfg = cfg
         self.workload = [np.asarray(w, np.int32) for w in workload]
         self.gates = gates
@@ -220,12 +233,18 @@ class FleetRunner:
             from tpu_paxos_torch.telemetry import recorder as telem
 
             window_rounds = telem.WINDOW_ROUNDS
-        self._round = simm.build_engine(
-            cfg, c, vid_cap=self._gate_vid_cap, device=self.device,
+        self._rounds = pmesh.per_device(self.devices, lambda dev: simm.build_engine(
+            cfg, c, vid_cap=self._gate_vid_cap, device=dev,
             runtime_schedule=True, runtime_knobs=True,
             telemetry=telemetry, window_rounds=window_rounds,
             geometry=geometry, runtime_protocol=geometry is not None,
-        )
+        ))
+
+    @property
+    def devices(self) -> list:
+        """The devices the dispatch runs on: the runner's, or its mesh's
+        ranks'."""
+        return [self.device] if self.mesh is None else self.mesh.devices
 
     def _pad_vtab(self, exp: np.ndarray, own: np.ndarray):
         """A lane's expected/owner arrays padded to the envelope's table
@@ -466,6 +485,7 @@ class FleetRunner:
         n_lanes = len(seeds)
         if len(schedules) != n_lanes:
             raise ValueError("one schedule per lane required")
+        pmesh.check_lanes(self.mesh, n_lanes)
         tabs = stm.encode_batch(schedules, self.cfg.n_nodes, self.max_episodes)
         kn, fault_cfgs = self._knob_arrays(n_lanes, knobs)
         # a gray episode on a lane whose declared bound is 0 would clamp
@@ -505,36 +525,21 @@ class FleetRunner:
                     else np.asarray(r, np.int32).reshape(a)
                     for r in regions
                 ])
-        budgets = self.cfg.max_rounds + tabs.horizon.astype(np.int64)
-        dev = self.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        states = simm.init_lanes(self.cfg, pend, gate, tail, roots, device=dev,
-                                 geometry=self.geometry, geom=gm, pknobs=pkn)
-        gp = dict(geom=gm, pknobs=pkn)
-        if self.telemetry:
-            from tpu_paxos_torch.telemetry import recorder as telem
-
-            c = self.cfg
-            tele0 = (
-                telem.init_telemetry(c.n_instances, len(c.proposers), c.n_nodes,
-                                     lanes=n_lanes, device=dev),
-                telem.init_windows(c.n_nodes, lanes=n_lanes, device=dev),
-            )
-            final, tele, iters = simm.run_lanes(
-                self._round, roots, states, budgets, tabs, kn, tele=tele0, **gp)
         else:
-            final, iters = simm.run_lanes(self._round, roots, states, budgets, tabs, kn, **gp)
-        trees = [vdt.lane_verdict(
-            self.cfg, final,
-            torch.from_numpy(np.ascontiguousarray(exp)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(own)).to(dev),
-            self.vid_bound, geom=gm,
-        )]
-        if self.telemetry:
-            trees += telem.close(tele, final, tabs.horizon, rmaps, telem.WINDOW_ROUNDS)
-        host = devm.to_host(*trees)  # one copy: the sync
+            rmaps = None
+        budgets = self.cfg.max_rounds + tabs.horizon.astype(np.int64)
+        lane_in = (roots, pend, gate, tail, exp, own, tabs, kn, budgets, rmaps)
+        gp = dict(geom=gm, pknobs=pkn)
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        outs = pmesh.on_lanes(self.mesh, "fleet", lambda _r, dev, blk: self._dispatch(dev, blk, gp),
+                              self.device, lane_in)
+        final = pmesh.gather_lanes(self.mesh, "fleet", [o[0] for o in outs])
+        host = pmesh.gather_lanes(self.mesh, "fleet", [o[1] for o in outs])
+        iters = max(o[2] for o in outs)
+        rank_iters = [] if self.mesh is None else [o[2] for o in outs]
         verdict = host[0]
         tsum, wsum = (host[1], host[2]) if self.telemetry else (None, None)
         seconds = time.perf_counter() - t0
@@ -552,4 +557,125 @@ class FleetRunner:
             iterations=iters,
             telemetry=tsum,
             windows=wsum,
+            rank_iterations=rank_iters,
         )
+
+    def _dispatch(self, dev, lane_in, gp):
+        """The device part of a dispatch for one block of lanes on
+        ``dev``: ``(final states, host verdict trees, round calls)``; the
+        verdict's one copy is the sync."""
+        roots, pend, gate, tail, exp, own, tabs, kn, budgets, rmaps = lane_in
+        round_fn = self._rounds[str(dev)]
+        states = simm.init_lanes(self.cfg, pend, gate, tail, roots, device=dev,
+                                 geometry=self.geometry, **gp)
+        if self.telemetry:
+            from tpu_paxos_torch.telemetry import recorder as telem
+
+            c, n_lanes = self.cfg, roots.shape[0]
+            tele0 = (
+                telem.init_telemetry(c.n_instances, len(c.proposers), c.n_nodes,
+                                     lanes=n_lanes, device=dev),
+                telem.init_windows(c.n_nodes, lanes=n_lanes, device=dev),
+            )
+            final, tele, iters = simm.run_lanes(
+                round_fn, roots, states, budgets, tabs, kn, tele=tele0, **gp)
+        else:
+            final, iters = simm.run_lanes(round_fn, roots, states, budgets, tabs, kn, **gp)
+        trees = [vdt.lane_verdict(
+            self.cfg, final,
+            torch.from_numpy(np.array(exp)).to(dev),
+            torch.from_numpy(np.array(own)).to(dev),
+            self.vid_bound, geom=gp["geom"],
+        )]
+        if self.telemetry:
+            trees += telem.close(tele, final, tabs.horizon, rmaps, telem.WINDOW_ROUNDS)
+        return final, tuple(devm.to_host(*trees)), iters
+
+
+# ---------------- the shard certificate's lane drivers ----------------
+
+
+def _parity_mesh(n_devices: int, dcn_hosts: int, device):
+    """A parity run's mesh: none at one device (JAX's ``mesh=None``), else
+    ``n_devices`` ranks, ``(dcn_hosts, n_devices / dcn_hosts)`` when
+    ``dcn_hosts > 1``."""
+    from tpu_paxos_torch.parallel import mesh as pm
+
+    if n_devices <= 1:
+        return None
+    return pm.make_instance_mesh(n_devices, dcn_hosts=dcn_hosts, device=device)
+
+
+def _audit_cfg() -> SimConfig:
+    """JAX's fleet audit config: the engine's canonical small config with
+    drop 500, crash 1000 and a delay bound of 2."""
+    return dataclasses.replace(
+        simm.audit_canonical_cfg(),
+        faults=FaultConfig(drop_rate=500, crash_rate=1000, max_delay=2),
+    )
+
+
+def _audit_scheds(n_lanes: int) -> list:
+    """JAX's canonical two-lane episode mix, cycled over ``n_lanes``."""
+    from tpu_paxos_torch.core import faults as fltm
+
+    base = [
+        fltm.FaultSchedule((fltm.partition(2, 6, (0,), (1, 2)),)),
+        fltm.FaultSchedule((fltm.pause(1, 4, 1), fltm.gray(2, 5, 2, delay=2))),
+    ]
+    return [base[i % 2] for i in range(n_lanes)]
+
+
+def parity_record(rep, nibbles, stride: int, n_instances: int) -> dict:
+    """A fleet dispatch as the shard certificate records it: one hex
+    nibble a lane (``nibbles(verdict, i)``) and each lane's decision-log
+    sha256."""
+    import hashlib
+
+    from tpu_paxos_torch.replay.decision_log import decision_log
+
+    met = rep.final.met
+    vids, bals = met.chosen_vid.cpu().numpy(), met.chosen_ballot.cpu().numpy()
+    return {
+        "verdicts": "".join(format(nibbles(rep.verdict, i), "x") for i in range(rep.n_lanes)),
+        "lane_logs": [
+            hashlib.sha256(decision_log(vids[i], bals[i], stride, n_instances).encode()).hexdigest()
+            for i in range(rep.n_lanes)
+        ],
+    }
+
+
+def _sim_nibble(v, i: int) -> int:
+    return ((int(bool(v.ok[i])) << 3) | (int(bool(v.agreement[i])) << 2)
+            | (int(bool(v.coverage[i])) << 1) | int(bool(v.quiescent[i])))
+
+
+def shard_parity(n_devices: int, dcn_hosts: int = 1, device="cuda") -> dict:
+    """The certificate's ``fleet.run_lanes`` driver (JAX's
+    ``audit_entries`` ``shard_parity``): one 8-lane dispatch of the audit
+    config on an ``n_devices``-rank tile; per-lane verdict nibbles
+    (ok|agreement|coverage|quiescent) and decision-log sha256."""
+    mesh = _parity_mesh(n_devices, dcn_hosts, device)
+    cfg = _audit_cfg()
+    runner = FleetRunner(cfg, simm.default_workload(cfg), max_episodes=2, mesh=mesh,
+                         device=device)
+    rep = runner.run(list(range(8)), _audit_scheds(8))
+    return parity_record(rep, _sim_nibble, runner.vid_bound, cfg.n_instances)
+
+
+def shard_parity_envelope(n_devices: int, dcn_hosts: int = 1, device="cuda") -> dict:
+    """The certificate's ``fleet.run_lanes_envelope`` driver: the same
+    dispatch at the audit geometry (3 nodes, 2 proposers) through the
+    runner padded to a (5, 3) menu bound."""
+    mesh = _parity_mesh(n_devices, dcn_hosts, device)
+    cfg = _audit_cfg()
+    genv = geo.GeometryEnvelope(menu=((3, (0, 1)), (5, (0, 1, 2))))
+    workload = simm.default_workload(cfg)
+    runner = FleetRunner(genv.bound_cfg(cfg), workload, max_episodes=2, geometry=genv,
+                         mesh=mesh, device=device)
+    rep = runner.run(
+        list(range(8)), _audit_scheds(8),
+        workloads=[(workload, None)] * 8, knobs=[cfg.faults] * 8,
+        geometry=(cfg.n_nodes, cfg.proposers),
+    )
+    return parity_record(rep, _sim_nibble, runner.vid_bound, cfg.n_instances)

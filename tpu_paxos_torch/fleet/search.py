@@ -19,9 +19,9 @@ lanes, shrink every wedge found.
 wedges found, artifact paths, per-generation near-miss margins) and exits
 non-zero only on a REAL invariant violation (a ``decision_round_max``
 bound is a synthetic wedge knob).  Same seeds, same summary as the JAX
-CLI, less the wall-clock keys.  The lane tile over devices (``mesh=``,
-``--mesh``) and the membership samplers are not ported yet and raise by
-name.
+CLI, less the wall-clock keys.  ``mesh=`` (``--mesh N``) tiles each
+generation's lanes over a mesh's ranks (``FleetRunner(mesh=)``); the CLI
+pads the lane count to tile it, as JAX's does.
 """
 
 from __future__ import annotations
@@ -448,14 +448,13 @@ def search(
     generation runs on the armed envelope runner
     (``fleet/envelope.runner_for(..., telemetry=True)``) whose episode
     capacity is floored at ``runner.MAX_EPISODES``, the shrinker's
-    envelope.  ``mesh`` (the lane tile over devices) is not ported yet."""
+    envelope.  ``mesh`` tiles every generation's lanes over its ranks
+    (the lane count must tile it)."""
     from tpu_paxos_torch.fleet import envelope as env
     from tpu_paxos_torch.fleet import runner as frun
     from tpu_paxos_torch.harness import shrink as shr
     from tpu_paxos_torch.utils import log as logm
 
-    if mesh is not None:
-        raise NotImplementedError("search mesh= (the lane tile over devices) is not ported yet")
     # the stress workload builder drives sweeps and never makes replayed
     # bytes: imported late, as the JAX module keeps it out of its closure
     strs = importlib.import_module("tpu_paxos_torch.harness.stress")
@@ -483,7 +482,7 @@ def search(
         **({"protocol": protocol} if protocol is not None else {}),
     )
     runner = env.runner_for(
-        cfg, workload, gates,
+        cfg, workload, gates, mesh=mesh,
         max_episodes=max(alphabet.max_episodes, frun.MAX_EPISODES),
         telemetry=True, device=device,
     )
@@ -639,16 +638,22 @@ def main(argv=None) -> int:
                     "here (replay: python -m tpu_paxos_torch repro <path>)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="tile the lane axis over this many devices "
-                    "(not ported yet)")
+                    help="tile the lane axis over this many ranks (the "
+                    "lane count is padded to tile it)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("fleet --mesh (the lane tile over devices) is not ported yet")
     from tpu_paxos_torch.fleet import runner as frun
 
+    mesh = None
+    if args.mesh:
+        from tpu_paxos_torch.parallel import mesh as pm
+
+        mesh = pm.make_instance_mesh(args.mesh, device=args.device)
+    n_lanes = args.lanes or frun.default_lane_count(args.device)
+    if mesh is not None:
+        n_lanes += (-n_lanes) % mesh.size  # lanes must tile the mesh
     summary = search(
-        n_lanes=args.lanes or frun.default_lane_count(args.device),
+        n_lanes=n_lanes,
         generations=args.generations,
         base_seed=args.seed,
         triage_dir=args.triage_dir or None,
@@ -662,6 +667,7 @@ def main(argv=None) -> int:
         max_episodes=args.max_episodes,
         horizon=args.horizon,
         max_wedges=args.max_wedges,
+        mesh=mesh,
         verbose=not args.quiet,
         gray=args.gray,
         wan=args.wan,

@@ -14,6 +14,12 @@ lane axis) convert the same way: every leaf keeps its leading lane axis,
 and ``core/sim.lane_of`` takes one lane.  The port reads fields by name
 and imports nothing of the JAX package.
 
+A lane-tiled fleet's report (JAX's ``shard_map`` over the lane axis, the
+port's ``mesh=`` runners) gathers its lanes in lane order, so it
+compares with an untiled one leaf for leaf: :func:`lanes_to_numpy` takes
+every leaf whole (``np.asarray`` of a lane-sharded JAX array) and
+:func:`first_lane_difference` names the first lane and leaf that differ.
+
 A sharded run's state crosses as JAX holds it, one global tree whose
 queue leaves carry a leading shard axis, and becomes the port's list of
 per-rank slices on the mesh's devices and back, through the committed
@@ -181,3 +187,39 @@ def sharded_fast_state_to_numpy(states) -> fast.FastState:
     from tpu_paxos_torch.parallel import sharded
 
     return sharded.gather_state(states)
+
+
+def lanes_to_numpy(tree):
+    """A lane-stacked tree (NamedTuples and tuples of tensors, or of any
+    array ``np.asarray`` takes whole, as a JAX tiled report's
+    lane-sharded leaves) with every leaf a host numpy array."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return sim._rebuild(tree, [lanes_to_numpy(x) for x in tree])
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def first_lane_difference(ours, theirs, path: str = ""):
+    """The first ``(lane, leaf path)`` where two lane-stacked trees differ
+    (the port's and JAX's, fields read by name; numpy leaves from
+    :func:`lanes_to_numpy`), or None where every lane of every leaf is
+    equal.  A leaf whose shapes or dtypes differ counts at lane 0."""
+    if hasattr(ours, "_fields"):
+        hits = [first_lane_difference(getattr(ours, f), getattr(theirs, f), f"{path}/{f}")
+                for f in ours._fields]
+    elif isinstance(ours, tuple):
+        hits = [first_lane_difference(a, b, f"{path}/{k}")
+                for k, (a, b) in enumerate(zip(ours, theirs))]
+    else:
+        a, b = np.asarray(ours), np.asarray(theirs)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return 0, path
+        if a.ndim == 0:
+            return None if a == b else (0, path)
+        bad = np.flatnonzero((a != b).reshape(a.shape[0], -1).any(axis=1))
+        return (int(bad[0]), path) if bad.size else None
+    hits = [h for h in hits if h is not None]
+    return min(hits) if hits else None

@@ -39,6 +39,14 @@ kernel launch counts go to each rank's own dict
 The one thing ranks share is read-only: a round's coins, which every
 rank draws alike, are drawn by the first rank on a device to reach the
 round and read by the others (``Collectives.shared``).
+
+The lane tile (:func:`lane_blocks`, :func:`split_lanes`,
+:func:`gather_lanes`) lays a fleet's lane axis over the same ranks:
+rank ``r`` runs lanes ``[r L / D, (r + 1) L / D)`` on ``devices[r]``.
+Lanes are independent, so a tiled dispatch makes no collective; its
+inputs are split and its outputs gathered through the rule table's
+``fleet/``, ``member/`` and ``serve/`` rows, as JAX's ``shard_map`` over
+``instance_spec(mesh)`` lays them.
 """
 
 from __future__ import annotations
@@ -169,6 +177,13 @@ class Mesh:
         self.timeout_s = float(timeout_s)
         self.launches: list[dict] = []
         self.calls: list[int] = []
+        #: per-rank launch counts summed over every run since
+        #: :meth:`reset_totals` (a tiled serve fleet runs once a dispatch)
+        self.launch_totals: list[dict] = []
+        self.reset_totals()
+
+    def reset_totals(self) -> None:
+        self.launch_totals = [{k: 0 for k in simkern.LAUNCHES} for _ in range(self.size)]
 
     def run(self, fn) -> list:
         """``fn(Collectives)`` on every rank, one thread each, over a fresh
@@ -215,6 +230,9 @@ class Mesh:
                 t.join(0.05)
         self.launches = launches
         self.calls = [c.calls for c in colls]
+        for total, counts in zip(self.launch_totals, launches):
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
         if errors:
             _, rank, exc = min(errors, key=lambda e: e[0])
             raise RankError(rank, self.size, exc) from exc
@@ -279,3 +297,65 @@ def shard_instances(mesh: Mesh, arr) -> list[torch.Tensor]:
         raise ValueError(f"{n} instances do not divide over {mesh.size} devices")
     step = n // mesh.size
     return [t[r * step:(r + 1) * step].to(mesh.devices[r]).contiguous() for r in range(mesh.size)]
+
+
+def per_device(devices, build) -> dict:
+    """``build(dev)`` once for each distinct device of ``devices``, keyed
+    by ``str(dev)``: a tiled runner's round functions, which the ranks on
+    one card share (a round function holds constants only, and one rank
+    runs at a time)."""
+    out = {}
+    for dev in devices:
+        if str(dev) not in out:
+            out[str(dev)] = build(dev)
+    return out
+
+
+def check_lanes(mesh: Mesh | None, n_lanes: int) -> None:
+    """The tile's rejection, JAX's by name: a lane count that does not
+    divide over the mesh's ranks."""
+    if mesh is not None and n_lanes % mesh.size:
+        raise ValueError(f"{n_lanes} lanes do not tile over {mesh.size} devices")
+
+
+def lane_blocks(mesh: Mesh, n_lanes: int) -> list[slice]:
+    """Rank ``r``'s lanes ``[r L / D, (r + 1) L / D)`` of an ``L``-lane
+    dispatch; raises :func:`check_lanes`' ``ValueError``."""
+    check_lanes(mesh, n_lanes)
+    step = n_lanes // mesh.size
+    return [slice(r * step, (r + 1) * step) for r in range(mesh.size)]
+
+
+def split_lanes(mesh: Mesh, family: str, tree, rank: int):
+    """Rank ``rank``'s block of a lane-leading tree (numpy or tensor
+    leaves; tuples and None welcome) through the rule table's ``family``
+    rows, tensor leaves on the rank's device (views where they already
+    are)."""
+    from tpu_paxos_torch.parallel import partition_rules as prules
+
+    part = prules.split_tree(family, tree, mesh.size, rank)
+    dev = mesh.devices[rank]
+    return prules.map_leaves(
+        lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, part)
+
+
+def gather_lanes(mesh: Mesh | None, family: str, trees):
+    """The lane-leading tree of every rank's block (in rank order):
+    tensor leaves concatenated on the mesh's first device, numpy leaves
+    on the host.  Untiled (``mesh`` None) the one block is the tree."""
+    from tpu_paxos_torch.parallel import partition_rules as prules
+
+    if mesh is None:
+        return trees[0]
+    return prules.gather_tree(family, trees, device=mesh.devices[0])
+
+
+def on_lanes(mesh: Mesh | None, family: str, fn, device, lane_in) -> list:
+    """A lane-axis dispatch, tiled or not: ``[fn(0, device, lane_in)]``
+    untiled (``mesh`` None), else ``fn(rank, rank's device, rank's block of
+    lane_in)`` on every rank of ``mesh`` (``Mesh.run``; a raising rank
+    raises :class:`RankError`), the outputs in rank order."""
+    if mesh is None:
+        return [fn(0, device, lane_in)]
+    return mesh.run(lambda comm: fn(
+        comm.rank, comm.device, split_lanes(mesh, family, lane_in, comm.rank)))

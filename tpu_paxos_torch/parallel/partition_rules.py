@@ -17,7 +17,10 @@ compiler to hand them to, so the same rules drive :func:`split_tree`
 (rank ``r``'s slice of a global tree: ``LANE`` dims cut into ``size``
 equal blocks, ``REP`` leaves copied, the per-shard queue leaves
 ``sim/prop/(pend|gate|head|tail)`` cut on their leading shard axis) and
-:func:`gather_tree` (the slices back into the global tree).  A leaf no
+:func:`gather_tree` (the slices back into the global tree); the lane
+tile's ``fleet/``, ``member/`` and ``serve/`` rows split and gather a
+fleet's lane-leading trees (NamedTuples, plain tuples and None, numpy or
+tensor leaves) the same way.  A leaf no
 rule matches raises by its path, as JAX's ``PartitionRuleError`` does.
 Pure stdlib and numpy/torch slicing: the table is data.
 """
@@ -161,19 +164,27 @@ def _lane_axes(dims) -> list[int]:
 
 
 def _is_tree(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
+    return isinstance(node, tuple)
 
 
 def _map(family: str, fn, trees, path=()):
-    """``fn(path_string, leaves)`` over the leaves of parallel NamedTuple
-    trees of one kind; returns a tree of the results."""
+    """``fn(path_string, leaves)`` over the leaves of parallel trees of
+    one kind (NamedTuples by field name, plain tuples by index; None
+    stays None); returns a tree of the results."""
     head = trees[0]
+    if head is None:
+        return None
     if _is_tree(head):
-        return type(head)(*[
-            _map(family, fn, [getattr(t, f) for t in trees], path + (f,))
-            for f in head._fields
-        ])
+        fields = getattr(head, "_fields", None) or [str(k) for k in range(len(head))]
+        parts = [_map(family, fn, [t[k] for t in trees], path + (f,))
+                 for k, f in enumerate(fields)]
+        return type(head)(*parts) if hasattr(head, "_fields") else tuple(parts)
     return fn(leaf_path(family, path), trees)
+
+
+def map_leaves(fn, tree):
+    """``fn`` over every leaf of a tree of NamedTuples, tuples and None."""
+    return _map("", lambda _path, leaves: fn(leaves[0]), [tree])
 
 
 def split_tree(family: str, tree, size: int, rank: int):
@@ -198,10 +209,13 @@ def split_tree(family: str, tree, size: int, rank: int):
     return _map(family, one, [tree])
 
 
-def gather_tree(family: str, trees):
-    """The global tree from every rank's slice (in rank order, numpy
-    leaves): ``LANE`` dims concatenated, ``REP`` leaves taken from rank
+def gather_tree(family: str, trees, device=None):
+    """The global tree from every rank's slice (in rank order): ``LANE``
+    dims concatenated (tensor leaves on ``device``, default the first
+    rank's; numpy leaves on the host), ``REP`` leaves taken from rank
     0."""
+    import torch
+
     def one(path, leaves):
         leaf = leaves[0]
         axes = _lane_axes(dims_of(path, leaf, slice_of_global=len(leaves) > 1))
@@ -209,6 +223,9 @@ def gather_tree(family: str, trees):
             return leaf
         if len(axes) != 1:
             raise PartitionRuleError(f"leaf {path} splits {len(axes)} axes; one is gathered")
+        if isinstance(leaf, torch.Tensor):
+            dev = leaf.device if device is None else device
+            return torch.cat([x.to(dev) for x in leaves], dim=axes[0])
         return np.concatenate([np.asarray(x) for x in leaves], axis=axes[0])
 
     return _map(family, one, list(trees))

@@ -196,7 +196,9 @@ def evaluate(
     weather slot (preserving genome order within each), run ONE
     ``serve_fleet_run`` dispatch per preset present through the
     shared envelope cache on ``device``, and scatter per-lane results
-    back to genome order.  ``mesh`` is not ported yet.
+    back to genome order.  ``mesh`` tiles each dispatch's lanes over its
+    ranks: a preset's group whose size does not tile it raises the tile's
+    ``ValueError``, as JAX's.
 
     Returns ``{"burn": [n] float, "breach": [n] bool,
     "causes": {genome_index: [cause names]},

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from tpu_paxos_torch.config import SimConfig
+from tpu_paxos_torch.parallel import mesh as pmesh
 from tpu_paxos_torch.serve import arrivals as arrv
 from tpu_paxos_torch.serve import fleet as sflt
 from tpu_paxos_torch.serve import harness as sh
@@ -1141,8 +1142,6 @@ class ControlFleetRunner(sflt.ServeFleetRunner):
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("ControlFleetRunner mesh= is not ported yet")
         if cfg.faults.schedule is not None:
             raise ValueError(
                 "serve engines take no fault schedule (correlated-"
@@ -1155,7 +1154,7 @@ class ControlFleetRunner(sflt.ServeFleetRunner):
                 "window_rounds must be positive"
             )
         super().__init__(cfg, queue_cap, vid_bound, rounds_per_window,
-                         window_rounds, device=device)
+                         window_rounds, mesh=mesh, device=device)
 
     def _fn(self, css, roots, admits, arrs, keeps, vid_regions, rmaps,
             slo_k, region_k, budget_milli, burn_milli):
@@ -1167,7 +1166,9 @@ class ControlFleetRunner(sflt.ServeFleetRunner):
         return (ControlLoopState(out[0], ctl), *out[1:])
 
     def _init(self, pend, gate, tail, roots):
-        """Fresh ``[lanes]``-stacked controlled loop state."""
+        """Fresh controlled loop state: the serve state is the ranks'
+        blocks (:meth:`ServeFleetRunner._init`), the ``[lanes]`` counters
+        stay whole on the first device."""
         ss = super()._init(pend, gate, tail, roots)
         return ControlLoopState(ss, torch.zeros((roots.shape[0], 2), dtype=torch.int32,
                                                 device=self.device))
@@ -1198,7 +1199,9 @@ def controlled_fleet_run(
     ``priorities`` is per-lane per-proposer tier arrays (default
     ``arrivals.tier_priorities`` of each stream).  Fleet policies declare
     an empty ladder (one dispatch shape for every lane).  Returns a
-    :class:`ControlFleetReport`.  ``mesh`` is not ported yet."""
+    :class:`ControlFleetReport`.  ``mesh`` tiles the lane axis over its
+    ranks (the lane count must tile it); the controller reads the
+    gathered ``[lanes]`` vectors, so every rank runs every dispatch."""
     from tpu_paxos_torch.fleet import envelope as envm
     from tpu_paxos_torch.telemetry import recorder as telem
     from tpu_paxos_torch.utils import device as devm
@@ -1212,8 +1215,6 @@ def controlled_fleet_run(
         raise ValueError(
             "a control policy reads SLO verdicts; declare an slo"
         )
-    if mesh is not None:
-        raise NotImplementedError("controlled_fleet_run mesh= is not ported yet")
     lanes = [
         sflt._check_lane(
             cfg, ln if isinstance(ln, sflt.ServeLane)
@@ -1224,6 +1225,7 @@ def controlled_fleet_run(
     if not lanes:
         raise ValueError("at least one lane required")
     n_lanes = len(lanes)
+    pmesh.check_lanes(mesh, n_lanes)
     if priorities is None:
         priorities = [
             [arrv.tier_priorities(s, control.n_tiers)
@@ -1248,9 +1250,9 @@ def controlled_fleet_run(
     if window_rounds is None:
         window_rounds = sh.WINDOWS_PER_BUCKET * rounds_per_window
     ww = int(window_rounds)
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     fi = sflt._fleet_inputs(envm.serve_control_for, cfg, lanes, rounds_per_window, ww, slo,
-                            region_map, region_names, dev)
+                            region_map, region_names, dev, mesh)
     p = len(cfg.proposers)
     states = [ControllerState(level=0) for _ in range(n_lanes)]
     seen: list[set] = [set() for _ in range(n_lanes)]
@@ -1332,6 +1334,7 @@ def controlled_fleet_run(
         if d >= disp_cap:
             break
     wall = time.perf_counter() - t0
+    css = ControlLoopState(fi.runner.gather(css.serve), css.ctl)
 
     summaries, windows, region_windows = last_dev
     slo_dict = sflt._confirm_flagged(last_breach, slo, ww, fi.rmap, region_names, summaries,

@@ -1,6 +1,6 @@
 """Fleet serving: many tenant value streams per dispatch, with per-lane
-SLO verdicts reduced on the device (port of ``tpu_paxos/serve/fleet.py``,
-without the mesh tile; the per-lane admission controller is
+SLO verdicts reduced on the device (port of ``tpu_paxos/serve/fleet.py``;
+the per-lane admission controller is
 ``serve/control.controlled_fleet_run``).
 
 JAX ``vmap``s the serve driver's whole dispatch window over a
@@ -29,6 +29,13 @@ host judge (``BURN_EPS`` covers the judge's 3-decimal rounding).
 Lane for lane the fleet is decision-log-identical to single
 ``serve/harness.serve_run`` executions of the same (cfg, stream, seed)
 at the same dispatch granularity, and to JAX's fleet.
+
+A ``mesh=`` fleet tiles the lane axis over the mesh's ranks, as the sim
+fleet does (``fleet/runner.py``): the loop state is the ranks' blocks,
+each on its rank's device, and every dispatch runs every rank's block
+(``Mesh.run``) and gathers the four ``[lanes]`` vectors and the series
+in lane order.  The host loop stays global, as JAX's: it stops on, and
+picks flagged lanes from, the gathered vectors, so no rank stops early.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from tpu_paxos_torch.config import FaultConfig, SimConfig
 from tpu_paxos_torch.core import sim as simm
 from tpu_paxos_torch.core import values as val
+from tpu_paxos_torch.parallel import mesh as pmesh
 from tpu_paxos_torch.serve import arrivals as arrv
 from tpu_paxos_torch.serve import driver as drv
 from tpu_paxos_torch.serve import harness as sh
@@ -167,8 +175,6 @@ class ServeFleetRunner:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("ServeFleetRunner mesh= is not ported yet")
         if cfg.faults.schedule is not None:
             raise ValueError(
                 "serve engines take no fault schedule (correlated-fault "
@@ -186,21 +192,35 @@ class ServeFleetRunner:
         self.vid_bound = int(vid_bound)
         self.rounds_per_window = int(rounds_per_window)
         self.window_rounds = ww
-        self.device = devm.resolve(device)
-        self.round_fn = simm.build_engine(
-            cfg, self.queue_cap, vid_cap=0, telemetry=True, window_rounds=ww,
-            device=self.device,
-        )
+        self.mesh = mesh
+        self.device = devm.resolve(device) if mesh is None else mesh.devices[0]
+        self._rounds = pmesh.per_device(
+            [self.device] if mesh is None else mesh.devices,
+            lambda dev: simm.build_engine(cfg, self.queue_cap, vid_cap=0, telemetry=True,
+                                          window_rounds=ww, device=dev))
 
     def _fn(self, sss, roots, admits, arrs, vid_regions, rmaps,
             slo_k, region_k, budget_milli, burn_milli, keeps=None):
         """One dispatch of every lane: ``(sss, done, t, decided, breach,
         summary, windows, region_windows)``, all ``[lanes, ...]`` device
         tensors; ``sss`` is consumed.  ``keeps`` is the admission
-        controller's ``[L, S, P, K]`` shed mask (``serve/control.py``)."""
+        controller's ``[L, S, P, K]`` shed mask (``serve/control.py``).
+        ``sss`` is the ranks' blocks (:meth:`_init`) and comes back so;
+        every other output is gathered in lane order."""
+        slo = (slo_k, region_k, budget_milli, burn_milli)
+        outs = pmesh.on_lanes(
+            self.mesh, "serve", lambda r, dev, blk: self._dispatch(dev, sss[r], blk, slo),
+            self.device, (roots, admits, arrs, vid_regions, rmaps, keeps))
+        rest = pmesh.gather_lanes(self.mesh, "serve", [o[1:] for o in outs])
+        return ([o[0] for o in outs], *rest)
+
+    def _dispatch(self, dev, sss, lane_in, slo):
+        """One dispatch of one block of lanes on ``dev``."""
+        roots, admits, arrs, vid_regions, rmaps, keeps = lane_in
+        slo_k, region_k, budget_milli, burn_milli = slo
         ww = self.window_rounds
         st, tl, ingest = drv.run_window_lanes(
-            self.round_fn, roots, sss.sim, sss.tele, sss.ingest, admits, arrs,
+            self._rounds[str(dev)], roots, sss.sim, sss.tele, sss.ingest, admits, arrs,
             self.rounds_per_window, self.vid_bound, keeps=keeps,
         )
         summ, wsum, adm = drv.epilogue(st, tl, ingest, ww, region_map=rmaps)
@@ -215,8 +235,19 @@ class ServeFleetRunner:
     def _init(self, pend, gate, tail, roots):
         """Fresh ``[lanes]``-stacked loop state: ``pend``/``gate``
         ``[L, P, C+W]``, ``tail`` ``[L, P]`` (numpy) and ``roots``
-        ``[L, 2]``."""
-        cfg, dev = self.cfg, self.device
+        ``[L, 2]``: the list of the ranks' blocks, each on its rank's
+        device (one block untiled)."""
+        pmesh.check_lanes(self.mesh, roots.shape[0])
+        return pmesh.on_lanes(self.mesh, "serve", lambda _r, dev, blk: self._init_block(dev, *blk),
+                              self.device, (pend, gate, tail, roots))
+
+    def gather(self, sss):
+        """The loop state as one ``[lanes]``-stacked tree: the ranks'
+        blocks concatenated on the first device, in lane order."""
+        return pmesh.gather_lanes(self.mesh, "serve", sss)
+
+    def _init_block(self, dev, pend, gate, tail, roots):
+        cfg = self.cfg
         lanes = roots.shape[0]
         st = simm.init_lanes(cfg, pend, gate, tail, roots, device=dev)
         tele = (
@@ -326,14 +357,16 @@ class _FleetInputs(NamedTuple):
 
 
 def _fleet_inputs(runner_for, cfg: SimConfig, lanes, rounds_per_window: int, ww: int,
-                  slo, region_map, region_names, dev) -> _FleetInputs:
+                  slo, region_map, region_names, dev, mesh=None) -> _FleetInputs:
     """The envelope shapes (queue capacity and vid bound cover every
     lane), ``runner_for(cfg, c, v_bound, rounds_per_window,
-    window_rounds=ww, device=dev)``'s runner, and the lanes' inputs."""
+    window_rounds=ww, mesh=mesh, device=dev)``'s runner, and the lanes'
+    inputs."""
     n_lanes = len(lanes)
     c = max(simm.prepare_queues(cfg, ln.workload)[3] for ln in lanes)
     v_bound = max(drv.vid_bound_of(ln.workload) for ln in lanes)
-    runner = runner_for(cfg, c, v_bound, rounds_per_window, window_rounds=ww, device=dev)
+    runner = runner_for(cfg, c, v_bound, rounds_per_window, window_rounds=ww, mesh=mesh,
+                        device=dev)
     p = len(cfg.proposers)
     width = c + cfg.assign_window
     a = cfg.n_nodes
@@ -413,12 +446,10 @@ def serve_fleet_run(
     every lane's windowed series (and, with ``region_map`` +
     ``region_names``, each region's own series) to a ``[lanes]`` breach
     vector, and only flagged lanes pay the series transfer + the host
-    judge that names breach windows per (lane, region).  ``mesh`` is not
-    ported yet."""
+    judge that names breach windows per (lane, region).  ``mesh`` tiles
+    the lane axis over its ranks (the lane count must tile it)."""
     from tpu_paxos_torch.fleet import envelope as envm
 
-    if mesh is not None:
-        raise NotImplementedError("serve_fleet_run mesh= is not ported yet")
     lanes = [
         _check_lane(cfg, ln if isinstance(ln, ServeLane) else ServeLane(*ln), i)
         for i, ln in enumerate(lanes)
@@ -426,6 +457,7 @@ def serve_fleet_run(
     if not lanes:
         raise ValueError("at least one lane required")
     n_lanes = len(lanes)
+    pmesh.check_lanes(mesh, n_lanes)
     plans = [
         arrv.ArrivalPlan(ln.workload, ln.arrivals, rounds_per_window)
         for ln in lanes
@@ -447,9 +479,9 @@ def serve_fleet_run(
             "the SLO monitor reads the windowed series; "
             "window_rounds=0 disarms it"
         )
-    dev = devm.resolve(device)
+    dev = devm.resolve(device) if mesh is None else mesh.devices[0]
     fi = _fleet_inputs(envm.serve_fleet_for, cfg, lanes, rounds_per_window, ww, slo,
-                       region_map, region_names, dev)
+                       region_map, region_names, dev, mesh)
     p = len(cfg.proposers)
     n_disp_admit = max((pl.n_windows + s - 1) // s for pl in plans)
     disp_cap = max(
@@ -544,7 +576,7 @@ def serve_fleet_run(
         first_breach_dispatch=first_breach,
         slo=slo_dict,
         region_names=tuple(region_names),
-        final=sss,
+        final=fi.runner.gather(sss),
         summaries=summaries,
         windows=windows,
         region_windows=region_windows,
@@ -788,6 +820,42 @@ def sweep_verdict(summary: dict) -> bool:
     return True
 
 
+# ---------------- the shard certificate's lane driver ----------------
+
+
+def shard_parity(n_devices: int, dcn_hosts: int = 1, device="cuda") -> dict:
+    """The certificate's ``serve.fleet_window`` driver (JAX's
+    ``audit_entries`` ``shard_parity``): an 8-lane serve fleet (3 nodes,
+    16 instances, drop 500, delay bound 2; 6 values a lane at 1500 milli)
+    on an ``n_devices``-rank tile; per-lane nibbles (drained|breach) and
+    decision-log sha256."""
+    import hashlib
+
+    from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.replay.decision_log import decision_log
+
+    mesh = frun._parity_mesh(n_devices, dcn_hosts, device)
+    cfg = SimConfig(n_nodes=3, n_instances=16, proposers=(0, 1), seed=0, max_rounds=256,
+                    faults=FaultConfig(drop_rate=500, max_delay=2))
+    rep = serve_fleet_run(
+        cfg, fleet_lanes(cfg, 8, 6, 1500, 0),
+        rounds_per_window=8, windows_per_dispatch=2, admit_width=6, mesh=mesh,
+        slo=sh.ServeSLO(latency_rounds=16, budget_milli=100), device=device,
+    )
+    logs = []
+    for i in range(rep.n_lanes):
+        cv, cb = rep.lane_chosen(i)
+        logs.append(hashlib.sha256(
+            decision_log(cv, cb, stride=30, n_instances=len(cv)).encode()).hexdigest())
+    return {
+        "verdicts": "".join(
+            format((int(rep.decided[i]) == rep.n_values[i]) << 1 | int(bool(rep.breach[i])), "x")
+            for i in range(rep.n_lanes)
+        ),
+        "lane_logs": logs,
+    }
+
+
 # ---------------- CLI ----------------
 
 
@@ -842,13 +910,13 @@ def main(argv=None) -> int:
     ap.add_argument("--max-delay", type=int, default=0)
     ap.add_argument("--crash-rate", type=int, default=0)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="tiling the lane axis over devices: not ported "
-                    "yet (exits 2)")
+                    help="tile the lane axis over an N-rank mesh (lanes "
+                    "must tile it)")
+    ap.add_argument("--dcn-hosts", type=int, default=1,
+                    help="with --mesh, arrange the ranks as a 2-D "
+                    "(dcn-hosts x chips) mesh")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        print("tpu_paxos_torch: 'serve --fleet --mesh' is not ported yet", file=sys.stderr)
-        return 2
     n_inst = args.instances or max(64, 2 * args.values)
     cfg = SimConfig(
         n_nodes=args.nodes,
@@ -863,6 +931,11 @@ def main(argv=None) -> int:
             crash_rate=args.crash_rate,
         ),
     )
+    mesh = None
+    if args.mesh > 1:
+        from tpu_paxos_torch.parallel import mesh as pm
+
+        mesh = pm.make_instance_mesh(args.mesh, dcn_hosts=args.dcn_hosts, device=args.device)
     w_rounds = None if args.window_rounds < 0 else args.window_rounds
     slo = (
         sh.ServeSLO(latency_rounds=args.slo_latency,
@@ -899,6 +972,7 @@ def main(argv=None) -> int:
             windows_per_dispatch=args.windows_per_dispatch,
             window_rounds=w_rounds,
             slo=slo,
+            mesh=mesh,
             arrivals=args.arrivals,
             control=policy,
             device=args.device,
@@ -914,6 +988,7 @@ def main(argv=None) -> int:
             windows_per_dispatch=args.windows_per_dispatch,
             window_rounds=w_rounds,
             slo=slo,
+            mesh=mesh,
             device=args.device,
         )
         if policy is not None:
