@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught).  Phases 17 and
-18 run in a child process of this script, started before phase 11 and
-joined after phase 14, beside phases 11-14: every phase's host work is
+Phases (any failure exits non-zero; nothing is caught).  Phase 19 runs
+after phase 14, before phases 15 and 16.  Phase 21 and the host checks
+of phases 3 and 19b run in child processes beside later phases, and
+phases 17 and 18 run in a child process of this script, started before
+phase 11 and joined after phase 14, beside phases 11-14: every phase's host work is
 Python on one core and the card idles most of each round, so the two
 halves share the card (two CUDA contexts) and the host's cores, and
 their times are taken so.  The child's lines are printed when it is
@@ -38,7 +40,11 @@ and every process it started.
    32-byte sectors its operands need (``simkern.bytes_needed``): the
    sums over the run are each simkern record's ``main_path_ms`` and
    ``main_path_bound_ms``.  Each ``store_accepts`` line also gives the
-   launch's live-batch share and the batch rows it reads.
+   launch's live-batch share and the batch rows it reads.  The run's host
+   checks (agreement and exactly-once through ``harness/validate``, and
+   the decision log) are timed numpy against ``tpu_paxos_torch.native``
+   in a child process beside the phases that follow (joined at the end:
+   equal verdicts and log sha256, each side's host seconds printed).
 4. Run the CLI-sized workload (``4 4 10`` with the debug.conf faults,
    gates on) through ``python -m tpu_paxos_torch``'s entry point; its
    decision log must match the second golden.
@@ -355,8 +361,11 @@ and every process it started.
       instances on 8 ranks (about 8.4 GB of state), twice: ``n_chosen``
       exactly 1e8, every rank's learned rows equal to its vids, the
       replicated scalars equal on every rank; instances/s printed as 8
-      ranks on one card.  Then 1e7 on the (2, 4) mesh: every gathered
-      FastState field equals JAX's (``sharded_fast``).
+      ranks on one card.  The 1e8 run's host checks (validation and the
+      1e8-line decision log), numpy against native, run in a child process
+      beside the rest of the script (joined at the end: equal verdicts
+      and log sha256, host seconds printed).  Then 1e7 on the (2, 4) mesh:
+      every gathered FastState field equals JAX's (``sharded_fast``).
    c. ``python -m tpu_paxos_torch 5 8192 1024 --engine=fast --mesh 8
       --json`` and ``repro --json`` of the committed JAX-written
       ``tpu_paxos_torch/data/repro_sharded_d8.json``, two subprocesses
@@ -390,6 +399,19 @@ and every process it started.
       8``, printing JAX's summaries less the wall fields.  The same call
       runs the 256-lane controlled fleet (16c) and the 128-lane member
       fleet (14d) on the tile.
+
+21. The audit on the card (``python -m tpu_paxos_torch audit --device
+   cuda``'s ``analysis/audit.run_audit``), in a child process started
+   after phase 14 and joined after phase 20, beside phases 19, 15, 16
+   and 20: every
+   registered entry point (the JAX package's 28 names) runs its
+   canonical small run once; its kernel launches a round must equal the
+   kernel calls a round pinned on the CPU
+   (``tpu_paxos_torch/analysis/launch_budget.json``), its rounds, host
+   reads and collectives the pinned counts, and its host syncs (torch's
+   sync debug mode, per process) the budget's ``cuda`` caps.  Prints each
+   entry's launches, syncs, collectives and host reads a round, and the
+   phase's own seconds.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -666,7 +688,11 @@ def run_main_path(sk, goldens) -> dict:
     for name, n in launches.items():
         if n < 1:
             raise SystemExit(f"kernel simkern.{name} was never launched on the main path")
-    return launches
+    return launches, start_native_compare(
+        {"learned": res.learned, "chosen_vid": res.chosen_vid,
+         "chosen_ballot": res.chosen_ballot},
+        gold["stride"], cfg.n_instances, f"phase 3, bench_sim at I={cfg.n_instances}",
+        _card_line())
 
 
 @contextlib.contextmanager
@@ -1081,18 +1107,12 @@ def lane_counts(sk):
 
 
 def count_syncs(fn) -> int:
-    """Synchronizing CUDA calls made by ``fn()`` (each warns once in
-    'warn' mode)."""
-    import warnings
+    """Synchronizing CUDA calls made by ``fn()`` (``utils/device.counting_syncs``)."""
+    from tpu_paxos_torch.utils import device as devm
 
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in seen)
+    with devm.counting_syncs() as syncs:
+        fn()
+    return syncs.n
 
 
 def _lane_sha(rep, i: int, stride: int) -> str:
@@ -3247,6 +3267,13 @@ def run_sharded_fast(script, goldens, card: str) -> dict:
                              f"replicated_equal={rep_ok}")
     gb = sum(x.numel() * x.element_size() for s in states for x in s) / 1e9
     peak = torch.cuda.max_memory_allocated() / 1e9
+    # the host checks of the 1e8 run, numpy against native, in a child
+    # process beside what follows: learned [I, A] and the chosen log
+    native_19b = start_native_compare(
+        {"learned": torch.cat([s.learned for s in states], dim=1).T.contiguous().cpu().numpy(),
+         "chosen_vid": torch.cat([s.learned[0] for s in states]).cpu().numpy(),
+         "chosen_ballot": torch.cat([s.acc_ballot[0] for s in states]).cpu().numpy()},
+        1 << 27, n, f"19b, sharded fast at {n} x {a}", card)
     print(f"sharded fast (19b) {n} instances x {a} nodes over {mesh.size} ranks: n_chosen={n_chosen} "
           f"walls_s={[round(w, 4) for w in walls]} instances_per_sec={n / walls[-1]:.4g} "
           f"(8 ranks on one card, not a multi-chip number) state_gb={gb:.2f} "
@@ -3265,7 +3292,8 @@ def run_sharded_fast(script, goldens, card: str) -> dict:
         raise SystemExit(f"sharded fast on the (2, 4) mesh disagrees with the JAX golden: "
                          f"{_dict_diff(got, gold)}")
     torch.cuda.empty_cache()
-    return {"walls_s": walls, "instances_per_sec": n / walls[-1], "peak_gb": peak}
+    return {"walls_s": walls, "instances_per_sec": n / walls[-1], "peak_gb": peak,
+            "native": native_19b}
 
 
 #: 19c's CLIs; ``cli_4_4_10_mesh8`` left the script for phase 20's room
@@ -3495,6 +3523,181 @@ def run_tile(goldens, here: str, card: str, untiled_s: float | None = None) -> d
     return out
 
 
+#: the argument that makes this script a child comparing the host checks,
+#: numpy against native, on arrays saved by :func:`start_native_compare`
+NATIVE_FLAG = "--native-compare"
+#: the argument that makes this script the child that runs phase 21
+AUDIT_FLAG = "--phase-21"
+#: children started beside the phases, stopped if the script fails
+_STARTED: list = []
+#: their directories (logs, the native compare's saved arrays), removed
+#: when the script exits, whether it fails or not
+_DIRS: list = []
+
+
+def _spawn(args: list, logs: str, name: str):
+    """This script as a child process (``args`` after the script), in a
+    session of its own, its stdout and stderr in files of ``logs``."""
+    out, err = (open(os.path.join(logs, f"{name}.{x}"), "w") for x in ("out", "err"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with out, err:
+        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), *args],
+                                cwd=here, stdout=out, stderr=err, start_new_session=True)
+    _STARTED.append(proc)
+    _DIRS.append(logs)
+    return proc, logs, name, time.perf_counter()
+
+
+def _join(started, what: str, timeout: float = 1200, hide: str | None = None) -> list:
+    """Wait for a child of :func:`_spawn`, print its stdout (but the lines
+    starting with ``hide``; its stderr to stderr) and return its stdout
+    lines; its failure fails the script."""
+    proc, logs, name, t0 = started
+    rc = proc.wait(timeout=timeout)
+    with open(os.path.join(logs, f"{name}.out")) as f:
+        lines = f.read().splitlines()
+    with open(os.path.join(logs, f"{name}.err")) as f:
+        sys.stderr.write(f.read())
+    print("\n".join(x for x in lines if hide is None or not x.startswith(hide)))
+    print(f"{what} (child process) ended {time.perf_counter() - t0:.1f} s after it started, "
+          f"rc={rc}")
+    if rc != 0:
+        raise SystemExit(f"{what} failed in its child process (exit {rc})")
+    return lines
+
+
+def stop_children() -> None:
+    """Stop every child of :func:`_spawn` (and its session) still running,
+    and remove the children's directories."""
+    for proc in _STARTED:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for path in _DIRS:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def start_native_compare(arrays: dict, stride: int, n_instances: int, label: str,
+                         card: str):
+    """Save a run's ``learned [I, A]``, ``chosen_vid`` and ``chosen_ballot``
+    (host numpy) and start a child that times the host checks on them,
+    numpy against ``tpu_paxos_torch.native`` (:func:`compare_native`)."""
+    import numpy as np
+
+    logs = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    for key, x in arrays.items():
+        np.save(os.path.join(logs, f"{key}.npy"), np.ascontiguousarray(x))
+    return _spawn([NATIVE_FLAG, logs, str(stride), str(n_instances), card, label], logs,
+                  "native")
+
+
+def finish_native_compare(started) -> None:
+    try:
+        _join(started, f"native against numpy ({started[0].args[-1]})")
+    finally:
+        shutil.rmtree(started[1], ignore_errors=True)
+
+
+def _verdict(fn) -> str:
+    """``"ok"``, or the invariant a check names."""
+    try:
+        fn()
+    except AssertionError as e:
+        return f"{type(e).__name__}: {e}"
+    return "ok"
+
+
+def compare_native(learned, chosen_vid, chosen_ballot, stride: int, n_instances: int,
+                   label: str, card: str) -> dict:
+    """The host checks of one run, numpy against native: agreement and
+    exactly-once (``harness/validate``, its numpy paths forced and then its
+    native routing) and the decision log (``replay/decision_log``'s numpy
+    renderer and ``native.render_decision_log``), each timed on the host.
+    The verdicts and the log's sha256 must be equal."""
+    from tpu_paxos_torch import native
+    from tpu_paxos_torch.harness import validate
+    from tpu_paxos_torch.replay.decision_log import decision_log
+
+    native.load()
+    routed = validate._NATIVE_MIN_CELLS
+    out = {}
+    for path, cells in (("numpy", 1 << 62), ("native", routed)):
+        validate._NATIVE_MIN_CELLS = cells
+        try:
+            t0 = time.perf_counter()
+            v = (_verdict(lambda: validate.check_agreement(learned)),
+                 _verdict(lambda: validate.check_exactly_once(learned)))
+            out[path] = {"validate_s": time.perf_counter() - t0, "verdicts": v}
+        finally:
+            validate._NATIVE_MIN_CELLS = routed
+    t0 = time.perf_counter()
+    log = decision_log(chosen_vid, chosen_ballot, stride, n_instances)
+    out["numpy"]["log_s"] = time.perf_counter() - t0
+    out["numpy"]["sha"] = hashlib.sha256(log.encode()).hexdigest()
+    del log
+    t0 = time.perf_counter()
+    log = native.render_decision_log(chosen_vid, chosen_ballot, stride, n_instances)
+    out["native"]["log_s"] = time.perf_counter() - t0
+    out["native"]["sha"] = hashlib.sha256(log.encode()).hexdigest()
+    del log
+    npy, nat = out["numpy"], out["native"]
+    print(f"host checks ({label}, learned {list(learned.shape)}): validation numpy "
+          f"{npy['validate_s']:.3f} s native {nat['validate_s']:.3f} s verdicts "
+          f"{list(nat['verdicts'])} equal={npy['verdicts'] == nat['verdicts']}; decision log "
+          f"({int((chosen_vid != -1).sum())} lines) numpy {npy['log_s']:.3f} s native "
+          f"{nat['log_s']:.3f} s sha256 {nat['sha'][:16]} equal={npy['sha'] == nat['sha']} "
+          f"| {card}")
+    if npy["verdicts"] != nat["verdicts"] or npy["sha"] != nat["sha"]:
+        raise SystemExit(f"native and numpy host checks disagree ({label}): {out}")
+    return out
+
+
+def run_native_child(argv: list) -> int:
+    """The :data:`NATIVE_FLAG` child: :func:`compare_native` on the saved
+    arrays."""
+    import numpy as np
+
+    logs, stride, n_instances, card, label = argv
+    arrays = {k: np.load(os.path.join(logs, f"{k}.npy"))
+              for k in ("learned", "chosen_vid", "chosen_ballot")}
+    compare_native(arrays["learned"], arrays["chosen_vid"], arrays["chosen_ballot"],
+                   int(stride), int(n_instances), label, card)
+    return 0
+
+
+def run_audit_phase(card: str) -> dict:
+    """Phase 21: ``audit --device cuda`` over every registered entry: the
+    kernel launches a round equal the kernel calls a round pinned on the
+    CPU, and the syncs and collectives a round hold to the budget."""
+    from tpu_paxos_torch.analysis import audit
+
+    t21 = time.perf_counter()
+    report = audit.run_audit(device=DEV)
+    pinned = audit.load_budget()["entries"]
+    equal = True
+    for name, m in sorted(report["entries"].items()):
+        pr = m["per_round"]
+        la = pr["launches"]
+        same = all(m["launches"][k] == pinned[name][k] for k in audit.KERNELS)
+        equal = equal and same
+        print(f"audit {name}: {m['rounds']} rounds; a round: launches store_accepts="
+              f"{la['store_accepts']:g} accum_acks={la['accum_acks']:g} windows="
+              f"{la['steady_state_windows']:g} (= the CPU-pinned calls: {same}), syncs "
+              f"{pr['syncs']:g} ({m['syncs']} in all), collectives {pr['collectives']:g}, host "
+              f"reads {pr['host_reads']:g}; {m['seconds']:.3f} s | {card}")
+    for p in report["sweep"]:
+        print(f"audit sweep: {p['detail']}")
+    for v in report["budget"]["violations"]:
+        print(f"audit budget {v['rule']}: {v['detail']}")
+    for name in report["budget"]["stale"]:
+        print(f"audit budget: stale entry {name}")
+    print(f"phase 21 (the audit on the card, {len(report['entries'])} entries) took "
+          f"{time.perf_counter() - t21:.1f} s | {card}")
+    if not report["ok"] or not equal:
+        raise SystemExit("phase 21: the audit on the card failed")
+    return report
+
+
 #: the argument that makes this script the child that runs phases 17-18
 CHILD_FLAG = "--phases-17-18"
 #: the child's last line: its results, as JSON, after this prefix
@@ -3510,52 +3713,26 @@ def run_child_phases(goldens, here: str, card: str) -> dict:
             "evolve": {k: evolve[k] for k in ("launches", "checked")}}
 
 
-def start_child_phases(here: str, logs: str):
-    """Phases 17-18 in a child process of this script, in a session of its
-    own (so that stopping it stops the CLIs it starts); its stdout and
-    stderr go to files in ``logs``."""
-    out, err = (open(os.path.join(logs, name), "w") for name in ("child.out", "child.err"))
-    with out, err:
-        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), CHILD_FLAG],
-                                cwd=here, stdout=out, stderr=err, start_new_session=True)
-    return proc, logs, time.perf_counter()
-
-
 def finish_child_phases(started) -> dict:
-    """Wait for the child, print its lines (stdout here, stderr to
-    stderr) and return its results; its failure fails the script."""
-    proc, logs, t0 = started
-    rc = proc.wait(timeout=1200)
-    waited = time.perf_counter() - t0
-    with open(os.path.join(logs, "child.out")) as f:
-        text = f.read()
-    with open(os.path.join(logs, "child.err")) as f:
-        sys.stderr.write(f.read())
-    lines = text.splitlines()
-    print("\n".join(x for x in lines if not x.startswith(CHILD_RESULT)))
-    print(f"phases 17-18 (child process, beside phases 11-14) ended {waited:.1f} s after "
-          f"they started, rc={rc}")
+    """Wait for the phases 17-18 child, print its lines and return its
+    results; its failure fails the script."""
+    lines = _join(started, "phases 17-18 (beside phases 11-14)", hide=CHILD_RESULT)
     results = [x for x in lines if x.startswith(CHILD_RESULT)]
-    if rc != 0 or not results:
-        raise SystemExit(f"phases 17-18 failed in their child process (exit {rc})")
+    if not results:
+        raise SystemExit("phases 17-18 printed no result in their child process")
     return json.loads(results[-1][len(CHILD_RESULT):])
 
 
-def stop_child_phases(started) -> None:
-    """Stop the child and every process of its session, if it still
-    runs."""
-    proc = started[0]
-    if proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-
-
 def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if sys.argv[1:2] == [NATIVE_FLAG]:
+        # host work only: the parent has checked the card
+        sys.path.insert(0, here)
+        return run_native_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from tpu_paxos_torch.core import fast
     from tpu_paxos_torch.core import fastwin as fw
@@ -3577,10 +3754,13 @@ def main() -> int:
         out = run_child_phases(goldens, here, card)
         print(CHILD_RESULT + json.dumps(out, default=lambda x: x.item()))
         return 0
+    if AUDIT_FLAG in sys.argv[1:]:
+        run_audit_phase(card)
+        return 0
 
     rec = check_kernels(sk)
     print(f"kernels: {json.dumps(list(rec))}")
-    launches = run_main_path(sk, goldens)
+    launches, native_main = run_main_path(sk, goldens)
     snaps = snapshot_main_path(sk, goldens, launches)
     main_rec = time_main_path_operands(sk, snaps)
     del snaps
@@ -3594,7 +3774,7 @@ def main() -> int:
     fleet = run_fleet(sk, goldens, card)
     full = run_runtime_full(sk, goldens)
     logs = tempfile.mkdtemp(prefix="chip_smoke_child_")
-    child = start_child_phases(here, logs)
+    child = _spawn([CHILD_FLAG], logs, "child")
     try:
         t11 = time.perf_counter()
         run_stress_quick(goldens, here, card)
@@ -3630,13 +3810,23 @@ def main() -> int:
         run_member(goldens, here, card)
         child_out = finish_child_phases(child)
     finally:
-        stop_child_phases(child)
+        # on a failure the script's exit stops the child (stop_children)
         shutil.rmtree(logs, ignore_errors=True)
+    # phase 21 in a child process beside phases 19, 15, 16 and 20 (its
+    # sync count is the child's own: the debug mode is per process);
+    # phase 19 runs before 15-16, so that 19b's host checks (a child of
+    # their own, minutes of host work) run beside 15, 16 and 20
+    logs21 = tempfile.mkdtemp(prefix="chip_smoke_audit_")
+    audit21 = _spawn([AUDIT_FLAG], logs21, "audit")
+    shard = run_sharded(goldens, here, card)
     serve = run_serve(goldens, here, card)
     control = run_control(goldens, here, card)
     mc, evolve = child_out["mc"], child_out["evolve"]
-    shard = run_sharded(goldens, here, card)
     tile = run_tile(goldens, here, card, fleet["headline"]["checked_seconds"])
+    _join(audit21, "phase 21")
+    shutil.rmtree(logs21, ignore_errors=True)
+    finish_native_compare(native_main)
+    finish_native_compare(shard["fast"]["native"])
 
     replaces = {
         "simkern.store_accepts": ("store_accepts", "tpu_paxos/core/simkern.py:99"),
@@ -3732,7 +3922,7 @@ def main() -> int:
         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
         "library_ms": None,
     })
-    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-20)")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-21)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3742,4 +3932,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -106,6 +106,15 @@ def _member_json():
     return _goldens()["member"]["cli"]["record_stdout"]
 
 
+class _Runs:
+    """A ported subcommand that takes no ``--device`` of the harness's:
+    it runs as given and exits ``rc`` with ``text`` in its stdout (or, for
+    ``stream="err"``, in stderr, as argparse reports a usage error)."""
+
+    def __init__(self, rc: int, text: str, stream: str = "out"):
+        self.rc, self.text, self.stream = rc, text, stream
+
+
 class _Tiled:
     """A lane-tile CLI case: its last JSON line, less the wall fields
     (``less``), equals the JAX golden's summary at ``path`` in
@@ -152,14 +161,19 @@ _EVOLVE_TILED = ["--lanes", "5", "--generations", "2", "--seed", "2",
     pytest.param(["4", "4", "10", "--mesh", "2"], None, id="argv2---mesh"),
     # trace is ported, of every artifact engine (the trace of a controller
     # model checker's artifact fails the repro schema as JAX's does:
-    # test_torch_mc_control.py); audit --hlo is not (kept under the case's
-    # id)
-    pytest.param(["audit", "--hlo"], "'audit'", id="argv3-'trace'"),
-    # fleet is ported; lint is not (kept under the case's id)
-    pytest.param(["lint"], "'lint'", id="argv4-'fleet'"),
-    # serve and its admission controller are ported; audit is not (kept
-    # under the case's id)
-    pytest.param(["audit"], "'audit'", id="argv5-'serve'"),
+    # test_torch_mc_control.py); audit is ported, and the HLO tier it
+    # replaces has no counterpart: --hlo is refused as an unknown flag
+    # (kept under the case's id)
+    pytest.param(["audit", "--hlo"], _Runs(2, "unrecognized arguments: --hlo", stream="err"),
+                 id="argv3-'trace'"),
+    # fleet is ported; so is lint, which exits 0 on the port against its
+    # baseline (kept under the case's id)
+    pytest.param(["lint"], _Runs(0, ", 0 findings, "), id="argv4-'fleet'"),
+    # serve and its admission controller are ported; so is audit, which
+    # exits 0 on the CPU against the committed budget (kept under the
+    # case's id)
+    pytest.param(["audit", "--device", "cpu"], _Runs(0, "0 sweep problems, 0 budget violations"),
+                 id="argv5-'serve'"),
     # evolve is ported on all three axes (tests/test_torch_evolve.py,
     # test_evolve_cli_equals_the_jax_cli), and so is its lane tile: these
     # cases keep their ids and hold the tiled CLIs to the JAX goldens
@@ -193,7 +207,8 @@ def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path, monkeypatch)
     surface exits 2 naming itself; a ported one (``what`` None) prints the
     JAX CLI's stdout with its exit code (``what`` callable: the committed
     JAX golden's stdout, exit 0; a :class:`_Tiled` case: the golden's
-    summary, less the wall fields, and exit code).  Each failure names the
+    summary, less the wall fields, and exit code; a :class:`_Runs` case:
+    its exit code and a line of its output).  Each failure names the
     command line it ran."""
     surface = f"{what}: {' '.join(argv)}"
     argv = [str(tmp_path) if a == "{tmp}" else a for a in argv]
@@ -225,6 +240,15 @@ def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path, monkeypatch)
         assert tcli.main(argv + ["--device", "cpu"]) == rc, surface
         got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert what.less(got) == want, surface
+        return
+    if isinstance(what, _Runs):
+        try:
+            rc = tcli.main(argv)
+        except SystemExit as e:
+            rc = e.code
+        out = capsys.readouterr()
+        assert rc == what.rc, surface
+        assert what.text in (out.err if what.stream == "err" else out.out), surface
         return
     if callable(what):
         assert tcli.main(argv + ["--device", "cpu"]) == 0, surface
@@ -647,6 +671,15 @@ _, sn = sharded.sharded_choose_all(smesh, proposer=0, quorum=2)(
 with contextlib.redirect_stdout(io.StringIO()):
     rc_mesh = cli.main(["3", "2", "4", "--mesh", "2", "--device", "cpu"])
 sharded_ok = sres.done and sn == 16 and rc_mesh == 0 and smesh.calls[0] > 0
+from tpu_paxos_torch import native
+from tpu_paxos_torch.analysis import audit, buildcount, lint, registry, shard_audit
+from tpu_paxos_torch.utils import dump
+lint_ok = [f.rule for f in lint.lint_source("import time\\ndef f():\\n    return time.time()\\n")] == ["DET001"]
+aud = audit.run_audit(providers=("tpu_paxos_torch.core.fast", "tpu_paxos_torch.core.simkern"),
+                      device="cpu")
+tools_ok = (lint_ok and aud["ok"] and len(registry.collect()) == 28
+            and native.check_agreement(np.zeros((4, 3), np.int32)) is None
+            and dump.dump_hex(b"\\x01\\xff") == "01 FF" and "census" in dir(buildcount))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -663,7 +696,8 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and [serve_out[0]["metric"], serve_out[1]["metric"]] == ["serve", "serve_fleet"]
       and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
       and serve_out[2]["otherData"]["engine"] == "serve_fleet"
-      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok and evo_ok and sharded_ok)
+      and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok and evo_ok and sharded_ok
+      and tools_ok)
 print(len(mods), bool(ok), loaded)
 """
 
@@ -672,8 +706,9 @@ def test_port_imports_and_runs_with_jax_and_tpu_paxos_blocked():
     proc = _python("-c", _BLOCKED_IMPORT_PROBE, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_mods, done, loaded = proc.stdout.split(maxsplit=2)
-    # every module of the package was imported, the parallel package too
-    assert int(n_mods) >= 59
+    # every module of the package was imported, the parallel package and
+    # the analysis tooling too
+    assert int(n_mods) >= 72
     assert done == "True"
     assert loaded.strip() == "[]"
 

@@ -166,19 +166,32 @@ def test_serve_fleet_tile_bitwise_parity():
 
 
 def test_evolve_serve_axis_on_the_tile_equals_jax():
-    """The serve axis on a 2-rank tile: its 6 genomes hold fixed weather
-    slots, 2 lanes a preset, so each preset's dispatch tiles the mesh;
-    the summary and triage files equal JAX's untiled golden (18b).  On a
-    4-rank tile a preset's 2 lanes do not tile, and ``evaluate`` raises
-    the tile's ``ValueError`` as JAX's ``evaluate`` would."""
+    """The serve axis with a mesh: as JAX's ``evolve``, the port runs the
+    serve axis untiled whatever the mesh, so on a 2-rank mesh and on a
+    4-rank mesh (whose ranks a preset's 2 lanes do not tile) the summary
+    and triage files equal JAX's golden (18b)."""
     script = _script()
     gold = _goldens()["evolve"]["serve"]
     m = script.evolve_modules(port=True)
-    got = script.evolve_axis(m, "serve", device="cpu", mesh=pmesh.make_instance_mesh(2, device="cpu"))
+    for n in (2, 4):
+        got = script.evolve_axis(m, "serve", device="cpu",
+                                 mesh=pmesh.make_instance_mesh(n, device="cpu"))
+        assert script.evolve_less(got["summary"]) == gold["summary"], n
+        assert got["files"] == gold["files"], n
+    tenv.clear_cache()
+
+
+def test_evolve_member_axis_on_an_untiling_mesh_equals_jax():
+    """The member axis's 4 lanes on a 3-rank mesh, which they do not
+    tile: the axis runs untiled, as JAX's, and its summary and triage
+    files equal JAX's golden (18b)."""
+    script = _script()
+    gold = _goldens()["evolve"]["member"]
+    m = script.evolve_modules(port=True)
+    got = script.evolve_axis(m, "member", device="cpu",
+                             mesh=pmesh.make_instance_mesh(3, device="cpu"))
     assert script.evolve_less(got["summary"]) == gold["summary"]
     assert got["files"] == gold["files"]
-    with pytest.raises(ValueError, match="^2 lanes do not tile over 4 devices$"):
-        script.evolve_axis(m, "serve", device="cpu", mesh=pmesh.make_instance_mesh(4, device="cpu"))
     tenv.clear_cache()
 
 

@@ -18,8 +18,7 @@ with the decision-log hash.  ``--mesh N`` (with ``--dcn-hosts H``)
 shards the instance axis of ``--engine=sim`` and ``--engine=fast`` over
 an ``N``-rank mesh (``parallel/``: ``N`` threads, each on its own device
 or all on one card); ``--engine=member`` ignores it, as the JAX CLI
-does.  Exit code 0 iff every invariant holds; 2 for what the port does
-not run yet (the ``lint`` and ``audit`` subcommands).
+does.  Exit code 0 iff every invariant holds.
 
 ``python -m tpu_paxos_torch repro <artifact> [--json] [--device
 {cuda,cpu}]`` replays a repro artifact (``harness/shrink.py``): the
@@ -61,6 +60,15 @@ F] [--device {cuda,cpu}] ...`` runs the certified selection loop
 (``fleet/evolve.py``) and prints its one JSON summary line.  ``fleet
 --mesh N`` and ``evolve --mesh N`` tile each generation's lanes over an
 ``N``-rank mesh, the lane count padded to tile it.
+
+``python -m tpu_paxos_torch lint [paths] [--json] [--fix [--write]]``
+runs paxlint on the port (``analysis/lint.py``, pure AST) against its
+committed baseline.  ``python -m tpu_paxos_torch audit [--device
+{cuda,cpu}] [--pin] [--json] ...`` runs every registered entry point
+once and holds its kernel calls, host reads, collectives and (on a
+card) syncs and launches a round against ``analysis/launch_budget.json``,
+with the unregistered-surface sweep and the shard tier
+(``analysis/audit.py``).
 """
 
 from __future__ import annotations
@@ -69,9 +77,6 @@ import argparse
 import json
 import os
 import sys
-
-_SUBCOMMANDS = ("lint", "audit")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -511,9 +516,16 @@ def main(argv=None) -> int:
         from tpu_paxos_torch.fleet import evolve
 
         return evolve.main(argv[1:])
-    if argv and argv[0] in _SUBCOMMANDS:
-        print(f"tpu_paxos_torch: '{argv[0]}' is not ported yet", file=sys.stderr)
-        return 2
+    if argv and argv[0] == "lint":
+        # paxlint on the port: pure AST, no torch import
+        from tpu_paxos_torch.analysis import lint
+
+        return lint.main(argv[1:])
+    if argv and argv[0] == "audit":
+        # the per-round contracts of every registered entry point
+        from tpu_paxos_torch.analysis import audit
+
+        return audit.main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.engine == "member":
         return run_member(args)

@@ -637,5 +637,41 @@ def run_scope(
 
 
 def audit_entries():
-    """The JAX package's IR-audit registration (jaxpr/HLO tooling)."""
-    raise NotImplementedError("mc_member audit_entries is not ported yet")
+    """The churn-chunk surface's registered entry point
+    (``analysis/registry.py``), JAX's canonical chunk: one 2-lane chunk of
+    a tiny churn scope, decoded through the codec and dispatched as
+    :func:`run_scope` stacks it (runtime churn tables and fault masks
+    through the member fleet runner)."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+    from tpu_paxos_torch.fleet import member_runner as mfr
+
+    def build(device):
+        scope = ChurnScope.from_dict({
+            "n_nodes": 3, "n_instances": 8, "max_rounds": 64,
+            "horizon": 12, "plain_values": 1, "add_targets": [1],
+            "del_targets": [], "t0_grid": [0],
+            "wait_gates": [ctm.WAIT_NONE, ctm.WAIT_APPLIED],
+            "max_events": 2, "intervals": [[2, 8]],
+            "kinds": ["pause", "crash"], "pause_set_sizes": [1],
+            "crash_rounds": [4], "crash_set_sizes": [1],
+            "max_fault_episodes": 1, "seeds": [0], "crash_rate": 500,
+            "chunk_lanes": 2,
+        })
+        enum = ChurnEnum(scope)
+        runner = mfr.MemberFleetRunner(
+            scope.n_nodes, scope.n_instances, max_episodes=2,
+            crash_rate=scope.crash_rate, max_rounds=scope.max_rounds, device=device,
+        )
+        (chunk, _), = chunk_pad(enum.reduced[:2], scope.chunk_lanes)
+        scenarios = [enum.decode(i) for i in chunk]
+
+        def fn():
+            return runner.run(
+                [scope.seeds[sc.seed] for sc in scenarios],
+                [enum.churn_of(sc) for sc in scenarios],
+                [enum.schedule_of(sc) for sc in scenarios],
+            )
+
+        return fn, ()
+
+    return [AuditEntry("mc.member_chunk", build)]

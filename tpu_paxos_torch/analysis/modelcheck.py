@@ -1076,8 +1076,54 @@ def _run_one(name, scope, enum, args) -> int:
 
 
 def audit_entries():
-    """The JAX package's IR-audit registration (jaxpr/HLO tooling)."""
-    raise NotImplementedError("modelcheck audit_entries is not ported yet")
+    """The mc lane surface's registered entry point
+    (``analysis/registry.py``), JAX's canonical chunk: one 2-lane chunk of
+    a tiny scope, decoded through the codec and dispatched as
+    :func:`run_scope` stacks it (runtime schedule tables, knob vectors and
+    per-lane gate toggles through the recorder-armed fleet runner)."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+    from tpu_paxos_torch.fleet import runner as frun
+    from tpu_paxos_torch.harness import stress as strs
+
+    def build(device):
+        scope = McScope.from_dict({
+            "n_nodes": 3, "proposers": 2, "horizon": 12,
+            "max_rounds": 64, "intervals": [[2, 8]],
+            "kinds": ["pause", "burst"], "pause_set_sizes": [1],
+            "burst_rates": [2000], "max_episodes": 2,
+            "knob_tiers": [
+                {"drop_rate": 500, "crash_rate": 1000, "max_delay": 2},
+            ],
+            "gate_tiers": [True, False],
+            "seeds": [0], "chunk_lanes": 2, "n_ids": 2, "n_free": 2,
+        })
+        enum = ScopeEnum(scope)
+        workload, gates, _ = strs._workload(
+            scope.proposers, np.random.default_rng(scope.workload_seed),
+            n_ids=scope.n_ids, n_free=scope.n_free,
+        )
+        cfg = SimConfig(
+            n_nodes=scope.n_nodes, n_instances=2 * sum(len(w) for w in workload),
+            proposers=(0, 1), seed=0, max_rounds=scope.max_rounds,
+            faults=FaultConfig(max_delay=2),
+        )
+        runner = frun.FleetRunner(cfg, workload, gates, max_episodes=scope.max_episodes,
+                                  telemetry=True, device=device)
+        (chunk, _), = chunk_pad(enum.reduced[:2], scope.chunk_lanes)
+        scenarios = [enum.decode(i) for i in chunk]
+
+        def fn():
+            return runner.run(
+                [scope.seeds[sc.seed] for sc in scenarios],
+                [enum.schedule_of(sc) for sc in scenarios],
+                workloads=[(workload, gates if scope.gate_tiers[sc.gate] else None)
+                           for sc in scenarios],
+                knobs=[enum.faults_of(sc) for sc in scenarios],
+            )
+
+        return fn, ()
+
+    return [AuditEntry("mc.run_chunk", build)]
 
 
 if __name__ == "__main__":

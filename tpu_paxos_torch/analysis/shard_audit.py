@@ -1,17 +1,37 @@
-"""The shard certificate's lane drivers held on the port (the SH304 part
-of ``tpu_paxos/analysis/shard_audit.py``).
+"""The shard tier on the port: partition-rule coverage (SH301), per-rank
+state bytes (SH302), the collective census (SH303) and the shard
+certificate's lane drivers (SH304), over the mesh grid (port of
+``tpu_paxos/analysis/shard_audit.py``; rules and budget machinery in
+``shard_rules.py``).
 
-``shard_certificate.json`` beside this module is a byte copy of the JAX
-package's, pinned from JAX's one-device runs and certified over the mesh
-grid D in {1, 2, 4, 8}.  Each entry is one 8-lane fleet dispatch: per lane
-a hex verdict nibble and the decision log's sha256.  The port runs the
-same four drivers on its lane tile (``FleetRunner``, the padded
-``FleetRunner``, ``MemberFleetRunner`` and ``serve_fleet_run`` with
-``mesh=``) and :func:`check_certificate` holds every mesh shape's result
-against the pinned entry, naming the first ``(entry, mesh, lane)`` that
-differs, as JAX's audit reports it.  The rest of JAX's shard tier (the
-HLO collective budget, the rule coverage of the traced programs) has no
-port yet.
+- **SH301** — every leaf of each registered entry's ``shard_state()``
+  (the sharded engines' global states and the tiled runners' lane-stacked
+  states) must match a row of ``parallel/partition_rules.RULES`` whose
+  rank fits it, checked statically over the whole tree (not only when
+  ``split_tree`` first raises); a finding names the leaf's path.  On a
+  full run, a rule no leaf matches is stale.
+- **SH302** — per mesh shape, each rank's summed leaf bytes of the
+  entry's state split through the table stay under the pinned ceiling.
+  JAX pins each device's compiled peak bytes; every rank of the port's
+  one-card mesh shares ``cuda:0``, so a per-device peak cannot be
+  measured, and the state's split is pinned instead.
+- **SH303** — per mesh shape (D = 1, 2, 4, 8 and (2, 4)), each
+  ``shard_build`` entry runs once on a mesh of that shape and its rounds
+  and collectives (``utils/counters``) equal the pinned counts exactly.
+- **SH304** — ``shard_certificate.json`` beside this module is a byte
+  copy of the JAX package's, pinned from JAX's one-device runs and
+  certified over the mesh grid D in {1, 2, 4, 8}.  Each entry is one
+  8-lane fleet dispatch: per lane a hex verdict nibble and the decision
+  log's sha256.  The port runs the same four drivers on its lane tile
+  (``FleetRunner``, the padded ``FleetRunner``, ``MemberFleetRunner`` and
+  ``serve_fleet_run`` with ``mesh=``) and :func:`check_certificate` holds
+  every mesh shape's result against the pinned entry, naming the first
+  ``(entry, mesh, lane)`` that differs, as JAX's audit reports it.
+
+``python -m tpu_paxos_torch audit --shard`` (or ``--shard-only``) runs
+SH301-SH303 (:func:`run_shard_audit`); the certificate's drivers run
+through :func:`check_certificate` (the shard tests and the card's phase
+20).
 """
 
 from __future__ import annotations
@@ -98,3 +118,109 @@ def check_certificate(shapes=SHAPES, device="cuda", entries=None, path: str = DE
                               f"certificate at lane {lane} ({detail})",
                 })
     return failures
+
+
+# ---------------- SH301-SH303 ----------------
+
+def run_shard_audit(providers=None, device="cuda", budget_path: str | None = None,
+                    pin_budget: bool = False, triage_dir: str = "stress-triage",
+                    shapes=SHAPES, extra_states: dict | None = None) -> dict:
+    """SH301-SH303 over the registered entries on ``device``: a JSON-ready
+    report, ``ok`` iff coverage is clean and the budget holds (or is being
+    pinned).  ``extra_states`` adds ``{name: (family, tree)}`` to the
+    coverage check (a seeded breach)."""
+    from tpu_paxos_torch.analysis import registry as regm
+    from tpu_paxos_torch.analysis import shard_rules as shr
+    from tpu_paxos_torch.analysis import triage
+    from tpu_paxos_torch.parallel import mesh as pmesh
+    from tpu_paxos_torch.parallel import partition_rules as prules
+    from tpu_paxos_torch.utils import counters
+
+    providers = tuple(providers or regm.AUDIT_PROVIDERS)
+    full = providers == tuple(regm.AUDIT_PROVIDERS) and tuple(shapes) == tuple(SHAPES)
+    entries = regm.collect(providers)
+    trees = {e.name: e.shard_state() for e in entries if e.shard_state is not None}
+    trees.update(extra_states or {})
+    cov = prules.coverage(trees)
+    if not full:
+        cov["stale_rules"] = []  # a scoped run never sees every family
+    measured: dict = {}
+    for e in entries:
+        if e.shard_state is None and e.shard_build is None:
+            continue
+        per_mesh = measured.setdefault(e.name, {})
+        for shape in shapes:
+            n, hosts = shape
+            cell = per_mesh.setdefault(shape_name(shape), {})
+            if e.shard_state is not None and e.name not in (extra_states or {}):
+                family, tree = e.shard_state(n)
+                cell["bytes_per_rank"] = max(prules.rank_bytes(family, tree, n))
+            if e.shard_build is not None:
+                fn, args = e.shard_build(pmesh.make_instance_mesh(n, dcn_hosts=hosts,
+                                                                  device=device))
+                counters.reset()
+                fn(*args)
+                snap = counters.snapshot()
+                cell["rounds"], cell["collectives"] = snap["rounds"], snap["collectives"]
+    violations: list[dict] = []
+    stale: list[str] = []
+    if pin_budget:
+        shr.save_budget(measured, budget_path or shr.DEFAULT_BUDGET)
+    elif budget_path:
+        violations, stale = shr.check_budget(measured, shr.load_budget(budget_path), full)
+    dumped = []
+    for name in sorted({v["entry"] for v in violations}):
+        try:
+            dumped.append(triage.write_dump(triage_dir, "shard", name,
+                                            json.dumps(measured[name], indent=1,
+                                                       sort_keys=True), ext="json"))
+        except OSError:
+            pass  # a read-only checkout must not mask the breach
+    coverage_bad = bool(cov["unmatched"] or cov["rank"] or cov["stale_rules"])
+    return {
+        "version": 1,
+        "grid": [shape_name(x) for x in shapes],
+        "coverage": cov,
+        "measured": measured,
+        "budget": {"path": budget_path or "", "pinned": bool(pin_budget),
+                   "violations": violations, "stale": stale},
+        "dumped": sorted(dumped),
+        "ok": not coverage_bad and not violations and not stale,
+    }
+
+
+def print_report(sreport: dict, pinned: bool) -> None:
+    """Human-readable epilogue of :func:`run_shard_audit`."""
+    cov = sreport["coverage"]
+    for u in cov["unmatched"]:
+        print(f"shard SH301: no committed partition rule matches leaf {u['path']} "
+              f"(entry {u['entry']}, shape {u['shape']}) — an unruled leaf would "
+              "silently replicate; add a rule to parallel/partition_rules.py")
+    for r in cov["rank"]:
+        print(f"shard SH301: rule {r['rule']!r} matched {r['path']} but {r['detail']} "
+              f"(entry {r['entry']})")
+    for s in cov["stale_rules"]:
+        print(f"shard SH301: stale rule {s['rule']!r} (row {s['index']}) matches no "
+              "registered state leaf")
+    for name, per_mesh in sorted(sreport["measured"].items()):
+        cells = []
+        for mesh, m in sorted(per_mesh.items()):
+            part = [f"mesh {mesh}:"]
+            if "bytes_per_rank" in m:
+                part.append(f"{m['bytes_per_rank']} B/rank")
+            if "rounds" in m:
+                part.append(f"{m['collectives']} collectives/{m['rounds']} rounds")
+            cells.append(" ".join(part))
+        print(f"shard {name}: " + "; ".join(cells))
+    for v in sreport["budget"]["violations"]:
+        print(f"shard budget {v['rule']}: {v['detail']}")
+    for s in sreport["budget"]["stale"]:
+        print(f"shard budget: stale cell {s} — no longer measured; re-pin shard_budget.json")
+    if pinned:
+        print(f"shard budget pinned over grid {sreport['grid']}")
+    n_cov = len(cov["unmatched"]) + len(cov["rank"]) + len(cov["stale_rules"])
+    print(
+        f"shard-audit: grid {sreport['grid']}, {cov['leaves']} state leaves / "
+        f"{cov['rules']} rules, {n_cov} coverage problems, "
+        f"{len(sreport['budget']['violations'])} budget violations"
+    )

@@ -28,12 +28,13 @@ import re
 RETENTION_CAP = 32
 
 #: Filename prefixes owned by the analysis tiers — the pruning
-#: namespace: jaxpr/HLO breach dumps plus the model checker's
+#: namespace: the audit's breach dumps (``audit_``; ``jaxpr_``/``hlo_``
+#: name the JAX package's) plus the model checker's
 #: ``mc_scenario_<index>`` counterexample artifacts
 #: (analysis/modelcheck.py), whose deterministic scenario-index names
 #: make repeat runs overwrite.  Stress-sweep repro artifacts
 #: (``repro_*``) never match.
-DUMP_PREFIXES = ("jaxpr_", "hlo_", "mc_", "shard_")
+DUMP_PREFIXES = ("jaxpr_", "hlo_", "mc_", "shard_", "audit_")
 
 _SAFE = re.compile(r"[^A-Za-z0-9_]")
 

@@ -153,3 +153,23 @@ def choose_all(
     state = phase3_learn(state, batch, chosen)
     n_chosen = (state.learned[0] != val.NONE).sum(dtype=_I32)
     return state, n_chosen
+
+
+def audit_entries():
+    """The fast path's registered entry point (``analysis/registry.py``),
+    JAX's canonical call: 16 instances, 3 acceptors, proposer 0, quorum
+    2.  The fast path is plain PyTorch: it launches no hand kernel and
+    reads nothing to the host, which the audit pins."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+
+    def build(device):
+        n, a = 16, 3
+        state = init_state(n, a, device=device)
+        vids = torch.arange(n, dtype=_I32, device=state.learned.device)
+
+        def fn(state, vids):
+            return choose_all(state, vids, proposer=0, quorum=2)
+
+        return fn, (state, vids)
+
+    return [AuditEntry("fast.choose_all", build)]

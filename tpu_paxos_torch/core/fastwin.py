@@ -48,6 +48,7 @@ import torch
 from tpu_paxos_torch.core import ballot as bal
 from tpu_paxos_torch.core import fast
 from tpu_paxos_torch.core import values as val
+from tpu_paxos_torch.utils import counters
 from tpu_paxos_torch.utils import kbuild
 
 NAME = "fastwin"
@@ -209,6 +210,8 @@ def steady_state_windows_fused(
         raise ValueError("vids0 is required unless iota_vids=True")
     span = span or i
     _check_vid_space(reps, span)
+    # one count a window, on every device: a card launches once a window
+    counters.add("steady_state_windows", reps)
     if state.acc_ballot.device.type == "cpu":
         if iota_vids:
             vids0 = torch.arange(i, dtype=_I32)
@@ -228,3 +231,32 @@ def bytes_per_launch(a: int, i: int, iota_vids: bool) -> int:
     arrays written once, the [I] vids read once unless made in the
     kernel, the scalars read and the count written."""
     return 3 * 4 * a * i + (0 if iota_vids else 4 * i) + 4 * (4 + a) + 4
+
+
+#: The library build is covered by the dispatcher's entry.
+AUDIT_EXEMPT = {
+    "load": "builds and loads the kernel's library; every launch goes "
+            "through steady_state_windows_fused, which the entry covers",
+}
+
+
+def audit_entries():
+    """The fused steady-state windows' registered entry point
+    (``analysis/registry.py``), JAX's canonical call: two windows over one
+    65536-instance tile of 3 acceptors, sequential vids, quorum 2 (one
+    launch a window on a card)."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+
+    reps, quorum = 2, 2
+
+    def build(device):
+        state = fast.init_state(TILE, 3, device=device)
+
+        def fn(state):
+            return steady_state_windows_fused(state, None, reps=reps, quorum=quorum,
+                                              iota_vids=True)
+
+        return fn, (state,)
+
+    return [AuditEntry("fastwin.steady_windows", build,
+                       covers=("steady_state_windows_fused",))]

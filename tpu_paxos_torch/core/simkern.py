@@ -56,7 +56,7 @@ import torch
 
 from tpu_paxos_torch.core import ballot as bal
 from tpu_paxos_torch.core import values as val
-from tpu_paxos_torch.utils import kbuild
+from tpu_paxos_torch.utils import counters, kbuild
 
 NAME = "simkern"
 
@@ -75,8 +75,10 @@ def reset_counts() -> None:
 @contextlib.contextmanager
 def counting(counts: dict):
     """Launches this thread makes within the block go to ``counts`` (a
-    mesh rank's own dict, ``parallel/mesh.Mesh.run``), not to
-    :data:`LAUNCHES`: ranks running at once share no counter."""
+    mesh rank's own dict, ``parallel/mesh.Mesh.run``, or the audit's), not
+    to :data:`LAUNCHES`: ranks running at once share no counter.  A mesh
+    run started within the block adds its ranks' launches to ``counts``
+    when it ends."""
     prev = getattr(_LOCAL, "counts", None)
     _LOCAL.counts = counts
     try:
@@ -85,8 +87,13 @@ def counting(counts: dict):
         _LOCAL.counts = prev
 
 
+def held_counts() -> dict | None:
+    """The ``counts`` of this thread's :func:`counting` block, or None."""
+    return getattr(_LOCAL, "counts", None)
+
+
 def _count(name: str) -> None:
-    counts = getattr(_LOCAL, "counts", None)
+    counts = held_counts()
     (LAUNCHES if counts is None else counts)[name] += 1
 
 
@@ -223,7 +230,9 @@ def accum_acks_cuda(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatc
 def store_accepts(acc_ballot, acc_vid, learned, abat, abal, elig):
     """Updates ``acc_ballot``/``acc_vid`` in place and returns them: the
     kernel on CUDA tensors, the plain version written back on CPU
-    tensors."""
+    tensors.  Each call counts once in ``utils/counters``, on every
+    device."""
+    counters.add("store_accepts")
     if acc_ballot.device.type == "cpu":
         new_b, new_v = store_accepts_plain(acc_ballot, acc_vid, learned, abat, abal, elig)
         return acc_ballot.copy_(new_b), acc_vid.copy_(new_v)
@@ -232,7 +241,9 @@ def store_accepts(acc_ballot, acc_vid, learned, abat, abal, elig):
 
 def accum_acks(acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch_pa):
     """Updates ``acks`` in place; returns ``(acks, n_ack)``: the kernel
-    on CUDA tensors, the plain version written back on CPU tensors."""
+    on CUDA tensors, the plain version written back on CPU tensors.
+    Each call counts once in ``utils/counters``, on every device."""
+    counters.add("accum_acks")
     if acks.device.type == "cpu":
         new, n_ack = accum_acks_plain(
             acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch_pa
@@ -314,3 +325,49 @@ def bytes_needed(kernel: str, *operands) -> int:
             + 4 * ballot.numel() + amatch_pa.numel()
         )
     raise ValueError(kernel)
+
+
+#: The library build is covered by the dispatchers' entries.
+AUDIT_EXEMPT = {
+    "load": "builds and loads the kernels' library; every launch goes "
+            "through store_accepts / accum_acks, which the entries cover",
+}
+
+
+def audit_entries():
+    """The two kernels' registered entry points (``analysis/registry.py``),
+    JAX's canonical one-tile calls: ``[A, I] = [3, 65536]`` acceptor
+    arrays, two proposers, every proposer eligible with a zero batch
+    (so both kernels do their full work), one dispatcher call each."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+    from tpu_paxos_torch.utils import device as devm
+
+    a, p, i = 3, 2, 65536
+
+    def _acceptor_arrays(dev):
+        acc_ballot = torch.full((a, i), bal.NONE, dtype=torch.int32, device=dev)
+        acc_vid = torch.full((a, i), val.NONE, dtype=torch.int32, device=dev)
+        learned = torch.full((a, i), val.NONE, dtype=torch.int32, device=dev)
+        return acc_ballot, acc_vid, learned
+
+    def build_store(device):
+        dev = devm.resolve(device)
+        acc_ballot, acc_vid, learned = _acceptor_arrays(dev)
+        abat = torch.zeros((p, i), dtype=torch.int32, device=dev)
+        abal = torch.zeros((p,), dtype=torch.int32, device=dev)
+        elig = torch.ones((p, a), dtype=torch.bool, device=dev)
+        return store_accepts, (acc_ballot, acc_vid, learned, abat, abal, elig)
+
+    def build_ack(device):
+        dev = devm.resolve(device)
+        acc_ballot, acc_vid, learned = _acceptor_arrays(dev)
+        acks = torch.zeros((p, a, i), dtype=torch.int8, device=dev)
+        cur_batch = torch.zeros((p, i), dtype=torch.int32, device=dev)
+        ballot = torch.zeros((p,), dtype=torch.int32, device=dev)
+        amatch = torch.ones((p, a), dtype=torch.bool, device=dev)
+        return accum_acks, (acks, cur_batch, acc_ballot, acc_vid, learned, ballot, amatch)
+
+    return [
+        AuditEntry("simkern.store_accepts", build_store, covers=("store_accepts",)),
+        AuditEntry("simkern.accum_acks", build_ack, covers=("accum_acks",)),
+    ]

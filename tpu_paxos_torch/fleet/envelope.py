@@ -48,6 +48,7 @@ MAX_DELAY_BOUND = 8
 
 _CACHE: dict = {}
 _MISSES = 0  # runners built by the *_for builders since import
+_BY_LABEL: dict[str, int] = {}  # the same, by builder label
 
 
 def clear_cache() -> None:
@@ -64,10 +65,19 @@ def cache_misses() -> int:
     return _MISSES
 
 
-def memo(key, build, cache: dict | None = None):
+def cache_misses_by_label() -> dict[str, int]:
+    """:func:`cache_misses` split by the builder that missed
+    (``runner_for``, ``serve_fleet_for``, ``serve_control_for``,
+    ``member_runner_for``, ``control_window_for``): what
+    ``analysis/buildcount.py`` pins."""
+    return dict(sorted(_BY_LABEL.items()))
+
+
+def memo(key, build, cache: dict | None = None, *, label: str):
     """``cache[key]``, built by ``build()`` and counted in
-    :func:`cache_misses` on a miss; ``cache`` defaults to this module's
-    shared runner cache."""
+    :func:`cache_misses` (under ``label`` in
+    :func:`cache_misses_by_label`) on a miss; ``cache`` defaults to this
+    module's shared runner cache."""
     global _MISSES
     cache = _CACHE if cache is None else cache
     obj = cache.get(key)
@@ -75,6 +85,7 @@ def memo(key, build, cache: dict | None = None):
         obj = build()
         cache[key] = obj
         _MISSES += 1
+        _BY_LABEL[label] = _BY_LABEL.get(label, 0) + 1
     return obj
 
 
@@ -222,7 +233,7 @@ def runner_for(
         runner.explicit_inputs_only = True
         return runner
 
-    return _on_mesh(memo(key, build), mesh)
+    return _on_mesh(memo(key, build, label="runner_for"), mesh)
 
 
 def serve_envelope_key(
@@ -291,7 +302,7 @@ def serve_fleet_for(
     )
     return _on_mesh(memo(key, lambda: sflt.ServeFleetRunner(
         cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, mesh=mesh, device=dev,
-    )), mesh)
+    ), label="serve_fleet_for"), mesh)
 
 
 def serve_control_for(
@@ -327,7 +338,7 @@ def serve_control_for(
     )
     return _on_mesh(memo(key, lambda: sctl.ControlFleetRunner(
         cfg, queue_cap, vid_bound, rounds_per_window, window_rounds, mesh=mesh, device=dev,
-    )), mesh)
+    ), label="serve_control_for"), mesh)
 
 
 def member_envelope_key(
@@ -396,4 +407,4 @@ def member_runner_for(
         n_nodes, n_instances, max_events=max_events,
         max_episodes=max_episodes, crash_rate=crash_rate,
         max_rounds=max_rounds, geometry=geometry, mesh=mesh, device=dev,
-    )), mesh)
+    ), label="member_runner_for"), mesh)

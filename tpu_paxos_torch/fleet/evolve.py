@@ -72,13 +72,10 @@ Where the port differs:
   ``runner.default_lane_count(device)``.  ``mesh=`` and ``--mesh N``
   tile each generation's lanes over a mesh's ranks; the CLI pads the
   lane count to tile it, as JAX's does.
-- **The lane tile on every axis.**  JAX's :func:`evolve` tiles only the
-  fleet axis and runs the member and serve axes untiled whatever the
-  mesh.  The port tiles all three: the member fleet's lanes, and each
-  weather preset's group of serve lanes (``serve/breach.evaluate``), lie
-  over the mesh's ranks, so a lane count or a weather group that does
-  not tile the mesh raises the tile's ``ValueError`` where JAX's runs
-  untiled.  Where they tile, every lane's results are JAX's.
+- **The lane tile on the fleet axis only.**  As JAX's :func:`evolve`,
+  the port tiles the fleet axis's lanes over ``mesh`` and runs the
+  member and serve axes untiled whatever the mesh, so their lane counts
+  and weather groups need not tile it.
 """
 
 from __future__ import annotations
@@ -607,7 +604,7 @@ def _evolve_fleet(
 def _evolve_member(
     n_lanes, generations, base_seed, alphabet, hunt, certified,
     budget, triage_dir, n_nodes, n_instances, max_rounds,
-    max_wedges, logger, device, mesh=None,
+    max_wedges, logger, device,
 ):
     from tpu_paxos_torch.fleet import envelope as env
 
@@ -617,7 +614,7 @@ def _evolve_member(
     runner = env.member_runner_for(
         n_nodes, n_instances,
         max_episodes=max(alphabet.max_episodes, 2),
-        max_rounds=max_rounds, mesh=mesh, device=device,
+        max_rounds=max_rounds, device=device,
     )
     horizon = min(alphabet.horizon, max_rounds)
     alphabet = dataclasses.replace(alphabet, horizon=horizon)
@@ -772,7 +769,7 @@ def _serve_workload(n_prop: int) -> list:
 
 def _evolve_serve(
     n_lanes, generations, base_seed, hunt, triage_dir,
-    max_wedges, logger, latency_rounds, budget_milli, device, mesh=None,
+    max_wedges, logger, latency_rounds, budget_milli, device,
 ):
     from tpu_paxos_torch.fleet import envelope as env
     from tpu_paxos_torch.serve import breach as brch
@@ -807,7 +804,7 @@ def _evolve_serve(
         misses = env.cache_misses()
         ev = brch.evaluate(
             cfg, pop, workload, slo=slo, admit_width=admit_width,
-            mesh=mesh, device=device,
+            device=device,
         )
         compiles_per_gen.append(env.cache_misses() - misses)
         lanes_total += n_lanes
@@ -942,9 +939,10 @@ def evolve(
     run is ok IFF the hunt found (and, on the fleet axis, shrank) a
     wedge within the certificate-derived lane budget, the artifact
     replays byte-identically, and warm compiles are zero.  Runs on
-    ``device``, or with ``mesh`` on its ranks: each generation's lanes
-    tile the mesh (a lane count, or on the serve axis a weather group's,
-    that does not tile it raises the tile's ``ValueError``, as JAX's)."""
+    ``device``; with ``mesh``, the fleet axis's lanes tile its ranks
+    (a lane count that does not tile it raises the tile's
+    ``ValueError``, as JAX's), and the member and serve axes run
+    untiled, as JAX's do."""
     from tpu_paxos_torch.telemetry import diagnose as diag
     from tpu_paxos_torch.utils import device as devm
     from tpu_paxos_torch.utils import log as logm
@@ -980,13 +978,13 @@ def evolve(
         r = _evolve_member(
             n_lanes, generations, base_seed, alphabet, hunt,
             certified, budget, triage_dir, member_nodes,
-            member_instances, member_rounds, max_wedges, logger, dev, mesh,
+            member_instances, member_rounds, max_wedges, logger, dev,
         )
     else:
         r = _evolve_serve(
             n_lanes, generations, base_seed, hunt, triage_dir,
             max_wedges, logger, serve_latency_rounds,
-            serve_budget_milli, dev, mesh,
+            serve_budget_milli, dev,
         )
     seconds = time.perf_counter() - t0  # paxlint: allow[DET001] lanes/sec metric only; never reaches artifacts
     compiles = r["compiles_per_generation"]

@@ -1,11 +1,15 @@
-"""Whole-run invariants (port of ``tpu_paxos/harness/validate.py``,
-numpy paths only).
+"""Whole-run invariants (port of ``tpu_paxos/harness/validate.py``).
 
 The reference harness asserts at end of run that every replica executed
 the identical sequence and that the multiset of executed ids is exactly
 the proposed set — agreement + exactly-once (ref
 multi/main.cpp:567-573); its state machine checks that in-order
 clients' ids execute in order (ref multi/main.cpp:202-212).
+
+Arrays of ``>= 1 << 16`` cells go through ``tpu_paxos_torch.native``'s
+single-pass C++ scans, as the JAX package routes them; a failed native
+build raises.  The numpy versions below are the plain versions the tests
+hold the native scans against.
 """
 
 from __future__ import annotations
@@ -24,10 +28,24 @@ def _fail(msg: str) -> None:
     raise InvariantViolation(msg)
 
 
+#: Arrays of at least this many cells go through ``native`` (below it
+#: the numpy and ctypes overheads wash out).
+_NATIVE_MIN_CELLS = 1 << 16
+
+
+def _use_native(learned: np.ndarray) -> bool:
+    return learned.size >= _NATIVE_MIN_CELLS
+
+
 def _chosen_per_instance(learned: np.ndarray) -> np.ndarray:
-    """Per instance: the vid learned by any knowing node (max over
-    knowing nodes), or NONE where no node knows a value."""
+    """Per instance: the vid learned by any knowing node, or NONE where
+    no node knows a value: the max over knowing nodes in numpy, the first
+    knowing node's on the native path (equal wherever the nodes agree)."""
     learned = np.asarray(learned)
+    if _use_native(learned):
+        from tpu_paxos_torch import native
+
+        return native.chosen_per_instance(learned)
     known = learned != val.NONE
     best = np.where(known, learned, np.iinfo(np.int32).min).max(axis=1)
     return np.where(known.any(axis=1), best, val.NONE)
@@ -36,6 +54,14 @@ def _chosen_per_instance(learned: np.ndarray) -> np.ndarray:
 def check_agreement(learned: np.ndarray) -> None:
     """No two nodes learned different values for the same instance."""
     learned = np.asarray(learned)
+    if _use_native(learned):
+        from tpu_paxos_torch import native
+
+        bad_i = native.check_agreement(learned)
+        if bad_i is not None:
+            _fail(f"agreement violated at instance {bad_i}: nodes learned "
+                  f"{learned[bad_i].tolist()}")
+        return
     known = learned != val.NONE
     ref_col = _chosen_per_instance(learned)
     bad = (known & (learned != ref_col[:, None])).any(axis=1)
@@ -46,13 +72,29 @@ def check_agreement(learned: np.ndarray) -> None:
 
 def check_exactly_once(learned: np.ndarray, expected_vids: np.ndarray | None = None) -> None:
     """Every real value is chosen at most once, and — when the expected
-    proposal set is given — each expected value exactly once."""
+    proposal set is given — each expected value exactly once.
+
+    Run :func:`check_agreement` first: on an array whose nodes disagree,
+    the per-instance value differs between the numpy path (max over
+    knowing nodes) and the native path (first knowing node), which arrays
+    of ``_NATIVE_MIN_CELLS`` cells or more take, so the verdict of this
+    check alone can then depend on the array's size."""
     chosen = _chosen_per_instance(learned)
-    real = chosen[chosen >= 0]
-    uniq, counts = np.unique(real, return_counts=True)
-    if (counts > 1).any():
-        v = int(uniq[np.flatnonzero(counts > 1)[0]])
-        _fail(f"value {v} chosen for more than one instance")
+    if _use_native(np.asarray(learned)):
+        from tpu_paxos_torch import native
+
+        dup = native.check_unique(chosen)
+        if dup is not None:
+            _fail(f"value {dup} chosen for more than one instance")
+        if expected_vids is None:
+            return
+        uniq = np.unique(chosen[chosen >= 0])
+    else:
+        real = chosen[chosen >= 0]
+        uniq, counts = np.unique(real, return_counts=True)
+        if (counts > 1).any():
+            v = int(uniq[np.flatnonzero(counts > 1)[0]])
+            _fail(f"value {v} chosen for more than one instance")
     if expected_vids is not None:
         expected = np.unique(np.asarray(expected_vids))
         missing = np.setdiff1d(expected, uniq)

@@ -43,9 +43,6 @@ How the port runs what JAX compiles:
 
 State tensors carry an explicit device (``"cuda"`` unless the caller
 names the CPU); asking for CUDA without a card raises.
-
-Not ported yet (each raises ``NotImplementedError`` naming itself):
-``audit_entries`` (the JAX IR tooling).
 """
 
 from __future__ import annotations
@@ -66,6 +63,7 @@ from tpu_paxos_torch.core import values as val
 from tpu_paxos_torch.core.sim import _freeze, _one_lane, _sum32, lane_of, lanes_view
 from tpu_paxos_torch.fleet import schedule_table as stm
 from tpu_paxos_torch.membership import churn_table as ctm
+from tpu_paxos_torch.utils import counters
 from tpu_paxos_torch.utils import device as devm
 from tpu_paxos_torch.utils import prng
 
@@ -237,6 +235,7 @@ def _host(*parts: torch.Tensor) -> np.ndarray:
     """Lane-leading ``[L, ...]`` predicates read to the host in ONE copy
     (one sync), as an int32 ``[L, sum of widths]`` array."""
     lanes = parts[0].shape[0]
+    counters.add("host_reads")
     return torch.cat([p.reshape(lanes, -1).to(_I32) for p in parts], dim=1).cpu().numpy()
 
 
@@ -311,6 +310,7 @@ def _build_round(
                 "a geometry-padded member round takes its menu index per "
                 "call (gidx=); a bound-free round takes none"
             )
+        counters.add("rounds")
         return _lane_round(b, roots, st, int(t), tab, running, gidx, acc_gate)
 
     def round_fn(root, st: MemberState, tab=None, gidx=None, t=None) -> MemberState:
@@ -1460,5 +1460,63 @@ class MemberSim:
 
 
 def audit_entries():
-    """The JAX package's IR-audit registrations (jaxpr/HLO tooling)."""
-    raise NotImplementedError("membership audit_entries is not ported yet")
+    """The membership engine's registered entry points
+    (``analysis/registry.py``), JAX's canonical calls at 3 nodes and 8
+    instances: one round with crash sampling on (``MemberSim``'s round),
+    the schedule-bearing replay round, the churn table's device step
+    (inject + run-complete, one call) and the whole-run churn loop of a
+    runtime-table ``ChurnEngine``."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+
+    n, i = 3, 8
+    c = i * 2 + 8
+
+    def _round(device, comp):
+        dev = devm.resolve(device)
+        fn = _build_round(n, i, c, crash_rate=500, comp=comp, device=dev)
+        return fn, (prng.root_key(0), _init(n, i, c, dev))
+
+    def build(device):
+        return _round(device, None)
+
+    def build_replay(device):
+        sched = fltm.FaultSchedule((
+            fltm.partition(2, 10, (0,), (1, 2)),
+            fltm.pause(4, 9, 1),
+            fltm.crash(6, 2),
+        ))
+        return _round(device, fltm.compile_schedule(sched, n))
+
+    def _small_tables():
+        churn = ctm.ChurnSchedule((
+            ctm.ChurnEvent(vid=100),
+            ctm.ChurnEvent(vid=change_vid(1, ADD_ACCEPTOR), wait=ctm.WAIT_CHOSEN),
+            ctm.ChurnEvent(vid=101, wait=ctm.WAIT_APPLIED),
+        ))
+        sched = fltm.FaultSchedule((fltm.pause(2, 5, 1), fltm.crash(8, 2)))
+        return churn, sched
+
+    def build_churn_table(device):
+        dev = devm.resolve(device)
+        churn, _ = _small_tables()
+        ctab = _device_table(_one_lane(ctm.encode_churn(churn, n, 4)), dev)
+        cursor = torch.zeros((1,), dtype=_I32, device=dev)
+
+        def fn(ctab, cursor, st):
+            st2, cur2 = _churn_inject(ctab, cursor, st, c)
+            return st2, cur2, _churn_done(ctab, cur2, st2)
+
+        return fn, (ctab, cursor, _init_lanes(n, i, c, 1, dev))
+
+    def build_run_loop(device):
+        eng = ChurnEngine(n, i, runtime_tables=True, max_events=4, max_episodes=2,
+                          crash_rate=500, max_rounds=64, device=device)
+        churn, sched = _small_tables()
+        return eng.run, (0, churn, sched)
+
+    return [
+        AuditEntry("member.round", build),
+        AuditEntry("member.round_replay", build_replay),
+        AuditEntry("member.churn_table", build_churn_table),
+        AuditEntry("member.run_loop", build_run_loop),
+    ]

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from tpu_paxos_torch.core import simkern
+from tpu_paxos_torch.utils import counters
 from tpu_paxos_torch.utils import device as devm
 
 INSTANCE_AXIS = "i"
@@ -129,6 +130,7 @@ class Collectives:
         if seq >= 2:
             self._store.delete_key(f"{seq - 2}/{self.rank}")
         self.calls += 1
+        counters.add("collectives")
         return np.stack([np.frombuffer(row, np.int64) for row in rows]).reshape(
             (self.size, *x.shape))
 
@@ -203,6 +205,7 @@ class Mesh:
         shared = {}
         colls = [Collectives(self, r, store, turn, shared) for r in range(self.size)]
         launches = [{k: 0 for k in simkern.LAUNCHES} for _ in range(self.size)]
+        outer = simkern.held_counts()  # the caller's counting block, if any
         results = [None] * self.size
         errors = []
 
@@ -213,6 +216,7 @@ class Mesh:
                 with simkern.counting(launches[r]), _on_device(self.devices[r]):
                     results[r] = fn(colls[r])
             except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+                # paxlint: allow[DET001] a rank's failure time orders the errors and bounds the wait; never reaches results
                 errors.append((time.monotonic(), r, e))
                 colls[r].abort()
             finally:
@@ -224,6 +228,7 @@ class Mesh:
         for t in threads:
             t.start()
         while any(t.is_alive() for t in threads):
+            # paxlint: allow[DET001] a rank's failure time orders the errors and bounds the wait; never reaches results
             if errors and time.monotonic() - min(e[0] for e in errors) > self.timeout_s + 30:
                 break  # a rank stuck outside any collective: give up on it
             for t in threads:
@@ -233,6 +238,8 @@ class Mesh:
         for total, counts in zip(self.launch_totals, launches):
             for k, n in counts.items():
                 total[k] = total.get(k, 0) + n
+                if outer is not None:
+                    outer[k] = outer.get(k, 0) + n
         if errors:
             _, rank, exc = min(errors, key=lambda e: e[0])
             raise RankError(rank, self.size, exc) from exc

@@ -229,3 +229,59 @@ def gather_tree(family: str, trees, device=None):
         return np.concatenate([np.asarray(x) for x in leaves], axis=axes[0])
 
     return _map(family, one, list(trees))
+
+
+def leaves(family: str, tree):
+    """``(path, leaf)`` for every leaf of a tree of NamedTuples, tuples
+    and None (None skipped), paths as :func:`split_tree` names them."""
+    out = []
+
+    def one(path, ls):
+        out.append((path, ls[0]))
+
+    _map(family, one, [tree])
+    return out
+
+
+def coverage(trees: dict) -> dict:
+    """SH301 over ``{entry: (family, tree)}``: every non-trivial leaf must
+    match a rule whose rank fits it.  Returns ``{"leaves", "rules",
+    "unmatched": [{entry, path, shape}], "rank": [{entry, path, rule,
+    detail}], "stale_rules": [{index, rule}]}``; a stale rule matches no
+    leaf of any tree (meaningful only when ``trees`` is every family)."""
+    used: set[int] = set()
+    unmatched, rank = [], []
+    n_leaves = 0
+    for entry in sorted(trees):
+        family, tree = trees[entry]
+        for path, leaf in leaves(family, tree):
+            n_leaves += 1
+            hit = match_path(path)
+            if hit is None:
+                if not is_trivial(leaf):
+                    unmatched.append({"entry": entry, "path": path,
+                                      "shape": list(getattr(leaf, "shape", ()))})
+                continue
+            idx, dims = hit
+            used.add(idx)
+            problem = rank_problem(dims, len(getattr(leaf, "shape", ())))
+            if problem and not is_trivial(leaf):
+                rank.append({"entry": entry, "path": path, "rule": RULES[idx][0],
+                             "detail": problem})
+    stale = [{"index": i, "rule": pat} for i, (pat, _d) in enumerate(RULES) if i not in used]
+    return {"leaves": n_leaves, "rules": len(RULES), "unmatched": unmatched, "rank": rank,
+            "stale_rules": stale}
+
+
+def leaf_bytes(leaf) -> int:
+    """Bytes of one numpy or torch leaf."""
+    if hasattr(leaf, "nbytes"):
+        return int(leaf.nbytes)
+    return int(leaf.numel() * leaf.element_size())
+
+
+def rank_bytes(family: str, tree, size: int) -> list[int]:
+    """Each rank's summed leaf bytes of ``tree`` split over ``size`` ranks
+    (replicated leaves count whole on every rank)."""
+    return [sum(leaf_bytes(x) for _p, x in leaves(family, split_tree(family, tree, size, r)))
+            for r in range(size)]

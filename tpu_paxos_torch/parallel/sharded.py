@@ -25,6 +25,7 @@ from tpu_paxos_torch.core import ballot as bal
 from tpu_paxos_torch.core import fast
 from tpu_paxos_torch.core import values as val
 from tpu_paxos_torch.parallel import partition_rules as prules
+from tpu_paxos_torch.utils import counters
 
 _I32 = torch.int32
 
@@ -33,6 +34,7 @@ def _choose_all_local(comm, state: fast.FastState, vids: torch.Tensor, proposer:
                       quorum: int):
     """One rank's body of the choose-all: the single-chip fast path, with
     the ballot derived from the *global* max ballot seen."""
+    counters.add("host_reads", 2)  # the max ballot seen, the chosen count
     global_max = int(comm.gmax(int(state.max_seen.amax())))
     zero = torch.zeros((), dtype=_I32, device=state.max_seen.device)
     _, ballot = bal.bump_past(zero, zero + proposer, zero + global_max)
@@ -90,3 +92,31 @@ def scatter_state(mesh, global_state) -> list:
             for x in part
         ]))
     return out
+
+
+def audit_entries():
+    """The sharded fast path's registered entry point
+    (``analysis/registry.py``), JAX's canonical call: 16 instances over 3
+    acceptors, proposer 0, quorum 2, on a 1-rank mesh (the same program
+    at any mesh size; its two collectives a call are the ``gmax`` of the
+    ballot and the ``gsum`` of the chosen counts).  ``shard_build`` lays
+    the same call over the shard tier's grid; ``shard_state`` is the
+    global ``[A, I]`` state the partition table must cover."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    n = 16
+
+    def _setup(mesh):
+        states = init_sharded_state(mesh, n, n_nodes=3)
+        vids = pmesh.shard_instances(mesh, torch.arange(n, dtype=_I32))
+        return sharded_choose_all(mesh, proposer=0, quorum=2), (states, vids)
+
+    def build(device):
+        return _setup(pmesh.make_instance_mesh(1, device=device))
+
+    def shard_state(n_shards: int = 1):
+        return "fast", fast.init_state(n, 3, device="cpu")
+
+    return [AuditEntry("sharded.choose_all", build, covers=("sharded_choose_all",),
+                       shard_build=_setup, shard_state=shard_state)]

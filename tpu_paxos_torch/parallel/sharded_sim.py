@@ -38,6 +38,7 @@ from tpu_paxos_torch.config import SimConfig
 from tpu_paxos_torch.core import sim as simm
 from tpu_paxos_torch.core import values as val
 from tpu_paxos_torch.parallel import partition_rules as prules
+from tpu_paxos_torch.utils import counters
 from tpu_paxos_torch.utils import prng
 
 _I32 = torch.int32
@@ -239,6 +240,8 @@ def build_runner(cfg: SimConfig, mesh, workload=None, gates=None):
                                          device=mesh.devices[comm.rank])
             st = simm.lanes_view(_unwrap(states[comm.rank]))
             while True:
+                counters.add("host_reads")
+                # paxlint: allow[JAX103] the sharded loop's one designed read a round; analysis/audit.py pins it
                 done, t = (int(x) for x in torch.stack([st.done[0].to(_I32), st.t[0]]).cpu())
                 if done or t >= cfg.round_budget:
                     break
@@ -283,3 +286,31 @@ def padded_config(cfg: SimConfig, workload, gates, n_shards: int) -> SimConfig:
     n_inst = max(cfg.n_instances, min_instances(workload, gates, n_shards))
     n_inst += (-n_inst) % n_shards
     return cfg if n_inst == cfg.n_instances else dataclasses.replace(cfg, n_instances=n_inst)
+
+
+def audit_entries():
+    """The sharded general engine's registered entry point
+    (``analysis/registry.py``), JAX's canonical run: the whole-run loop of
+    ``core/sim.audit_canonical_cfg`` on a 1-rank mesh (the same program at
+    any mesh size; its 16 instances divide the shard tier's whole grid).
+    ``shard_build`` runs it over a grid mesh; ``shard_state`` is the global
+    sharded ``SimState`` (queue leaves with the leading shard axis) the
+    partition table must cover leaf for leaf."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+    from tpu_paxos_torch.parallel import mesh as pmesh
+
+    def _setup(mesh):
+        fn, root, states, _expected = build_runner(simm.audit_canonical_cfg(), mesh)
+        return fn, (root, states)
+
+    def build(device):
+        return _setup(pmesh.make_instance_mesh(1, device=device))
+
+    def shard_state(n_shards: int = 1):
+        cfg = simm.audit_canonical_cfg()
+        pend, gate, tail, _c = prepare_queues_sharded(cfg, simm.default_workload(cfg), None,
+                                                      n_shards)
+        return "sim", global_state(cfg, pend, gate, tail, prng.root_key(cfg.seed))
+
+    return [AuditEntry("sharded_sim.run_rounds", build, covers=("build_runner",),
+                       shard_build=_setup, shard_state=shard_state)]

@@ -226,9 +226,11 @@ def evaluate(
         )
         # one copy per completed preset dispatch, never per lane
         rates = telem.lane_burn_rates(
+            # paxlint: allow[JAX103] one copy a weather preset's dispatch, never a lane
             rep.windows.lat_hist.cpu().numpy(),
             slo.latency_rounds, slo.budget_milli,
         )
+        # paxlint: allow[JAX103] one copy a weather preset's dispatch, never a lane
         flags = np.asarray(rep.breach)
         for li, gi in enumerate(idx):
             burn[gi] = float(rates[li])

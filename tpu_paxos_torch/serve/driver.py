@@ -42,11 +42,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_paxos_torch.config import SimConfig
+from tpu_paxos_torch.config import FaultConfig, SimConfig
 from tpu_paxos_torch.core import sim as simm
 from tpu_paxos_torch.core import values as val
 from tpu_paxos_torch.telemetry import recorder as telem
 from tpu_paxos_torch.utils import device as devm
+from tpu_paxos_torch.utils import prng
 
 _I32 = torch.int32
 
@@ -311,6 +312,78 @@ def window_for(
     return fn
 
 
+#: The serve entries' canonical dispatch shape (JAX's): rounds a window,
+#: windows a dispatch, admit width, and the windowed plane's bucket width.
+AUDIT_R_WINDOW, AUDIT_S_WINDOWS, AUDIT_K_ADMIT = 8, 2, 4
+AUDIT_W_ROUNDS = AUDIT_R_WINDOW * 4
+
+
+def audit_cfg() -> SimConfig:
+    """The serve entries' config: the engine's canonical small config with
+    drop 500, crash 1000 and a delay bound of 2 (JAX's)."""
+    return dataclasses.replace(
+        simm.audit_canonical_cfg(),
+        faults=FaultConfig(drop_rate=500, crash_rate=1000, max_delay=2),
+    )
+
+
+def audit_blocks(workload, p: int):
+    """JAX's canonical admission blocks ``[S, P, K]``: each proposer's
+    stream cut into ``K``-wide blocks, block ``s`` arriving at round
+    ``s * R``, NONE-padded to ``p`` proposer rows."""
+    s_w, k, r = AUDIT_S_WINDOWS, AUDIT_K_ADMIT, AUDIT_R_WINDOW
+    admits = np.full((s_w, p, k), val.NONE, np.int32)
+    arrs = np.zeros((s_w, p, k), np.int32)
+    for pi, w in enumerate(workload):
+        w = np.asarray(w, np.int32)
+        for si in range(s_w):
+            blk = w[si * k:(si + 1) * k]
+            admits[si, pi, :len(blk)] = blk
+            arrs[si, pi, :len(blk)] = si * r
+    return admits, arrs
+
+
 def audit_entries():
-    """The JAX package's IR-audit registration of the serve window."""
-    raise NotImplementedError("serve.driver.audit_entries is not ported yet")
+    """The serve window's registered entry points (``analysis/registry.py``),
+    JAX's canonical dispatches: the audit config with i.i.d. faults on, a
+    2-window dispatch of real admission blocks through stamping, the
+    recorder-armed round spans and the ingest-stamped summary; and the
+    same through the geometry-padded (5, 3) window."""
+    from tpu_paxos_torch.analysis.registry import AuditEntry
+    from tpu_paxos_torch.core import geom as geo
+
+    def build(device):
+        dev = devm.resolve(device)
+        cfg = audit_cfg()
+        workload = simm.default_workload(cfg)
+        v_bound = vid_bound_of(workload)
+        root = prng.root_key(cfg.seed)
+        ss, c = init_serve_state(cfg, workload, v_bound, root,
+                                 window_rounds=AUDIT_W_ROUNDS, device=dev)
+        fn = build_serve_window(cfg, c, v_bound, AUDIT_R_WINDOW,
+                                window_rounds=AUDIT_W_ROUNDS, device=dev)
+        admits, arrs = audit_blocks(workload, len(cfg.proposers))
+        return fn, (ss, root, admits, arrs)
+
+    def build_envelope(device):
+        dev = devm.resolve(device)
+        genv = geo.GeometryEnvelope(menu=((3, (0, 1)), (5, (0, 1, 2))))
+        cfg = audit_cfg()
+        bcfg = genv.bound_cfg(cfg)
+        workload = simm.default_workload(cfg)
+        v_bound = vid_bound_of(workload)
+        root = prng.root_key(cfg.seed)
+        gm = geo.geometry_for(genv, cfg.n_nodes, cfg.proposers)
+        pkn = geo.protocol_knobs(cfg.protocol, stall_patience=simm.IDLE_RESTART_ROUNDS)
+        ss, c = init_serve_state(bcfg, workload + [np.zeros((0,), np.int32)], v_bound, root,
+                                 window_rounds=AUDIT_W_ROUNDS, geometry=genv, geom=gm,
+                                 pknobs=pkn, device=dev)
+        fn = build_serve_window(bcfg, c, v_bound, AUDIT_R_WINDOW,
+                                window_rounds=AUDIT_W_ROUNDS, geometry=genv, device=dev)
+        admits, arrs = audit_blocks(workload, len(bcfg.proposers))
+        return fn, (ss, root, admits, arrs, gm, pkn)
+
+    return [
+        AuditEntry("serve.window", build),
+        AuditEntry("serve.window_envelope", build_envelope),
+    ]

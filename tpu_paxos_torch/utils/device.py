@@ -7,6 +7,8 @@ The CPU runs only when the caller names it, as the tests do.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -52,3 +54,31 @@ def to_host(*trees):
             k += n
         out.append(type(tree)(*fields))
     return out
+
+
+class SyncCount:
+    """The synchronizing CUDA calls counted by :func:`counting_syncs`
+    (``n``, set when the block exits)."""
+
+    def __init__(self):
+        self.n = 0
+
+
+@contextlib.contextmanager
+def counting_syncs():
+    """Count the synchronizing CUDA calls made within the block, from any
+    thread: torch's sync debug mode set to ``"warn"`` (each such call
+    warns) and restored to ``"default"`` after.  The mode is global to the
+    process, so a mesh run's thread ranks count together.  Yields a
+    :class:`SyncCount`."""
+    import warnings
+
+    box = SyncCount()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    box.n = sum("synchroniz" in str(w.message) for w in seen)
