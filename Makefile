@@ -6,7 +6,8 @@ PY ?= python
 
 .PHONY: test test-slow check lint lint-json audit audit-json \
 	shard-audit bench bench-sharded parity parity-fast replay-diff \
-	replay-diff-member run stress stress-quick fleet fleet-quick \
+	replay-diff-member parity-torch parity-fast-torch \
+	replay-diff-member-torch check-smoke-torch run stress stress-quick fleet fleet-quick \
 	evolve evolve-quick mc mc-quick serve serve-quick serve-fleet \
 	serve-fleet-quick serve-control serve-control-quick \
 	envelope-quick clean
@@ -103,6 +104,26 @@ replay-diff:
 # member/diff.sh:1-3 — the Indet subsystem's workflow).
 replay-diff-member:
 	$(PY) scripts/replay_diff_member.py
+
+# The same four surfaces on the PyTorch port (tpu_paxos_torch), on the
+# card unless DEVICE=cpu: the parity anchor against the C++ reference,
+# the wall-paced member record/replay diff, and the strict-mode smoke of
+# one tiny config per engine (CUDA_LAUNCH_BLOCKING=1 against a normal run).
+DEVICE ?= cuda
+
+parity-torch:
+	$(PY) -c "import json; from tpu_paxos_torch.harness import reference_runner as r; \
+	print(json.dumps(r.check_parity(reference_args_list=r.reference_args(), timeout=600, device='$(DEVICE)'), indent=2))"
+
+parity-fast-torch:
+	$(PY) -c "import json; from tpu_paxos_torch.harness import reference_runner as r; \
+	print(json.dumps(r.check_parity(device='$(DEVICE)'), indent=2))"
+
+replay-diff-member-torch:
+	$(PY) scripts/torch_replay_diff_member.py --device $(DEVICE)
+
+check-smoke-torch:
+	$(PY) scripts/torch_check_smoke.py --device $(DEVICE)
 
 # Randomized sweep: seeds x fault mixes through the general engine,
 # full invariant suite on every run (the reference's stated purpose,

@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught).  Phase 19 runs
-after phase 14, before phases 15 and 16.  Phase 21 and the host checks
-of phases 3 and 19b run in child processes beside later phases, and
-phases 17 and 18 run in a child process of this script, started before
-phase 11 and joined after phase 14, beside phases 11-14: every phase's host work is
-Python on one core and the card idles most of each round, so the two
-halves share the card (two CUDA contexts) and the host's cores, and
-their times are taken so.  The child's lines are printed when it is
-joined; its failure fails the script, and the script's failure stops it
-and every process it started.
+Phases (any failure exits non-zero; nothing is caught).  Phases 1-6
+run alone, so that the kernels' own times are taken on a quiet card.
+Then the work runs in lanes at once: this process runs phases 9, 19, 11,
+12 and 20 in that order; a child process runs phases 17, 18, 14 and 16,
+another phases 7, 8, 10, 13 and 15, and phases 21 and 22 run in
+children of their own (all four started after phase 6 and joined after
+phase 20); the host checks of phases 3 and 19b run in children started
+after their runs.  Every phase's host work is Python on one core and the
+card idles most of each round, so the lanes share the card (a CUDA
+context each) and the host's cores, and their times are taken so: a
+round costs the host up to 1.7x what it costs alone.  A child's lines
+are printed when it is joined; its failure fails the script, and the
+script's failure stops it and every process it started.
 
 1. Report the card (``nvidia-smi`` name and power limit, the torch
    device name) and build the CUDA kernels from ``tpu_paxos_torch/csrc``
@@ -284,7 +287,9 @@ and every process it started.
    the JAX goldens (``mc``), with phase 17's own seconds:
    a. The four quick scopes (quick, gray, churn, control) in ``make
       mc-quick``'s order, envelopes cold, each through
-      ``modelcheck.run_for(scope)(scope, device="cuda")``: the verdict bits,
+      ``modelcheck.run_for(scope)(scope, device="cuda")``, the quick scope
+      cut to its first 16 of 58 chunks (``chunk_limit``; its verdict bits
+      and counts then the prefix of the certificate's and JAX's): the verdict bits,
       counts and chunk geometry equal the certificate (compared on the
       card: the port's check has no backend gate), the summary less
       timing and device equals JAX's, ``compiles_per_chunk`` has JAX's
@@ -361,8 +366,9 @@ and every process it started.
       instances on 8 ranks (about 8.4 GB of state), twice: ``n_chosen``
       exactly 1e8, every rank's learned rows equal to its vids, the
       replicated scalars equal on every rank; instances/s printed as 8
-      ranks on one card.  The 1e8 run's host checks (validation and the
-      1e8-line decision log), numpy against native, run in a child process
+      ranks on one card.  The host checks of the 1e8 run's first 2**24
+      instances (validation and their decision log), numpy against
+      native, run in a child process
       beside the rest of the script (joined at the end: equal verdicts
       and log sha256, host seconds printed).  Then 1e7 on the (2, 4) mesh:
       every gathered FastState field equals JAX's (``sharded_fast``).
@@ -402,8 +408,7 @@ and every process it started.
 
 21. The audit on the card (``python -m tpu_paxos_torch audit --device
    cuda``'s ``analysis/audit.run_audit``), in a child process started
-   after phase 14 and joined after phase 20, beside phases 19, 15, 16
-   and 20: every
+   after phase 6 and joined after phase 20, beside phases 7-20: every
    registered entry point (the JAX package's 28 names) runs its
    canonical small run once; its kernel launches a round must equal the
    kernel calls a round pinned on the CPU
@@ -412,6 +417,30 @@ and every process it started.
    sync debug mode, per process) the budget's ``cuda`` caps.  Prints each
    entry's launches, syncs, collectives and host reads a round, and the
    phase's own seconds.
+
+22. The library surface on the card, in a child process started after
+   phase 6 and joined after phase 20, beside phases 7-21: a. bench_sim untraced and then under ``utils/log.profile_trace``
+   (``torch.profiler``, CUDA activity): both decision logs equal phase
+   1's golden, the trace's ``store_accepts``/``accum_acks`` kernel events
+   equal the launch counters, and ``SimResult.rounds_to_chosen`` (length,
+   sum, max, sha256) and ``value_status`` of three vids equal JAX's
+   (``library.bench_sim``); prints the traced and untraced ms a round.
+   b. The fast path's headline (16 windows of 2**27) under the profiler:
+   16 ``window_kernel`` events, equal to the launch counter; the fast CLI
+   at 2**23 with ``--trace-dir``: stdout the untraced golden's.  (The
+   fast CLI runs ``fast.choose_all``, which launches no window kernel, as
+   JAX's does; the headline is the window kernel's path.)  c.
+   ``harness/reference_runner.run_equivalent_sim(4, 4, 10)`` at seeds
+   0-2: rounds and every SimResult array equal JAX's, the reference's
+   checker holds.  d. The five examples (``python -m
+   tpu_paxos_torch.examples.<name> --device cuda``) print their JAX
+   twins' lines.  e. ``scripts/torch_replay_diff_member.py --device
+   cuda``: the replay's decision log is byte-identical to the recording's.
+   f. ``scripts/torch_check_smoke.py --device cuda``: one tiny config per
+   engine under ``CUDA_LAUNCH_BLOCKING=1``, its invariants held and its
+   decision log equal to the normal run's (``compute-sanitizer`` refuses
+   the card's machine, so its pass has no phase).  d-f run after a-c as
+   processes of their own, two at a time.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -2850,11 +2879,29 @@ def finish_mc_clis(gold, script, here: str, tmp: str, started, card: str) -> dic
     return out
 
 
+#: 17a runs the quick scope's first this many chunks (of 58)
+QUICK_CHUNKS = 16
+
+
+def _mc_prefix(want: dict, chunks: int) -> dict:
+    """JAX's summary of a whole scope cut to its first ``chunks`` chunks:
+    what a run with ``chunk_limit=chunks`` reports (the verdict nibbles,
+    lanes and runner builds of those chunks, the scope's own fields as
+    they are)."""
+    lanes = min(chunks * want["chunk_lanes"], want["lanes_judged"])
+    bits = want["verdict_bits"][:lanes]
+    return dict(want, chunks_run=chunks, lanes_judged=lanes, verdict_bits=bits,
+                verdict_bits_sha256=hashlib.sha256(bits.encode()).hexdigest(),
+                compiles_per_chunk=want["compiles_per_chunk"][:chunks])
+
+
 def run_mc_scopes(sk, script, m, gold, card: str) -> dict:
     """17a: the four quick scopes in ``make mc-quick``'s order, cold
     envelopes, each against its certificate and JAX's summary (the zero
-    pattern of runner builds included).  In the quick scope's own run, its
-    first two chunks are held lane by lane against JAX's decision logs,
+    pattern of runner builds included); the quick scope's first
+    :data:`QUICK_CHUNKS` chunks, against the prefix of both.  In the quick
+    scope's own run, its first two chunks are held lane by lane against
+    JAX's decision logs,
     and the first launches of each kernel against the plain version (on
     snapshots of their operands, after the run)."""
     from tpu_paxos_torch.fleet import envelope as envm
@@ -2868,6 +2915,7 @@ def run_mc_scopes(sk, script, m, gold, card: str) -> dict:
     out, total = {}, {"store_accepts": 0, "accum_acks": 0}
     lanes_of = {"quick": 16, "gray": 16, "control": 1}
     n_chunks = gold["config"]["lane_chunks"]
+    limit = {"quick": QUICK_CHUNKS}
     stats = {}
     for name in gold["config"]["quick_scopes"]:
         scope = scopes[name]
@@ -2877,24 +2925,26 @@ def run_mc_scopes(sk, script, m, gold, card: str) -> dict:
         sk.reset_counts()
         with check, script.mc_first_reports(m, n_chunks if quick else 0) as reports, \
                 lane_counts(sk) as shapes, dispatch_log() as seen:
-            s, wall, syncs, peak = _serve_timed(
-                lambda: m.mc.run_for(scope)(scope, verbose=False, device=DEV))
+            s, wall, syncs, peak = _serve_timed(lambda: m.mc.run_for(scope)(
+                scope, verbose=False, chunk_limit=limit.get(name), device=DEV))
         launches = dict(sk.LAUNCHES)
         rounds = sum(x[1] for x in seen)
         disp_s = sum(x[2] for x in seen)
         fails = m.mc.check_certificate(certs[name], s, m.mc.enum_for(scope))
         got = script.mc_less(s)
+        jax = _mc_prefix(want[name], limit[name]) if name in limit else want[name]
         print(f"mc scope {name}: wall_s={wall:.3f} lanes={s['lanes_judged']} "
-              f"lanes_per_sec={s['lanes_judged'] / wall:.2f} chunks={s['chunks_run']} "
+              f"lanes_per_sec={s['lanes_judged'] / wall:.2f} "
+              f"chunks={s['chunks_run']} of {s['chunks']} "
               f"dispatches={len(seen)} round_calls={rounds} "
               f"ms_per_round={disp_s / max(rounds, 1) * 1e3:.3f} "
               f"syncs_per_round={syncs / max(rounds, 1):.2f} peak_gb={peak:.3f} "
               f"compiles_per_chunk={s['compiles_per_chunk'][:4]}... "
               f"verdict_bits_sha256={s['verdict_bits_sha256']} certificate_failures={fails} "
               f"launches={json.dumps(launches, sort_keys=True)} | {card}")
-        if not s["ok"] or s["anomalies"] or fails or got != want[name]:
+        if not s["ok"] or s["anomalies"] or fails or got != jax:
             raise SystemExit(f"mc scope {name} disagrees with its certificate or JAX's summary: "
-                             f"{fails} {_dict_diff(got, want[name])}")
+                             f"{fails} {_dict_diff(got, jax)}")
         lanes = lanes_of.get(name)
         if lanes is None:
             if any(shapes.values()):
@@ -3169,6 +3219,8 @@ def run_evolve(goldens, here: str, card: str) -> dict:
 
 
 SHARDED_RANKS = 8  # phase 19's mesh: eight ranks on the one card
+#: 19b's host checks run on this many of its 1e8 instances (the first)
+NATIVE_19B_ROWS = 1 << 24
 SHARDED_CHECK = 16  # launches of each kernel held per rank in 19a
 SHARDED_FAST_N = 100_000_000  # 19b: BASELINE config 4's literal size
 COLLECTIVE_REPS = 200  # idle collectives timed in a row in 19a
@@ -3267,13 +3319,16 @@ def run_sharded_fast(script, goldens, card: str) -> dict:
                              f"replicated_equal={rep_ok}")
     gb = sum(x.numel() * x.element_size() for s in states for x in s) / 1e9
     peak = torch.cuda.max_memory_allocated() / 1e9
-    # the host checks of the 1e8 run, numpy against native, in a child
-    # process beside what follows: learned [I, A] and the chosen log
+    # the host checks of the 1e8 run's first NATIVE_19B_ROWS instances,
+    # numpy against native, in a child process beside what follows:
+    # learned [I, A] and the chosen log
+    rows = NATIVE_19B_ROWS
     native_19b = start_native_compare(
-        {"learned": torch.cat([s.learned for s in states], dim=1).T.contiguous().cpu().numpy(),
-         "chosen_vid": torch.cat([s.learned[0] for s in states]).cpu().numpy(),
-         "chosen_ballot": torch.cat([s.acc_ballot[0] for s in states]).cpu().numpy()},
-        1 << 27, n, f"19b, sharded fast at {n} x {a}", card)
+        {"learned": torch.cat([s.learned for s in states], dim=1)[:, :rows].T.contiguous()
+         .cpu().numpy(),
+         "chosen_vid": torch.cat([s.learned[0] for s in states])[:rows].cpu().numpy(),
+         "chosen_ballot": torch.cat([s.acc_ballot[0] for s in states])[:rows].cpu().numpy()},
+        1 << 27, rows, f"19b, sharded fast at {n} x {a}, its first {rows} instances", card)
     print(f"sharded fast (19b) {n} instances x {a} nodes over {mesh.size} ranks: n_chosen={n_chosen} "
           f"walls_s={[round(w, 4) for w in walls]} instances_per_sec={n / walls[-1]:.4g} "
           f"(8 ranks on one card, not a multi-chip number) state_gb={gb:.2f} "
@@ -3528,51 +3583,68 @@ def run_tile(goldens, here: str, card: str, untiled_s: float | None = None) -> d
 NATIVE_FLAG = "--native-compare"
 #: the argument that makes this script the child that runs phase 21
 AUDIT_FLAG = "--phase-21"
-#: children started beside the phases, stopped if the script fails
+#: the argument that makes this script the child that runs phase 22
+LIBRARY_FLAG = "--phase-22"
+#: this script, as its children run it
+SCRIPT = os.path.abspath(__file__)
+#: children started beside the phases (each with whether it has a session
+#: of its own), stopped when the script exits
 _STARTED: list = []
 #: their directories (logs, the native compare's saved arrays), removed
 #: when the script exits, whether it fails or not
 _DIRS: list = []
 
 
-def _spawn(args: list, logs: str, name: str):
-    """This script as a child process (``args`` after the script), in a
-    session of its own, its stdout and stderr in files of ``logs``."""
+def _spawn(args: list, logs: str, name: str, own_session: bool = True):
+    """``python <args>`` from the checkout, its stdout and stderr in files
+    of ``logs``.  In a session of its own by default, so that
+    :func:`stop_children` stops it with all it started; without one it
+    stays in this process's group and dies with it."""
     out, err = (open(os.path.join(logs, f"{name}.{x}"), "w") for x in ("out", "err"))
     here = os.path.dirname(os.path.abspath(__file__))
     with out, err:
-        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), *args],
-                                cwd=here, stdout=out, stderr=err, start_new_session=True)
-    _STARTED.append(proc)
+        proc = subprocess.Popen([sys.executable, *args], cwd=here, env=_port_env(here),
+                                stdout=out, stderr=err, start_new_session=own_session)
+    _STARTED.append((proc, own_session))
     _DIRS.append(logs)
     return proc, logs, name, time.perf_counter()
+
+
+def _finish(started, timeout: float) -> tuple:
+    """Wait for a child of :func:`_spawn`: its exit code, stdout, stderr
+    and the seconds since its start."""
+    proc, logs, name, t0 = started
+    rc = proc.wait(timeout=timeout)
+    with open(os.path.join(logs, f"{name}.out")) as fo, open(os.path.join(logs, f"{name}.err")) as fe:
+        return rc, fo.read(), fe.read(), time.perf_counter() - t0
 
 
 def _join(started, what: str, timeout: float = 1200, hide: str | None = None) -> list:
     """Wait for a child of :func:`_spawn`, print its stdout (but the lines
     starting with ``hide``; its stderr to stderr) and return its stdout
     lines; its failure fails the script."""
-    proc, logs, name, t0 = started
-    rc = proc.wait(timeout=timeout)
-    with open(os.path.join(logs, f"{name}.out")) as f:
-        lines = f.read().splitlines()
-    with open(os.path.join(logs, f"{name}.err")) as f:
-        sys.stderr.write(f.read())
+    rc, out, err, wall = _finish(started, timeout)
+    lines = out.splitlines()
+    sys.stderr.write(err)
     print("\n".join(x for x in lines if hide is None or not x.startswith(hide)))
-    print(f"{what} (child process) ended {time.perf_counter() - t0:.1f} s after it started, "
-          f"rc={rc}")
+    print(f"{what} (child process) ended {wall:.1f} s after it started, rc={rc}")
     if rc != 0:
         raise SystemExit(f"{what} failed in its child process (exit {rc})")
     return lines
 
 
 def stop_children() -> None:
-    """Stop every child of :func:`_spawn` (and its session) still running,
-    and remove the children's directories."""
-    for proc in _STARTED:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+    """Stop every child of :func:`_spawn`: a child in a session of its own
+    with everything left in its group (its own processes, even after it
+    has exited), any other child alone; then remove the children's
+    directories."""
+    for proc, own_session in _STARTED:
+        if own_session:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(proc.pid, signal.SIGKILL)
+        elif proc.poll() is None:
+            proc.kill()
+        proc.wait()
     for path in _DIRS:
         shutil.rmtree(path, ignore_errors=True)
 
@@ -3587,8 +3659,8 @@ def start_native_compare(arrays: dict, stride: int, n_instances: int, label: str
     logs = tempfile.mkdtemp(prefix="chip_smoke_native_")
     for key, x in arrays.items():
         np.save(os.path.join(logs, f"{key}.npy"), np.ascontiguousarray(x))
-    return _spawn([NATIVE_FLAG, logs, str(stride), str(n_instances), card, label], logs,
-                  "native")
+    return _spawn([SCRIPT, NATIVE_FLAG, logs, str(stride), str(n_instances), card, label],
+                  logs, "native")
 
 
 def finish_native_compare(started) -> None:
@@ -3698,28 +3770,249 @@ def run_audit_phase(card: str) -> dict:
     return report
 
 
-#: the argument that makes this script the child that runs phases 17-18
-CHILD_FLAG = "--phases-17-18"
-#: the child's last line: its results, as JSON, after this prefix
-CHILD_RESULT = "phases 17-18 result: "
+#: 22a's turns, each one bench_sim run traced and one untraced, after the
+#: process's first run (untraced, cold, left out of the ratios)
+PROFILE_TURNS = 2
 
 
-def run_child_phases(goldens, here: str, card: str) -> dict:
-    """The child's part: phases 17 and 18, and what the kernels line reads
-    of them."""
+def run_traced_bench(sk, goldens, card: str) -> None:
+    """22a: bench_sim untraced, then :data:`PROFILE_TURNS` turns of a run
+    under ``utils/log.profile_trace`` and one without: the decision log
+    equals phase 1's golden every time, the trace's kernel events equal the
+    launch counters, and ``rounds_to_chosen`` and three ``value_status``
+    answers equal JAX's (``library.bench_sim``)."""
+    from tpu_paxos_torch.core import sim
+    from tpu_paxos_torch.utils import log as logm
+
+    gold, lib = goldens["bench_sim"], goldens["library"]["bench_sim"]
+    cfg = _bench_cfg(gold)
+    kernels = ("store_accepts", "accum_acks")
+
+    def timed(out_dir=None):
+        """One run, traced into ``out_dir`` if given: its seconds, its
+        result and its launches."""
+        sk.reset_counts()
+        torch.cuda.synchronize()
+        with logm.profile_trace(out_dir, DEV):
+            t0 = time.perf_counter()
+            res = sim.run(cfg, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _check_bench_sim(res, cfg, gold)
+        return wall, res, dict(sk.LAUNCHES)
+
+    first_s, _, want = timed()
+    turns, agree = [], True
+    for _ in range(PROFILE_TURNS):
+        with tempfile.TemporaryDirectory() as d:
+            traced_s, res, launches = timed(d)
+            path = os.path.join(d, logm.TRACE_FILE)
+            counts = logm.trace_kernel_counts(path, [f"{k}_kernel" for k in kernels])
+            events = {k: counts[f"{k}_kernel"] for k in kernels}
+            mb = os.path.getsize(path) / 1e6
+        plain_s, _, again = timed()
+        agree = agree and events == {k: launches[k] for k in kernels} and \
+            launches == want == again
+        turns.append((traced_s, plain_s))
+    ms = [(1e3 * t / res.rounds, 1e3 * u / res.rounds) for t, u in turns]
+    ratios = [t / u for t, u in turns]
+    rtc = sim.rounds_to_chosen_digest(res.rounds_to_chosen)
+    status = [[v, res.value_status(v)] for v, _ in lib["value_status"]]
+    print(f"traced bench_sim (22a, I={cfg.n_instances}): rounds={res.rounds} decision log = "
+          f"phase 1's golden on all {1 + 2 * PROFILE_TURNS} runs, trace {mb:.1f} MB, kernel "
+          f"events {json.dumps(events, sort_keys=True)} launches "
+          f"{json.dumps(launches, sort_keys=True)} (untraced {json.dumps(want, sort_keys=True)})"
+          f" | {card}")
+    print(f"profiler cost on bench_sim (22a): the process's first run, untraced "
+          f"{1e3 * first_s / res.rounds:.3f} ms a round (left out); turns traced, untraced "
+          f"{', '.join(f'{t:.3f} / {u:.3f}' for t, u in ms)} ms a round; traced/untraced "
+          f"{', '.join(f'{r:.3f}' for r in ratios)} (spread {min(ratios):.3f}-"
+          f"{max(ratios):.3f}) | {card}")
+    print(f"rounds_to_chosen (22a): {json.dumps(rtc, sort_keys=True)}; value_status "
+          f"{json.dumps(status)}")
+    if not agree:
+        raise SystemExit("22a: the trace's kernel events disagree with the launch counters")
+    if rtc != lib["rounds_to_chosen"] or json.loads(json.dumps(status)) != lib["value_status"]:
+        raise SystemExit("22a: rounds_to_chosen or value_status disagrees with JAX's golden")
+
+
+def run_traced_fast(goldens, card: str) -> None:
+    """22b: the fast path's headline (16 windows of 2**27) under
+    ``profile_trace`` (one ``window_kernel`` event a window, equal to the
+    launch counter), and the fast CLI at 2**23 with ``--trace-dir``
+    (stdout the untraced golden's)."""
+    from tpu_paxos_torch import __main__ as cli
+    from tpu_paxos_torch.core import fast
+    from tpu_paxos_torch.core import fastwin as fw
+    from tpu_paxos_torch.utils import log as logm
+
+    with tempfile.TemporaryDirectory() as d:
+        st = fast.init_state(I_FW, A, device=DEV)
+        fw.reset_counts()
+        with logm.profile_trace(d, DEV):
+            t0 = time.perf_counter()
+            st, counts = fw.steady_state_windows_fused(st, None, reps=WINDOWS, quorum=3,
+                                                        iota_vids=True)
+            total = int(counts.cpu().to(torch.int64).sum())
+            wall = time.perf_counter() - t0
+        launches = fw.LAUNCHES["steady_state_windows"]
+        events = logm.trace_kernel_counts(os.path.join(d, logm.TRACE_FILE),
+                                          ["window_kernel"])["window_kernel"]
+        del st, counts
+        torch.cuda.empty_cache()
+    print(f"traced fast headline (22b, A={A}, I={I_FW}, {WINDOWS} windows): total={total} "
+          f"window_kernel events={events} launches={launches} wall_s={wall:.4f} | {card}")
+    if not events == launches == WINDOWS or total != WINDOWS * I_FW:
+        raise SystemExit(f"22b: {events} kernel events, {launches} launches, want {WINDOWS}")
+    gold = goldens["fast_cli_2p23"]
+    with tempfile.TemporaryDirectory() as d:
+        argv = list(gold["args"]) + [f"--device={DEV}", "--trace-dir", d]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        n = sum(logm.trace_kernel_counts(os.path.join(d, logm.TRACE_FILE)).values())
+    print(f"traced fast cli (22b) {' '.join(gold['args'])} --trace-dir: rc={rc} kernel events={n} "
+          f"stdout equal to the untraced golden={buf.getvalue() == gold['stdout']}")
+    if rc != 0 or buf.getvalue() != gold["stdout"]:
+        raise SystemExit("22b: the traced fast CLI's stdout differs from the untraced run's")
+
+
+def run_equivalent(goldens, card: str) -> None:
+    """22c: ``run_equivalent_sim(4, 4, 10)`` on the card at seeds 0-2:
+    rounds and every SimResult array equal JAX's, and the reference's
+    checker holds."""
+    import numpy as np
+
+    from tpu_paxos_torch.harness import reference_runner as refr
+    from tpu_paxos_torch.harness import validate
+
+    gold = goldens["library"]["equivalent_sim"]
+    for seed in gold["seeds"]:
+        t0 = time.perf_counter()
+        res, in_order = refr.run_equivalent_sim(*gold["args"], seed=seed, device=DEV)
+        wall = time.perf_counter() - t0
+        want = gold["runs"][str(seed)]
+        got = {f: hashlib.sha256(np.ascontiguousarray(np.asarray(getattr(res, f)), dtype="<i4")
+                                 .tobytes()).hexdigest() for f in want["arrays"]}
+        seqs = validate.check_all(res.learned, res.expected_vids)
+        validate.check_in_order_clients(seqs[0], in_order)
+        same = (res.rounds, res.done, got) == (want["rounds"], want["done"], want["arrays"])
+        print(f"equivalent sim (22c) 4 4 10 seed {seed}: rounds={res.rounds} wall_s={wall:.3f} "
+              f"arrays equal to JAX's={same}; check_all, check_in_order_clients hold | {card}")
+        if not same:
+            raise SystemExit(f"22c: run_equivalent_sim seed {seed} disagrees with JAX's golden")
+
+
+#: phase 22's processes running at once (the parent's phases share the host)
+LIBRARY_PROCS = 2
+
+
+def run_library_phase(goldens, card: str) -> None:
+    """Phase 22: the library surface on the card.  22a-c in this process,
+    then 22d-f as processes of their own, :data:`LIBRARY_PROCS` at a
+    time."""
+    from tpu_paxos_torch.core import simkern as sk
+    from tpu_paxos_torch.examples import TWINS
+
+    t22 = time.perf_counter()
+    run_traced_bench(sk, goldens, card)
+    run_traced_fast(goldens, card)
+    run_equivalent(goldens, card)
+    todo = [(f"example {n}", ["-m", f"tpu_paxos_torch.examples.{n}", "--device", DEV])
+            for n in TWINS]
+    todo += [("replay diff", ["scripts/torch_replay_diff_member.py", "--device", DEV]),
+             ("check smoke", ["scripts/torch_check_smoke.py", "--device", DEV])]
+    logs = tempfile.mkdtemp(prefix="chip_smoke_22_")
+    running, failed = [], []
+    while todo or running:
+        while todo and len(running) < LIBRARY_PROCS:
+            what, args = todo.pop(0)
+            # in this process's group: stopping this child stops them too
+            running.append((what, _spawn(args, logs, what.replace(" ", "_"), own_session=False)))
+        what, started = running.pop(0)
+        rc, out, err, wall = _finish(started, timeout=600)
+        if what.startswith("example "):
+            name = what.split()[1]
+            ok = rc == 0 and out == goldens["library"]["examples"][TWINS[name]]
+            label = f"example (22d) {name}: JAX twin's lines={ok}"
+        elif what == "replay diff":
+            ok = rc == 0 and json.loads(out.splitlines()[-1])["replay_diff_member"]
+            label = f"replay diff (22e): {out.strip()}"
+        else:
+            ok = rc == 0 and json.loads(out.splitlines()[-1])["check_smoke"]
+            label = "check smoke (22f, CUDA_LAUNCH_BLOCKING=1 against normal):\n" + out.rstrip()
+        print(f"{label}; rc={rc}, ended within {wall:.1f} s of its start | {card}")
+        if not ok:
+            sys.stderr.write(err[-3000:])
+            failed.append(what)
+    print(f"phase 22 (the library surface) took {time.perf_counter() - t22:.1f} s | {card}")
+    if failed:
+        raise SystemExit(f"phase 22 failed: {', '.join(failed)}")
+
+
+#: the argument that makes this script the child that runs phases 17, 18,
+#: 14 and 16
+MC_FLAG = "--phases-17-18-14-16"
+#: the argument that makes this script the child that runs phases 7, 8,
+#: 10, 13 and 15
+SERVE_FLAG = "--phases-7-8-10-13-15"
+#: a child's last line: its results, as JSON, after this prefix
+CHILD_RESULT = "child result: "
+
+
+def _read(r: dict) -> dict:
+    """What the kernels line reads of a phase's record."""
+    return {k: r[k] for k in ("launches", "checked")}
+
+
+def run_mc_lane(goldens, here: str, card: str) -> dict:
+    """The :data:`MC_FLAG` child's part: phases 17, 18, 14 and 16, and what
+    the kernels line reads of them."""
     mc = run_mc(goldens, here, card)
     evolve = run_evolve(goldens, here, card)
-    return {"mc": {"scopes": {k: mc["scopes"][k] for k in ("launches", "checked")}},
-            "evolve": {k: evolve[k] for k in ("launches", "checked")}}
+    run_member(goldens, here, card)
+    control = run_control(goldens, here, card)
+    return {"mc": {"scopes": _read(mc["scopes"])}, "evolve": _read(evolve),
+            "control": {k: _read(control[k]) for k in ("full", "fleet")}}
 
 
-def finish_child_phases(started) -> dict:
-    """Wait for the phases 17-18 child, print its lines and return its
-    results; its failure fails the script."""
-    lines = _join(started, "phases 17-18 (beside phases 11-14)", hide=CHILD_RESULT)
+def run_search_phase(sk, goldens, here: str, card: str) -> tuple:
+    """Phase 13: the stress fleet sweep beside fleet-quick's subprocess,
+    the wide search and the padded envelope."""
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 13a's subprocess runs beside 13c's
+        quick = start_fleet_quick(goldens, here, tmp)
+        run_stress_fleet(goldens, card)
+        run_fleet_quick(goldens, here, card, quick, tmp)
+    wide = run_search_wide(sk, goldens, card)
+    env13 = run_envelope(sk, goldens, card)
+    print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
+    return wide, env13
+
+
+def run_serve_lane(goldens, here: str, card: str) -> dict:
+    """The :data:`SERVE_FLAG` child's part: phases 7, 8, 10, 13 and 15, and
+    what the kernels line reads of them."""
+    from tpu_paxos_torch.core import simkern as sk
+
+    run_fast_cli(goldens)
+    for key in ("bench_sim_partition_flap", "bench_sim_wan3"):
+        run_scheduled(sk, goldens, key)
+    full = run_runtime_full(sk, goldens)
+    wide, env13 = run_search_phase(sk, goldens, here, card)
+    serve = run_serve(goldens, here, card)
+    return {"full": full, "wide": {"launches": wide["launches"]}, "envelope": _read(env13),
+            "serve": {k: _read(serve[k]) for k in ("full", "fleet")}}
+
+
+def finish_child_phases(started, what: str) -> dict:
+    """Wait for a child of :data:`MC_FLAG` or :data:`SERVE_FLAG`, print its
+    lines and return its results; its failure fails the script."""
+    lines = _join(started, what, hide=CHILD_RESULT)
     results = [x for x in lines if x.startswith(CHILD_RESULT)]
     if not results:
-        raise SystemExit("phases 17-18 printed no result in their child process")
+        raise SystemExit(f"{what} printed no result in their child process")
     return json.loads(results[-1][len(CHILD_RESULT):])
 
 
@@ -3750,12 +4043,16 @@ def main() -> int:
     fw.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
           f"{sorted(os.path.relpath(p, here) for p in libs.values())}")
-    if CHILD_FLAG in sys.argv[1:]:
-        out = run_child_phases(goldens, here, card)
-        print(CHILD_RESULT + json.dumps(out, default=lambda x: x.item()))
-        return 0
+    for flag, phases in ((MC_FLAG, run_mc_lane), (SERVE_FLAG, run_serve_lane)):
+        if flag in sys.argv[1:]:
+            out = phases(goldens, here, card)
+            print(CHILD_RESULT + json.dumps(out, default=lambda x: x.item()))
+            return 0
     if AUDIT_FLAG in sys.argv[1:]:
         run_audit_phase(card)
+        return 0
+    if LIBRARY_FLAG in sys.argv[1:]:
+        run_library_phase(goldens, card)
         return 0
 
     rec = check_kernels(sk)
@@ -3768,14 +4065,20 @@ def main() -> int:
     run_cli(sk, goldens)
     fw_rec = check_fastwin(fw, fast)
     fw_launches = run_fast_headline(fw, fast, card)
-    run_fast_cli(goldens)
-    for key in ("bench_sim_partition_flap", "bench_sim_wan3"):
-        run_scheduled(sk, goldens, key)
-    fleet = run_fleet(sk, goldens, card)
-    full = run_runtime_full(sk, goldens)
+    # the kernels' own times are taken by now: from here on the phases run
+    # in four lanes, this process (9, 19, 11, 12, 20) and two children
+    # (17, 18, 14, 16 and 7, 8, 10, 13, 15), with phases 21 and 22 in
+    # children of their own (each child's sync count is its own: the
+    # debug mode is per process); 19b's host checks run in a child beside
+    # them
     logs = tempfile.mkdtemp(prefix="chip_smoke_child_")
-    child = _spawn([CHILD_FLAG], logs, "child")
+    mc_child = _spawn([SCRIPT, MC_FLAG], logs, "mc")
+    serve_child = _spawn([SCRIPT, SERVE_FLAG], logs, "serve")
+    audit21 = _spawn([SCRIPT, AUDIT_FLAG], logs, "audit")
+    library22 = _spawn([SCRIPT, LIBRARY_FLAG], logs, "library")
     try:
+        fleet = run_fleet(sk, goldens, card)
+        shard = run_sharded(goldens, here, card)
         t11 = time.perf_counter()
         run_stress_quick(goldens, here, card)
         wedge = run_triage_wedge(sk, goldens, here, card)
@@ -3798,33 +4101,17 @@ def main() -> int:
                 replay_full()
             print(f"phase 12 (flight recorder, with 11c's replay) took "
                   f"{time.perf_counter() - t12:.1f} s")
-        t13 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            # 13a's subprocess runs beside 13c's
-            quick = start_fleet_quick(goldens, here, tmp)
-            run_stress_fleet(goldens, card)
-            run_fleet_quick(goldens, here, card, quick, tmp)
-        wide = run_search_wide(sk, goldens, card)
-        env13 = run_envelope(sk, goldens, card)
-        print(f"phase 13 (search, fleet sweep, padded envelope) took {time.perf_counter() - t13:.1f} s")
-        run_member(goldens, here, card)
-        child_out = finish_child_phases(child)
+        tile = run_tile(goldens, here, card, fleet["headline"]["checked_seconds"])
+        _join(audit21, "phase 21")
+        _join(library22, "phase 22")
+        mc_lane = finish_child_phases(mc_child, "phases 17, 18, 14, 16")
+        serve_lane = finish_child_phases(serve_child, "phases 7, 8, 10, 13, 15")
     finally:
-        # on a failure the script's exit stops the child (stop_children)
+        # on a failure the script's exit stops the children (stop_children)
         shutil.rmtree(logs, ignore_errors=True)
-    # phase 21 in a child process beside phases 19, 15, 16 and 20 (its
-    # sync count is the child's own: the debug mode is per process);
-    # phase 19 runs before 15-16, so that 19b's host checks (a child of
-    # their own, minutes of host work) run beside 15, 16 and 20
-    logs21 = tempfile.mkdtemp(prefix="chip_smoke_audit_")
-    audit21 = _spawn([AUDIT_FLAG], logs21, "audit")
-    shard = run_sharded(goldens, here, card)
-    serve = run_serve(goldens, here, card)
-    control = run_control(goldens, here, card)
-    mc, evolve = child_out["mc"], child_out["evolve"]
-    tile = run_tile(goldens, here, card, fleet["headline"]["checked_seconds"])
-    _join(audit21, "phase 21")
-    shutil.rmtree(logs21, ignore_errors=True)
+    mc, evolve, control = mc_lane["mc"], mc_lane["evolve"], mc_lane["control"]
+    full, wide, env13 = serve_lane["full"], serve_lane["wide"], serve_lane["envelope"]
+    serve = serve_lane["serve"]
     finish_native_compare(native_main)
     finish_native_compare(shard["fast"]["native"])
 
@@ -3922,7 +4209,7 @@ def main() -> int:
         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
         "library_ms": None,
     })
-    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-21)")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s (phases 1-22)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

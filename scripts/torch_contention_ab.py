@@ -1,15 +1,14 @@
-"""Do ``chip_smoke.py``'s host-check child and phase 21's audit child slow
-the phases that run beside them?  Times those phases' runs with and
-without the children, in one process on the card.
+"""Does a host-check child of ``chip_smoke.py``'s kind and phase 21's
+audit child slow the host-looped phases that run beside them?  Times
+those phases' runs with and without the children, in one process on the
+card.
 
     python scripts/torch_contention_ab.py [--reps N]
 
-``chip_smoke.py`` runs phase 19 before phases 15 and 16, so that 19b's
-host checks (a child process: numpy and ``tpu_paxos_torch.native`` on a
-``[1e8, 7]`` array and its 1e8-line decision log, about 270 s of host
-work) and phase 21 (the audit, a child on the same card) run beside
-phases 15, 16 and 20.  Their ms a round are host-bound.  This script
-times, on the card:
+The host-check child is numpy and ``tpu_paxos_torch.native`` on a
+``[1e8, 7]`` array and its 1e8-line decision log (about 270 s of host
+work, 19b's full size); the audit child runs on the same card.  The
+phases' ms a round are host-bound.  This script times, on the card:
 
 - 20a: phase 9's 128-lane headline cycle on the 8-rank lane tile (ms a
   rank round);

@@ -165,6 +165,21 @@ before its backend starts as ``tests/conftest.py`` does):
   ``seconds`` and ``platform``, and one of its runs (:data:`STRESS_SHARDED_ONE`)
   with the suite's verdict.
 
+Phase 22 of ``chip_smoke.py`` (the library surface) holds ``library``
+(``--library-only`` recomputes it, about 2 min on the CPU box):
+``bench_sim``'s ``SimResult.rounds_to_chosen`` (length, sum, max,
+sha256) and ``value_status`` of three vids, the same on ``cli_4_4_10``
+with ``value_status`` of every workload vid and four sentinel or unknown
+ones,
+``run_equivalent_sim(4, 4, 10)`` at seeds 0-2 (rounds, ``done`` and the
+sha256 of every SimResult array), and each JAX example's stdout on one
+CPU device.
+
+``tests`` is JAX's side of the port's heaviest CPU test files: for each
+part of :data:`TEST_GOLDENS`, ``tests/test_torch_<part>.py``'s
+``jax_goldens(tmp)`` (``--tests-only [part ...]`` recomputes them, 2-4
+min a part); those files hold the port to it instead of rerunning JAX.
+
 ``--instances`` shrinks the bench run (for a quick self-check); the
 committed file holds the full 2**23 run.
 """
@@ -2239,6 +2254,117 @@ def provision_cpu_devices(n: int = SHARDED_DEVICES) -> None:
         )
 
 
+#: the library phase's equivalent-sim seeds (``run_equivalent_sim(4, 4, 10)``)
+EQUIVALENT_SEEDS = (0, 1, 2)
+
+
+def status_vids(res) -> list:
+    """Three vids to ask ``value_status``: the real value decided first, a
+    no-op the run chose (a sentinel: ``pending``) or the base no-op vid,
+    and a vid never proposed (``pending``)."""
+    import numpy as np
+
+    cv = np.asarray(res.chosen_vid)
+    noops = cv[cv <= -2]
+    return [int(cv[np.flatnonzero(cv >= 0)[0]]), int(noops[0]) if noops.size else -2,
+            int(np.asarray(res.expected_vids).max()) + 1]
+
+
+#: the sentinel and unknown vids ``value_status`` is also asked on the CLI run
+STATUS_EXTRA_VIDS = (-1, -2, -7, 10_000)
+
+
+def library_status(res, vids=None) -> dict:
+    """``rounds_to_chosen`` and ``value_status`` of ``vids`` (default:
+    :func:`status_vids`)."""
+    from tpu_paxos_torch.core.sim import rounds_to_chosen_digest
+
+    return {"rounds_to_chosen": rounds_to_chosen_digest(res.rounds_to_chosen),
+            "value_status": [[v, res.value_status(v)]
+                             for v in (status_vids(res) if vids is None else vids)]}
+
+
+def example_stdout(name: str) -> str:
+    """Stdout of the JAX example ``examples/<name>.py`` on one CPU device,
+    run as ``tests/test_examples.py`` runs it."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, runpy, jax; jax.config.update('jax_platforms', "
+         "'cpu'); runpy.run_path(sys.argv[1], run_name='__main__')",
+         os.path.join(root, "examples", f"{name}.py")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900, check=True)
+    return proc.stdout
+
+
+def library_goldens() -> dict:
+    """Phase 22 of ``chip_smoke.py`` (the library surface): ``bench_sim``'s
+    ``rounds_to_chosen`` and three ``value_status`` answers; the same on
+    ``cli_4_4_10`` for every vid (the CPU tests' golden); ``run_equivalent_sim(4, 4, 10, seed)`` for each seed
+    of :data:`EQUIVALENT_SEEDS` (rounds, ``done`` and the sha256 of every
+    SimResult array); and each JAX example's stdout."""
+    from tpu_paxos import config as cfgm
+    from tpu_paxos.core import sim
+    from tpu_paxos.harness import reference_runner as refr
+    from tpu_paxos_torch.examples import TWINS
+
+    bc = bench_sim_config()
+    cfg = cfgm.SimConfig(
+        n_nodes=bc["n_nodes"], n_instances=bc["n_instances"],
+        proposers=tuple(bc["proposers"]), seed=bc["seed"],
+        assign_window=bc["assign_window"], max_rounds=bc["max_rounds"],
+        faults=cfgm.FaultConfig(**bc["faults"]),
+    )
+    bench = library_status(sim.run(cfg))
+    srv, clt, ids = CLI_ARGS
+    workload, gates, _ = refr.equivalent_workload(srv, clt, ids)
+    ccfg = cfgm.SimConfig(n_nodes=srv, n_instances=clt * ids * 2, proposers=tuple(range(srv)),
+                          seed=0, faults=cfgm.FaultConfig(**CLI_FAULTS))
+    cres = sim.run(ccfg, workload, gates)
+    equivalent = {}
+    for seed in EQUIVALENT_SEEDS:
+        res, _ = refr.run_equivalent_sim(srv, clt, ids, seed=seed)
+        equivalent[str(seed)] = {"rounds": int(res.rounds), "done": bool(res.done),
+                                 "arrays": {f: array_sha256(getattr(res, f))
+                                            for f in SHARDED_ARRAYS}}
+    return {
+        "bench_sim": bench,
+        "cli_4_4_10": library_status(cres, sorted(int(v) for v in cres.expected_vids)
+                                     + list(STATUS_EXTRA_VIDS)),
+        "equivalent_sim": {"args": CLI_ARGS, "seeds": list(EQUIVALENT_SEEDS),
+                           "runs": equivalent},
+        "examples": {name: example_stdout(name) for name in sorted(TWINS.values())},
+    }
+
+
+#: the port's CPU test files whose JAX side is committed (``tests.<part>``)
+TEST_GOLDENS = ("cli", "search", "shrink")
+
+
+def tests_goldens(parts=TEST_GOLDENS) -> dict:
+    """``tests``: JAX's side of the heaviest CPU test files, each
+    ``tests/test_torch_<part>.py``'s ``jax_goldens(tmp)``, so that tier 1
+    holds the port to JAX without rerunning JAX (those files' slow tier
+    recomputes their entry)."""
+    import importlib.util
+    import tempfile
+
+    tests = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests")
+    sys.path.insert(0, tests)
+    out = {}
+    for part in parts:
+        name = f"test_torch_{part}"
+        spec = importlib.util.spec_from_file_location(name, os.path.join(tests, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with tempfile.TemporaryDirectory() as tmp:
+            out[part] = json.loads(json.dumps(mod.jax_goldens(tmp), sort_keys=True))
+    return out
+
+
 def phase13_goldens(out: dict, out_dir: str, parts=("search", "stress_fleet", "envelope")) -> dict:
     if "search" in parts:
         out["search"] = search_goldens(out_dir)
@@ -2266,6 +2392,8 @@ def compute(n_instances: int = 1 << 23, out_dir: str | None = None) -> dict:
         out["mc"] = mc_goldens()
         out["evolve"] = evolve_goldens()
         out.update(sharded_goldens(path))
+        out["library"] = library_goldens()
+        out["tests"] = tests_goldens()
 
     if out_dir is not None:
         rest(out_dir)
@@ -2340,6 +2468,11 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="recompute only the sharded entries (phase 19) of the --write file "
                     "and rewrite the committed sharded artifact beside it")
+    ap.add_argument("--tests-only", nargs="*", default=None, choices=TEST_GOLDENS,
+                    help="recompute only the tests entry (all of it, or the parts named) "
+                    "of the --write file")
+    ap.add_argument("--library-only", action="store_true",
+                    help="recompute only the library entry (phase 22) of the --write file")
     ap.add_argument("--serve-only", action="store_true",
                     help="recompute only the serve entry (phase 15) and the host-loop "
                     "half of the stress_fleet entry of the --write file")
@@ -2353,7 +2486,8 @@ def main(argv=None) -> int:
     p13 = tuple(p for p in ("search", "stress_fleet", "envelope") if getattr(args, f"{p}_only"))
     if (args.fleet_only or args.triage_only is not None or args.telemetry_only or p13
             or args.member_only or args.serve_only or args.control_only or args.mc_only
-            or args.evolve_only or args.sharded_only):
+            or args.evolve_only or args.sharded_only or args.library_only
+            or args.tests_only is not None):
         with open(args.write) as f:
             out = json.load(f)
         if args.fleet_only:
@@ -2378,6 +2512,10 @@ def main(argv=None) -> int:
             out["evolve"] = evolve_goldens()
         if args.sharded_only:
             out.update(sharded_goldens(out_dir))
+        if args.library_only:
+            out["library"] = library_goldens()
+        if args.tests_only is not None:
+            out.setdefault("tests", {}).update(tests_goldens(tuple(args.tests_only) or TEST_GOLDENS))
     else:
         out = compute(args.instances, out_dir)
     text = json.dumps(out, indent=1, sort_keys=True) + "\n"

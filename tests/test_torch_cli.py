@@ -1,7 +1,9 @@
 """The port's CLI (``python -m tpu_paxos_torch``, general engine and fast
 path) against the JAX CLI, the port's import boundary (no ``jax``, no
 ``tpu_paxos``), and the committed JAX goldens that ``chip_smoke.py``
-holds the card run to."""
+holds the card run to.  The JAX CLI's stdout for the heavier lines is
+:func:`jax_goldens`, committed as ``goldens.json``'s ``tests.cli`` by
+``scripts/torch_port_goldens.py`` (the slow tier recomputes it)."""
 
 import hashlib
 import importlib.util
@@ -42,12 +44,80 @@ def _goldens():
         return json.load(f)
 
 
+#: the crash run of test_cli_json_summary_equals_the_jax_cli
+CRASH_ARGS = ["3", "2", "6", "--seed=4", "--net-drop-rate=900", "--crash-rate=20000",
+              "--net-max-delay=1", "--json"]
+
+
+def _want():
+    return _goldens()["tests"]["cli"]
+
+
+def _jax_cli(argv) -> dict:
+    """The JAX CLI's exit code and stdout for ``argv`` (in process,
+    deterministic log stamps)."""
+    import contextlib
+    import io
+
+    from tpu_paxos import __main__ as jcli
+
+    buf = io.StringIO()
+    old = os.environ.get("TPU_PAXOS_DETERMINISTIC")
+    os.environ["TPU_PAXOS_DETERMINISTIC"] = "1"
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = jcli.main(list(argv))
+    finally:
+        if old is None:
+            os.environ.pop("TPU_PAXOS_DETERMINISTIC")
+        else:
+            os.environ["TPU_PAXOS_DETERMINISTIC"] = old
+    return {"rc": rc, "stdout": buf.getvalue()}
+
+
+def _npz(path) -> dict:
+    """Each array of an ``.npz`` as its dtype, shape and bytes' sha256."""
+    with np.load(path) as z:
+        return {k: {"dtype": str(z[k].dtype), "shape": list(z[k].shape),
+                    "sha256": hashlib.sha256(np.ascontiguousarray(z[k]).tobytes()).hexdigest()}
+                for k in z.files}
+
+
+def jax_goldens(tmp: str) -> dict:
+    """The JAX CLI's side of this file's heavier lines, as
+    ``goldens.json``'s ``tests.cli`` holds it: the debug line's stdout,
+    the crash run's, the sharded surfaces' (exit code and stdout), the
+    serve CLIs' (exit code and summary less the wall fields), and the
+    member CLIs' (stdout and ``--save-state`` arrays)."""
+    debug = _python("-m", "tpu_paxos", *DEBUG_ARGS, "--backend", "cpu")
+    assert debug.returncode == 0, debug.stderr
+    out = {"debug": debug.stdout, "crash": _jax_cli(CRASH_ARGS)}
+    art = _sharded_artifact(tmp)
+    out["surfaces"] = {}
+    for argv in _JAX_SURFACES:
+        got = _jax_cli([art if a == _SHARDED_ART else a for a in argv] + ["--backend", "cpu"])
+        out["surfaces"][" ".join(argv)] = {"rc": got["rc"],
+                                           "stdout": got["stdout"].replace(art, _SHARDED_ART)}
+    serve = {}
+    for argv in _SERVE_CLIS:
+        got = _jax_cli(argv + ["--backend", "cpu"])
+        serve[" ".join(argv)] = {"rc": got["rc"],
+                                 "summary": less_wall(json.loads(got["stdout"].splitlines()[-1]))}
+    out["serve"] = serve
+    member = {}
+    gold = _goldens()["member"]["cli"]
+    for extra in _MEMBER_EXTRA:
+        path = os.path.join(tmp, "j.npz")
+        got = _jax_cli(gold["args"] + extra + ["--save-state", path])
+        member[" ".join(extra)] = {**got, "state": _npz(path)}
+    out["member"] = member
+    return json.loads(json.dumps(out, sort_keys=True))
+
+
 def test_cli_stdout_is_byte_identical_to_the_jax_cli():
-    jax_run = _python("-m", "tpu_paxos", *DEBUG_ARGS, "--backend", "cpu")
     port_run = _python("-m", "tpu_paxos_torch", *DEBUG_ARGS, "--device", "cpu")
-    assert jax_run.returncode == 0, jax_run.stderr
     assert port_run.returncode == 0, port_run.stderr
-    assert port_run.stdout == jax_run.stdout
+    assert port_run.stdout == _want()["debug"]
     assert "ALL INVARIANTS GREEN" in port_run.stdout.splitlines()[-1]
     # the decision log (all but the verdict line) is the committed golden
     log = "".join(port_run.stdout.splitlines(keepends=True)[:-1])
@@ -58,14 +128,10 @@ def test_cli_stdout_is_byte_identical_to_the_jax_cli():
 def test_cli_json_summary_equals_the_jax_cli(capsys):
     """A crash loses the crashed proposer's queued value, so both CLIs
     must report the same failed verdict and exit 1."""
-    from tpu_paxos import __main__ as jcli
-
-    argv = ["3", "2", "6", "--seed=4", "--net-drop-rate=900",
-            "--crash-rate=20000", "--net-max-delay=1", "--json"]
-    assert jcli.main(argv) == tcli.main(argv + ["--device", "cpu"]) == 1
+    want = _want()["crash"]
+    assert tcli.main(CRASH_ARGS + ["--device", "cpu"]) == want["rc"] == 1
     out = capsys.readouterr().out
-    half = len(out) // 2
-    assert out[:half] == out[half:]
+    assert out == want["stdout"]
     summary = json.loads(out.splitlines()[-1])
     assert (summary["ok"], summary["crashed"], summary["done"]) == (False, 1, True)
 
@@ -97,9 +163,28 @@ def test_fast_cli_at_2p23_prints_the_committed_golden(capsys):
     assert capsys.readouterr().out == gold["stdout"]
 
 
-#: Placeholders replaced by a written artifact of that engine.
+#: The placeholder replaced by a written sharded artifact.
 _SHARDED_ART = "{sharded artifact}"
-_ARTS = {_SHARDED_ART: "sharded"}
+#: The surfaces that compare with the JAX CLI's stdout (``what`` None).
+_JAX_SURFACES = [
+    ["4", "4", "10", "--engine=fast", "--mesh", "2"],
+    ["4", "4", "10", "--mesh", "2"],
+    ["repro", _SHARDED_ART],
+    ["trace", _SHARDED_ART, "--stdout"],
+    ["repro", _SHARDED_ART, "--json"],
+]
+
+
+def _sharded_artifact(tmp: str) -> str:
+    """The committed culprit artifact re-stamped as a sharded one at 2
+    devices, written as ``tmp/sharded.json``."""
+    with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
+        art = json.load(f)
+    art.update(engine="sharded", devices=2)
+    path = os.path.join(tmp, "sharded.json")
+    with open(path, "w") as f:
+        json.dump(art, f)
+    return path
 
 
 def _member_json():
@@ -211,24 +296,17 @@ def test_unported_cli_surfaces_exit_2(argv, what, capsys, tmp_path, monkeypatch)
     its exit code and a line of its output).  Each failure names the
     command line it ran."""
     surface = f"{what}: {' '.join(argv)}"
+    key = " ".join(argv)
     argv = [str(tmp_path) if a == "{tmp}" else a for a in argv]
-    for key, engine in sorted(_ARTS.items()):
-        if key in argv:
-            with open(os.path.join(GOLDENS_DIR, "repro_culprit.json")) as f:
-                art = json.load(f)
-            art.update(engine=engine, devices=2)
-            path = str(tmp_path / f"{engine}.json")
-            with open(path, "w") as f:
-                json.dump(art, f)
-            argv = [path if a == key else a for a in argv]
+    art = _sharded_artifact(str(tmp_path))
+    argv = [art if a == _SHARDED_ART else a for a in argv]
     if what is None:
-        from tpu_paxos import __main__ as jcli
-
+        # the artifact's path, in the stdout, stands as its placeholder
         monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
-        rc_jax = jcli.main(argv + ["--backend", "cpu"])
-        want = capsys.readouterr().out
+        jax = _want()["surfaces"][key]
+        rc_jax, want = jax["rc"], jax["stdout"]
         assert tcli.main(argv + ["--device", "cpu"]) == rc_jax, surface
-        assert capsys.readouterr().out == want, surface
+        assert capsys.readouterr().out.replace(art, _SHARDED_ART) == want, surface
         assert want, surface
         return
     if isinstance(what, _Tiled):
@@ -388,14 +466,11 @@ def test_serve_cli_equals_the_jax_cli(argv, capsys):
     the defaults and sequentially with an SLO, the load sweep, the fleet
     and its (lanes x rates) surface); the first two are the committed
     goldens the card holds."""
-    from tpu_paxos import __main__ as jcli
-
-    rc_j = jcli.main(argv + ["--backend", "cpu"])
-    want = json.loads(capsys.readouterr().out.splitlines()[-1])
+    jax = _want()["serve"][" ".join(argv)]
     rc_t = tcli.main(argv + ["--device", "cpu"])
     got = json.loads(capsys.readouterr().out.splitlines()[-1])
-    assert rc_t == rc_j
-    assert less_wall(got) == less_wall(want)
+    assert rc_t == jax["rc"]
+    assert json.loads(json.dumps(less_wall(got))) == jax["summary"]
     gold = _goldens().get("serve", {}).get("cli", {})
     key = " ".join(argv)
     if key in gold:
@@ -419,53 +494,46 @@ def _in_dir(path):
     return cd()
 
 
-@pytest.mark.parametrize("extra", [[], ["--crash-rate=5000"], ["--crash-rate=2000", "--seed=3"]])
+_MEMBER_EXTRA = [[], ["--crash-rate=5000"], ["--crash-rate=2000", "--seed=3"]]
+
+
+@pytest.mark.parametrize("extra", _MEMBER_EXTRA)
 def test_member_cli_equals_the_jax_cli(extra, tmp_path, capsys):
     """``--engine=member --json``: the same stdout and exit code as the JAX
     CLI, and the same ``--save-state`` checkpoint arrays; the first two are
     the committed goldens the card holds."""
-    from tpu_paxos import __main__ as jcli
-
     gold = _goldens()["member"]["cli"]
+    jax = _want()["member"][" ".join(extra)]
     argv = gold["args"] + extra
-    assert jcli.main(argv + ["--save-state", str(tmp_path / "j.npz")]) == 0
-    jax_out = capsys.readouterr().out
+    assert jax["rc"] == 0
     assert tcli.main(argv + ["--save-state", str(tmp_path / "t.npz"), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert out == jax_out
+    assert out == jax["stdout"]
     if not extra:
         assert out == gold["record_stdout"]
     elif extra == [f"--crash-rate={gold['crash_rate']}"]:
         assert out == gold["crash_stdout"]
-    with np.load(tmp_path / "j.npz") as want, np.load(tmp_path / "t.npz") as got:
-        assert got.files == want.files
-        for k in want.files:
-            assert got[k].dtype == want[k].dtype, k
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert _npz(tmp_path / "t.npz") == jax["state"]
 
 
 def test_member_cli_record_replay_equals_the_jax_cli(tmp_path, capsys):
     """``--record-injections`` then ``--replay-injections``: stdouts and
-    the injection log's bytes equal the JAX CLI's and the committed golden;
-    the two flags together refuse as JAX's do."""
-    from tpu_paxos import __main__ as jcli
-
+    the injection log's bytes equal the JAX CLI's (the committed golden
+    of ``python -m tpu_paxos``'s same lines); the two flags together
+    refuse as JAX's do."""
     gold = _goldens()["member"]["cli"]
     name = gold["injections"]
-    outs = {}
-    for pkg, main, dev in (("jax", jcli.main, []), ("port", tcli.main, ["--device", "cpu"])):
-        d = tmp_path / pkg
-        d.mkdir()
-        with _in_dir(d):
-            assert main(gold["args"] + ["--record-injections", name] + dev) == 0
-            rec = capsys.readouterr().out
-            assert main(gold["args"] + ["--replay-injections", name] + dev) == 0
-            rep = capsys.readouterr().out
-            with pytest.raises(SystemExit, match="mutually exclusive"):
-                main(gold["args"] + ["--replay-injections", name, "--record-injections", "x"] + dev)
-        outs[pkg] = (rec, rep, (d / name).read_text())
-    assert outs["port"] == outs["jax"]
-    assert outs["port"] == (gold["record_stdout"], gold["replay_stdout"], gold["injection_log"])
+    dev = ["--device", "cpu"]
+    with _in_dir(tmp_path):
+        assert tcli.main(gold["args"] + ["--record-injections", name] + dev) == 0
+        rec = capsys.readouterr().out
+        assert tcli.main(gold["args"] + ["--replay-injections", name] + dev) == 0
+        rep = capsys.readouterr().out
+        with pytest.raises(SystemExit, match="mutually exclusive"):
+            tcli.main(gold["args"] + ["--replay-injections", name, "--record-injections", "x"]
+                      + dev)
+    assert (rec, rep, (tmp_path / name).read_text()) == (
+        gold["record_stdout"], gold["replay_stdout"], gold["injection_log"])
 
 
 def test_repro_is_ported(tmp_path, capsys):
@@ -680,6 +748,22 @@ aud = audit.run_audit(providers=("tpu_paxos_torch.core.fast", "tpu_paxos_torch.c
 tools_ok = (lint_ok and aud["ok"] and len(registry.collect()) == 28
             and native.check_agreement(np.zeros((4, 3), np.int32)) is None
             and dump.dump_hex(b"\\x01\\xff") == "01 FF" and "census" in dir(buildcount))
+import runpy
+import torch
+from tpu_paxos_torch.core import apply, ballot, values
+from tpu_paxos_torch.harness import reference_runner
+from tpu_paxos_torch.utils import log as tlog
+eq, _ = reference_runner.run_equivalent_sim(3, 2, 4, device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    with tlog.profile_trace(tmp, "cpu"):
+        values.real_vid(1, 2, 10)
+    traced = os.path.exists(os.path.join(tmp, tlog.TRACE_FILE))
+for script in ("torch_replay_diff_member", "torch_check_smoke"):
+    runpy.run_path(os.path.join("scripts", script + ".py"), run_name="probe")
+lib_ok = (eq.done and eq.value_status(0)["status"] == "applied" and eq.rounds_to_chosen.size == 8
+          and int(apply.frontiers(torch.from_numpy(eq.learned)).min()) == 8
+          and int(ballot.node_of(65537)) == 1 and values.decode_host(-3, 10, 8) == (0, 1, True)
+          and traced and reference_runner.fast_reference_args()[3] == "10")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_paxos"))
 ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TILE] * 2
       and bool(rep.verdict.ok.all()) and rc == 0 and summary["ok"]
@@ -697,7 +781,7 @@ ok = (res.done and res2.done and int(n) == 16 and counts.tolist() == [fastwin.TI
       and serve_out[0]["decided"] == 24 and serve_out[1]["decided"] == 32
       and serve_out[2]["otherData"]["engine"] == "serve_fleet"
       and ctl.done and ctl.backlog == 0 and rc_ctl == 0 and mc_ok and evo_ok and sharded_ok
-      and tools_ok)
+      and tools_ok and lib_ok)
 print(len(mods), bool(ok), loaded)
 """
 
@@ -730,3 +814,10 @@ def test_committed_goldens_recompute_from_jax():
     text = json.dumps(script.compute(), indent=1, sort_keys=True) + "\n"
     with open(GOLDENS) as f:
         assert f.read() == text
+
+
+@pytest.mark.slow
+def test_jax_goldens_recompute(tmp_path):
+    """The JAX CLI's side of this file, recomputed, equals the committed
+    golden."""
+    assert jax_goldens(str(tmp_path)) == _want()

@@ -1,10 +1,13 @@
 """The port's schedule search (``tpu_paxos_torch/fleet/search.py``:
 ``search``, ``_generation_margins``, ``lane_cause_series`` and the
-``python -m tpu_paxos_torch fleet`` CLI) against the JAX package's, live on
-the CPU: the same summary less its wall-clock keys (``seconds``,
+``python -m tpu_paxos_torch fleet`` CLI) against the JAX package's on the
+CPU: the same summary less its wall-clock keys (``seconds``,
 ``lanes_per_sec``, each wedge's ``shrink_seconds``), with and without a
 triage directory, the wedge artifact byte for byte, the gray/WAN grammar,
-and the margins and per-lane causes of one armed report.  The committed
+and the margins and per-lane causes of one armed report.  JAX's side of
+those runs is :func:`jax_goldens`, committed as ``goldens.json``'s
+``tests.search`` by ``scripts/torch_port_goldens.py`` (the slow tier
+recomputes it); the samplers are held to JAX live.  The committed
 phase-13 goldens are JAX's own summaries."""
 
 import hashlib
@@ -52,30 +55,78 @@ def _sha(path):
         return hashlib.sha256(f.read()).hexdigest()
 
 
+def _json(x):
+    """``x`` as JSON reads it back (the form a golden is committed in)."""
+    return json.loads(json.dumps(x, sort_keys=True))
+
+
+FLAGGED = ((), (1, 3))
+
+
+def _armed_report(cfgm, search, stress, env, run, **kw):
+    """One armed 4-lane dispatch of the search's own envelope (gray
+    schedules; lanes 1 and 3 are flagged by hand in the margins)."""
+    wl, gates, _ = stress._workload(2, np.random.default_rng(2))
+    cfg = cfgm.SimConfig(n_nodes=5, n_instances=56, proposers=(0, 1), seed=2,
+                         max_rounds=20_000,
+                         faults=cfgm.FaultConfig(drop_rate=300, dup_rate=500, max_delay=2))
+    runner = env.runner_for(cfg, wl, gates, max_episodes=run.MAX_EPISODES, telemetry=True,
+                            **kw)
+    rng = np.random.default_rng(9)
+    alpha = search.Alphabet.classic(gray=True)
+    scheds = [alpha.sample(rng, 5) for _ in range(4)]
+    return runner.run([40, 41, 42, 43], scheds, workloads=[(wl, gates)] * 4,
+                      knobs=[cfg.faults] * 4)
+
+
+def _margins(search, rep) -> dict:
+    return _json({"margins": [search._generation_margins(rep, flagged=set(f)) for f in FLAGGED],
+                  "causes": search.lane_cause_series(rep, [3, 0])})
+
+
+def jax_goldens(tmp: str) -> dict:
+    """JAX's side of this file's runs, as ``goldens.json``'s
+    ``tests.search`` holds it: the triaged search's summary (less timing),
+    its triage directory's files and their sha256, the untriaged and the
+    gray/WAN searches' summaries, and the armed report's margins and
+    causes."""
+    j = jsearch.search(triage_dir=tmp, **KW)
+    return {
+        "triaged": _less_timing(j),
+        "triage_files": {name: _sha(os.path.join(tmp, name)) for name in sorted(os.listdir(tmp))},
+        "untriaged": _less_timing(jsearch.search(**KW)),
+        "gray_wan": _less_timing(jsearch.search(**GRAY_WAN)),
+        "armed": _margins(jsearch, _armed_report(jcfg, jsearch, jstress, jenv, jrun)),
+    }
+
+
+@pytest.fixture(scope="module")
+def want():
+    with open(os.path.join(ROOT, "tpu_paxos_torch", "data", "goldens.json")) as f:
+        return json.load(f)["tests"]["search"]
+
+
 @pytest.fixture(scope="module")
 def triaged(tmp_path_factory):
-    """The small synthetic-wedge search, both packages, with a triage
-    directory each (the JAX compiles are the expensive part)."""
-    jdir, tdir = tmp_path_factory.mktemp("jax"), tmp_path_factory.mktemp("port")
-    j = jsearch.search(triage_dir=str(jdir), **KW)
-    t = tsearch.search(triage_dir=str(tdir), device="cpu", **KW)
-    return j, t, jdir, tdir
+    """The small synthetic-wedge search on the port, with a triage
+    directory."""
+    tdir = tmp_path_factory.mktemp("port")
+    return tsearch.search(triage_dir=str(tdir), device="cpu", **KW), tdir
 
 
-def test_search_with_triage_equals_jax(triaged):
-    j, t, jdir, tdir = triaged
-    assert _less_timing(t) == _less_timing(j)
+def test_search_with_triage_equals_jax(triaged, want):
+    t, tdir = triaged
+    assert _less_timing(t) == want["triaged"]
     assert t["wedges_found"] == 1 and t["ok"] and t["wedges"][0]["synthetic"]
     assert t["wedges"][0]["shrink_seconds"] >= 0
     names = sorted(os.listdir(tdir))
-    assert names == sorted(os.listdir(jdir)) == ["repro_fleet_g0_lane0.json"]
-    assert _sha(tdir / names[0]) == _sha(jdir / names[0])
+    assert names == sorted(want["triage_files"]) == ["repro_fleet_g0_lane0.json"]
+    assert _sha(tdir / names[0]) == want["triage_files"][names[0]]
 
 
-def test_search_without_triage_equals_jax():
-    j = jsearch.search(**KW)
+def test_search_without_triage_equals_jax(want):
     t = tsearch.search(device="cpu", **KW)
-    assert _less_timing(t) == _less_timing(j)
+    assert _less_timing(t) == want["untriaged"]
     assert "artifact" not in t["wedges"][0]
     # every generation's margins carry the windowed series and causes
     m = t["generation_telemetry"][0]["margins"]
@@ -83,50 +134,24 @@ def test_search_without_triage_equals_jax():
     assert sorted(m["lane_causes"]) == ["0", "1", "2", "3"]
 
 
-def test_gray_wan_search_equals_jax():
-    j = jsearch.search(**GRAY_WAN)
+def test_gray_wan_search_equals_jax(want):
     t = tsearch.search(device="cpu", **GRAY_WAN)
-    assert _less_timing(t) == _less_timing(j)
+    assert _less_timing(t) == want["gray_wan"]
     assert t["ok"] and t["lanes_total"] == 4
 
 
-def _armed_reports():
-    """One armed 4-lane dispatch of the search's own envelope, both
-    packages (gray schedules, lanes 1 and 3 flagged by hand)."""
-    reps = []
-    for cfgm, search, stress, env, run in ((jcfg, jsearch, jstress, jenv, jrun),
-                                           (tcfg, tsearch, tstress, tenv, trun)):
-        wl, gates, _ = stress._workload(2, np.random.default_rng(2))
-        cfg = cfgm.SimConfig(n_nodes=5, n_instances=56, proposers=(0, 1), seed=2,
-                             max_rounds=20_000,
-                             faults=cfgm.FaultConfig(drop_rate=300, dup_rate=500, max_delay=2))
-        kw = {} if run is jrun else {"device": "cpu"}
-        runner = env.runner_for(cfg, wl, gates, max_episodes=run.MAX_EPISODES, telemetry=True,
-                                **kw)
-        rng = np.random.default_rng(9)
-        alpha = search.Alphabet.classic(gray=True)
-        scheds = [alpha.sample(rng, 5) for _ in range(4)]
-        reps.append(runner.run([40, 41, 42, 43], scheds, workloads=[(wl, gates)] * 4,
-                               knobs=[cfg.faults] * 4))
-    return reps
-
-
-def test_generation_margins_and_lane_causes_equal_jax():
-    jrep, trep = _armed_reports()
-    for flagged in ((), (1, 3)):
-        assert tsearch._generation_margins(trep, flagged=set(flagged)) == \
-            jsearch._generation_margins(jrep, flagged=set(flagged))
-    assert tsearch.lane_cause_series(trep, [3, 0]) == jsearch.lane_cause_series(jrep, [3, 0])
+def test_generation_margins_and_lane_causes_equal_jax(want):
+    trep = _armed_report(tcfg, tsearch, tstress, tenv, trun, device="cpu")
+    assert _margins(tsearch, trep) == want["armed"]
     # a recorder-free report has no margins, as in JAX
     wl, gates, _ = tstress._workload(2, np.random.default_rng(2))
     rep = trun.FleetRunner(trep.cfg, wl, gates, device="cpu").run([1], [None])
     assert tsearch._generation_margins(rep) == {} and tsearch.lane_cause_series(rep, [0]) == {}
 
 
-def test_fleet_cli_prints_the_search_summary(triaged, capsys):
+def test_fleet_cli_prints_the_search_summary(want, capsys):
     """``python -m tpu_paxos_torch fleet`` (here in process) prints the
     search's one sorted JSON line and exits 0 on a synthetic wedge."""
-    j = triaged[0]
     argv = ["fleet", "--lanes", "4", "--generations", "1", "--seed", "2",
             "--decision-round-max", "35", "--max-episodes", "2", "--horizon", "48",
             "--max-wedges", "1", "--quiet", "--device", "cpu"]
@@ -135,10 +160,10 @@ def test_fleet_cli_prints_the_search_summary(triaged, capsys):
     assert out.count("\n") == 1
     got = json.loads(out)
     assert out.strip() == json.dumps(got, sort_keys=True)
-    want = _less_timing(j)
-    for w in want["wedges"]:
+    summary = _json(want["triaged"])
+    for w in summary["wedges"]:
         w.pop("artifact", None)
-    assert _less_timing(got) == want
+    assert _less_timing(got) == summary
 
 
 def test_unported_search_surfaces_raise_by_name(capsys):
@@ -231,3 +256,9 @@ def test_phase13_search_goldens_are_jax_summaries():
     assert _sha(path) == quick["artifact_sha256"]
     assert (wide["lanes"], wide["summary"]["lanes_total"], wide["summary"]["ok"]) == (128, 256, True)
     assert len(wide["summary"]["generation_telemetry"]) == 2
+
+
+@pytest.mark.slow
+def test_jax_goldens_recompute(tmp_path, want):
+    """JAX's side of this file, recomputed, equals the committed golden."""
+    assert _json(jax_goldens(str(tmp_path))) == want

@@ -6,7 +6,10 @@ candidate at a time, at a generous budget and at one that runs out
 mid-pass; the two packages write the same artifact bytes and replay each
 other's artifacts; a real seeded wedge (``TPU_PAXOS_SEEDED_WEDGE=
 takeover``) fails, shrinks and replays alike; and the CLI exits 0, 1 and
-2 where the JAX CLI does."""
+2 where the JAX CLI does.  JAX's side of the runs is :func:`jax_goldens`,
+committed as ``goldens.json``'s ``tests.shrink`` by
+``scripts/torch_port_goldens.py`` (the slow tier recomputes it); the
+port replays the JAX-written artifacts."""
 
 import dataclasses
 import hashlib
@@ -109,7 +112,82 @@ def wedge(monkeypatch):
     _clear_caches()
 
 
-_JAX_SHRINKS: dict = {}
+SHRINKS = [(batch, max_evals) for batch in (True, False) for max_evals in (40, 5)]
+#: the repro CLI cases whose JAX stdout is committed (artifact variants)
+REPRO_KINDS = ("match", "drift", "sharded", "serve", "mc-control")
+#: the placeholder for an artifact's path in a committed stdout
+ARTIFACT = "{artifact}"
+RESULT_FIELDS = ("learned", "chosen_vid", "chosen_round", "chosen_ballot", "crashed", "msgs")
+
+
+def _json(x):
+    """``x`` as JSON reads it back (the form a golden is committed in)."""
+    return json.loads(json.dumps(x, sort_keys=True))
+
+
+def _want():
+    return _goldens()["tests"]["shrink"]
+
+
+def _read(path) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _jax_repro_cli(tmp: str) -> dict:
+    """JAX's ``repro --json`` exit code and stdout for each variant of
+    :data:`REPRO_KINDS` (deterministic log stamps)."""
+    import contextlib
+    import io
+    import pathlib
+
+    out = {}
+    for kind in REPRO_KINDS:
+        d = pathlib.Path(tmp) / kind
+        d.mkdir()
+        buf = io.StringIO()
+        path = _artifact_variant(d, kind)
+        with contextlib.redirect_stdout(buf):
+            rc = jcli.run_repro([path, "--json"])
+        out[kind] = {"rc": rc, "stdout": buf.getvalue().replace(path, ARTIFACT)}
+    return out
+
+
+def jax_goldens(tmp: str) -> dict:
+    """JAX's side of this file's runs, as ``goldens.json``'s
+    ``tests.shrink`` holds it."""
+    out = {"shrink_case": {f"{b}-{m}": _shrink("jax", _culprit("jax"), max_evals=m, batch=b)
+                           for b, m in SHRINKS}}
+    jcase = _culprit("jax", {"decision_round_max": 25}, episodes=1)
+    _, viol = jshr.run_case(jcase)
+    jpath = os.path.join(tmp, "j.json")
+    art = jshr.save_artifact(jpath, jcase, viol)
+    rep = jshr.reproduce(jpath)
+    out["artifact"] = {"violation": viol, "artifact": art, "text": _read(jpath),
+                       "reproduce": {k: rep[k] for k in ("match", "decision_log_sha256")}}
+    tpath = os.path.join(tmp, "t.json")
+    tri = jshr.triage(_culprit("jax"), tpath, max_evals=20)
+    tri.pop("shrink_seconds")
+    out["triage"] = {"artifact": tri, "sha256": _sha(tpath)}
+    jr, jv = jshr.run_case(dataclasses.replace(_culprit("jax", {}, episodes=0), engine="sharded",
+                                               devices=2))
+    out["sharded"] = {"violation": jv, "rounds": int(jr.rounds),
+                      "arrays": {f: np.asarray(getattr(jr, f)).tolist() for f in RESULT_FIELDS}}
+    old = {k: os.environ.get(k) for k in ("TPU_PAXOS_DETERMINISTIC", "TPU_PAXOS_SEEDED_WEDGE")}
+    try:
+        os.environ["TPU_PAXOS_DETERMINISTIC"] = "1"
+        out["repro_cli"] = _jax_repro_cli(tmp)
+        os.environ["TPU_PAXOS_SEEDED_WEDGE"] = "takeover"
+        jcase = _from_spec("jax", _goldens()["triage_wedge"]["cases"]["takeover"])
+        out["takeover"] = {"violation": jshr.run_case(jcase)[1], "shrink": _shrink("jax", jcase)}
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _clear_caches()
+    return _json(out)
 
 
 @pytest.mark.parametrize("max_evals", [40, 5])
@@ -119,11 +197,8 @@ def test_shrink_case_equals_jax(batch, max_evals):
     the JAX shrinker: at 40 evals (both irrelevant episodes dropped, the
     partition bisected to one round, dup zeroed) and at 5, where the
     budget runs out inside the bisection pass."""
-    key = (batch, max_evals)
-    if key not in _JAX_SHRINKS:
-        _JAX_SHRINKS[key] = _shrink("jax", _culprit("jax"), max_evals=max_evals, batch=batch)
-    want = _JAX_SHRINKS[key]
-    got = _shrink("port", _culprit("port"), max_evals=max_evals, batch=batch)
+    want = _want()["shrink_case"][f"{batch}-{max_evals}"]
+    got = _json(_shrink("port", _culprit("port"), max_evals=max_evals, batch=batch))
     assert got == want
     assert got[3] == min(25, max_evals)
     if max_evals == 40:
@@ -151,23 +226,22 @@ def test_artifacts_are_byte_equal_and_replay_across_packages(tmp_path):
     """For the same failing case both packages write the same artifact
     bytes, and each replays the other's with ``match`` and an equal
     decision-log sha256."""
-    jcase = _culprit("jax", {"decision_round_max": 25}, episodes=1)
+    want = _want()["artifact"]
     tcase = _culprit("port", {"decision_round_max": 25}, episodes=1)
-    _, viol = jshr.run_case(jcase)
-    r, tviol = tshr.run_case(tcase, device="cpu")
-    assert tviol == viol and "decision_round_max" in viol
-    jpath, tpath = str(tmp_path / "j.json"), str(tmp_path / "t.json")
-    jart = jshr.save_artifact(jpath, jcase, viol)
-    tart = tshr.save_artifact(tpath, tcase, viol, device="cpu")
-    assert tart == jart
-    with open(jpath, "rb") as a, open(tpath, "rb") as b:
-        assert a.read() == b.read()
-    rep = tshr.reproduce(jpath, device="cpu")
+    r, viol = tshr.run_case(tcase, device="cpu")
+    assert viol == want["violation"] and "decision_round_max" in viol
+    jpath, tpath = tmp_path / "j.json", tmp_path / "t.json"
+    jpath.write_text(want["text"])
+    jart = want["artifact"]
+    tart = tshr.save_artifact(str(tpath), tcase, viol, device="cpu")
+    assert _json(tart) == jart
+    assert tpath.read_text() == want["text"]
+    rep = tshr.reproduce(str(jpath), device="cpu")
     assert rep["match"] and rep["decision_log_sha256"] == jart["decision_log_sha256"]
     assert rep["rounds"] == r.rounds == jart["rounds"]
-    back = jshr.reproduce(tpath)
-    assert back["match"] and back["decision_log_sha256"] == tart["decision_log_sha256"]
-    loaded, _ = tshr.load_artifact(tpath)
+    # JAX replays its artifact, whose bytes the port's are, with a match
+    assert want["reproduce"] == {"match": True, "decision_log_sha256": tart["decision_log_sha256"]}
+    loaded, _ = tshr.load_artifact(str(tpath))
     assert loaded.cfg == tcase.cfg
 
 
@@ -192,11 +266,11 @@ def test_committed_artifacts_replay_in_port(monkeypatch):
 def test_triage_writes_the_shrunk_artifact_as_jax(tmp_path):
     """``triage`` (the sweep's hook) returns the artifact plus its shrink
     stats, and writes the same file as JAX's."""
-    jart = jshr.triage(_culprit("jax"), str(tmp_path / "j.json"), max_evals=20)
+    want = _want()["triage"]
     tart = tshr.triage(_culprit("port"), str(tmp_path / "t.json"), max_evals=20, device="cpu")
-    jart.pop("shrink_seconds"), tart.pop("shrink_seconds")
-    assert tart == jart and tart["shrink_evals"] == 20
-    assert _sha(tmp_path / "t.json") == _sha(tmp_path / "j.json")
+    tart.pop("shrink_seconds")
+    assert _json(tart) == want["artifact"] and tart["shrink_evals"] == 20
+    assert _sha(tmp_path / "t.json") == want["sha256"]
     assert tshr.reproduce(str(tmp_path / "t.json"), device="cpu")["match"]
 
 
@@ -210,11 +284,10 @@ def test_green_case_refuses_shrink_and_sharded_raises():
     with pytest.raises(ValueError, match="does not fail"):
         tshr.shrink_case(case, device="cpu")
     r, v = tshr.run_case(dataclasses.replace(case, engine="sharded", devices=2), device="cpu")
-    jr, jv = jshr.run_case(dataclasses.replace(_culprit("jax", {}, episodes=0), engine="sharded",
-                                               devices=2))
-    assert v == jv is None and r.rounds == jr.rounds
-    for f in ("learned", "chosen_vid", "chosen_round", "chosen_ballot", "crashed", "msgs"):
-        assert np.array_equal(getattr(r, f), np.asarray(getattr(jr, f))), f
+    want = _want()["sharded"]
+    assert v == want["violation"] is None and r.rounds == want["rounds"]
+    for f in RESULT_FIELDS:
+        assert np.array_equal(getattr(r, f), np.asarray(want["arrays"][f])), f
 
 
 def _artifact_variant(tmp_path, kind):
@@ -241,10 +314,11 @@ def test_repro_cli_exit_code_and_stdout_equal_jax(kind, rc, tmp_path, monkeypatc
     JAX CLI's."""
     monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
     path = _artifact_variant(tmp_path, kind)
-    assert jcli.run_repro([path, "--json"]) == rc
-    want = capsys.readouterr().out
+    jax = _want()["repro_cli"][kind]
+    want = jax["stdout"]
+    assert jax["rc"] == rc
     assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == rc
-    assert capsys.readouterr().out == want
+    assert capsys.readouterr().out.replace(path, ARTIFACT) == want
     assert json.loads(want.splitlines()[-1])["match"] is (rc == 0)
 
 
@@ -262,17 +336,16 @@ def test_repro_cli_unported_engine_exits_2(engine, tmp_path, capsys, monkeypatch
     stdout for stdout."""
     monkeypatch.setenv("TPU_PAXOS_DETERMINISTIC", "1")
     path = _artifact_variant(tmp_path, engine)
+    jax = _want()["repro_cli"][engine]
+    want = jax["stdout"]
     if engine == "sharded":
-        rc = jcli.run_repro([path, "--json"])
-        want = capsys.readouterr().out
-        assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == rc
-        assert capsys.readouterr().out == want
+        assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == jax["rc"]
+        assert capsys.readouterr().out.replace(path, ARTIFACT) == want
         assert json.loads(want.splitlines()[-1])["engine"] == "repro"
         return
-    assert jcli.run_repro([path, "--json"]) == 2
-    want = capsys.readouterr().out
+    assert jax["rc"] == 2
     assert tcli.main(["repro", path, "--json", "--device", "cpu"]) == 2
-    assert capsys.readouterr().out == want
+    assert capsys.readouterr().out.replace(path, ARTIFACT) == want
     assert json.loads(want)["schema_error"]["field"] == (
         "serve" if engine == "serve" else "policy")
 
@@ -285,11 +358,12 @@ def test_seeded_wedge_found_shrunk_and_replayed_as_jax(tmp_path, wedge, monkeypa
     without it.  (The stress sweep under the wedge is
     tests/test_torch_stress.py's.)"""
     spec = _goldens()["triage_wedge"]["cases"]["takeover"]
-    jcase, tcase = _from_spec("jax", spec), _from_spec("port", spec)
+    want = _want()["takeover"]
+    tcase = _from_spec("port", spec)
     r, viol = tshr.run_case(tcase, device="cpu")
-    assert viol == jshr.run_case(jcase)[1] == f"no quiescence in {r.rounds} rounds"
+    assert viol == want["violation"] == f"no quiescence in {r.rounds} rounds"
     got = _shrink("port", tcase)
-    assert got == _shrink("jax", jcase)
+    assert _json(got) == want["shrink"]
     assert got[1] == spec["violation"] and got[2] == spec["moves"]
     final = dataclasses.replace(tcase, cfg=tshr._cfg_from_dict(got[0]))
     path = str(tmp_path / spec["artifact"])
@@ -300,3 +374,9 @@ def test_seeded_wedge_found_shrunk_and_replayed_as_jax(tmp_path, wedge, monkeypa
     monkeypatch.delenv("TPU_PAXOS_SEEDED_WEDGE")
     unarmed = tshr.reproduce(path, device="cpu")
     assert not unarmed["match"] and unarmed["violation"] is None
+
+
+@pytest.mark.slow
+def test_jax_goldens_recompute(tmp_path):
+    """JAX's side of this file, recomputed, equals the committed golden."""
+    assert jax_goldens(str(tmp_path)) == _want()

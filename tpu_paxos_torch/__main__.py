@@ -14,7 +14,9 @@ grow the acceptor set to ``srvcnt`` with ``cltcnt * idcnt`` values
 proposed meanwhile, shrink back to {0}, check prefix consistency; with
 ``--crash-rate``, ``--record-injections F`` / ``--replay-injections F``
 and ``--save-state F`` writing the engine checkpoint) the verdict line,
-with the decision-log hash.  ``--mesh N`` (with ``--dcn-hosts H``)
+with the decision-log hash.  ``--trace-dir D`` runs the engine under
+``torch.profiler`` and writes ``D/trace.json`` (``utils/log.profile_trace``;
+stdout unchanged).  ``--mesh N`` (with ``--dcn-hosts H``)
 shards the instance axis of ``--engine=sim`` and ``--engine=fast`` over
 an ``N``-rank mesh (``parallel/``: ``N`` threads, each on its own device
 or all on one card); ``--engine=member`` ignores it, as the JAX CLI
@@ -116,6 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=("sim", "fast", "member"), default="sim")
     p.add_argument("--json", action="store_true",
                    help="emit a JSON summary instead of the verdict line")
+    p.add_argument("--trace-dir", type=str, default="",
+                   help="write a torch.profiler Chrome trace of the engine "
+                   "run to DIR/trace.json (CUDA kernels included on a card)")
     p.add_argument("--save-state", type=str, default="",
                    help="dump the run's decision tensors (for "
                    "--engine=member: the engine checkpoint) to this .npz path")
@@ -138,6 +143,15 @@ def _emit(args, summary: dict) -> None:
         status = "ALL INVARIANTS GREEN" if summary.get("ok") else "FAILED"
         detail = ", ".join(f"{k}={v}" for k, v in sorted(summary.items()) if k != "ok")
         print(f"[{summary.get('engine')}] {status} ({detail})")
+
+
+def _with_trace(args, runner):
+    """Run ``runner`` under ``utils/log.profile_trace`` when --trace-dir
+    is set (the bench harness's profiling hook)."""
+    from tpu_paxos_torch.utils import log as logm
+
+    with logm.profile_trace(args.trace_dir, args.device):
+        return runner()
 
 
 def run_sim(args) -> int:
@@ -188,9 +202,9 @@ def run_sim(args) -> int:
         mesh = pmesh.make_instance_mesh(args.mesh, dcn_hosts=args.dcn_hosts, device=args.device)
         cfg = sharded_sim.padded_config(cfg, workload, gates, mesh.size)
         logger.info("instance axis sharded over %d devices", mesh.size)
-        res = sharded_sim.run_sharded(cfg, mesh, workload, gates)
+        res = _with_trace(args, lambda: sharded_sim.run_sharded(cfg, mesh, workload, gates))
     else:
-        res = sim.run(cfg, workload, gates, device=args.device)
+        res = _with_trace(args, lambda: sim.run(cfg, workload, gates, device=args.device))
     if args.save_state:
         np.savez(
             args.save_state,
@@ -243,20 +257,26 @@ def run_fast(args) -> int:
     n = args.cltcnt * args.idcnt
     quorum = args.srvcnt // 2 + 1
     n_devices = 1
-    if args.mesh:
-        from tpu_paxos_torch.parallel import mesh as pmesh
-        from tpu_paxos_torch.parallel import sharded
 
-        mesh = pmesh.make_instance_mesh(args.mesh, dcn_hosts=args.dcn_hosts, device=args.device)
-        n_devices = mesh.size
-        states = sharded.init_sharded_state(mesh, n, args.srvcnt)
-        step = sharded.sharded_choose_all(mesh, proposer=0, quorum=quorum)
-        states, n_chosen = step(states, pmesh.shard_instances(mesh, torch.arange(n, dtype=torch.int32)))
-        state = sharded.gather_state(states)
-    else:
+    def _go():
+        nonlocal n_devices
+        if args.mesh:
+            from tpu_paxos_torch.parallel import mesh as pmesh
+            from tpu_paxos_torch.parallel import sharded
+
+            mesh = pmesh.make_instance_mesh(args.mesh, dcn_hosts=args.dcn_hosts,
+                                            device=args.device)
+            n_devices = mesh.size
+            states = sharded.init_sharded_state(mesh, n, args.srvcnt)
+            step = sharded.sharded_choose_all(mesh, proposer=0, quorum=quorum)
+            states, n_chosen = step(
+                states, pmesh.shard_instances(mesh, torch.arange(n, dtype=torch.int32)))
+            return sharded.gather_state(states), n_chosen
         state = fast.init_state(n, args.srvcnt, device=args.device)
         vids = torch.arange(n, dtype=torch.int32, device=state.learned.device)
-        state, n_chosen = fast.choose_all(state, vids, proposer=0, quorum=quorum)
+        return fast.choose_all(state, vids, proposer=0, quorum=quorum)
+
+    state, n_chosen = _with_trace(args, _go)
     n_chosen = int(n_chosen)
     learned = np.asarray(state.learned).T if args.mesh else fast.learned_ia(state)
     if args.save_state:
@@ -295,6 +315,10 @@ def run_member(args) -> int:
     """member/ churn scenario: grow the cluster from 1 to srvcnt
     acceptors, propose cltcnt*idcnt values meanwhile, shrink back, and
     validate prefix consistency (ref member/main.cpp:101-161, 260-265)."""
+    return _with_trace(args, lambda: _run_member_body(args))
+
+
+def _run_member_body(args) -> int:
     from tpu_paxos_torch.harness import validate
     from tpu_paxos_torch.membership import engine as mem
     from tpu_paxos_torch.utils import log as logm

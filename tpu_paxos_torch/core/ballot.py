@@ -23,6 +23,10 @@ def count_of(b: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32) >> NODE_BITS
 
 
+def node_of(b) -> torch.Tensor:
+    return torch.as_tensor(b).to(torch.int32) & ((1 << NODE_BITS) - 1)
+
+
 def bump_past(count: torch.Tensor, node: torch.Tensor, max_seen: torch.Tensor):
     """Smallest (new_count, ballot) with new_count > count and
     ballot > max_seen — the closed form of the reference's

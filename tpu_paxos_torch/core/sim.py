@@ -81,6 +81,7 @@ How the port runs what JAX compiles:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import types
 from typing import NamedTuple
@@ -193,6 +194,50 @@ class SimResult:
     crashed: np.ndarray  # [A] bool
     msgs: np.ndarray  # [7] logical send counts
     expected_vids: np.ndarray  # union of workload vids (all proposers)
+
+    @property
+    def rounds_to_chosen(self) -> np.ndarray:
+        """Per decided instance, rounds from t=0 to decision."""
+        return self.chosen_round[self.chosen_vid != val.NONE]
+
+    def value_status(self, vid: int) -> dict:
+        """Per-proposal completion status, the Callback SPI surface (ref
+        multi/paxos.h:241-246 ``Run``; member/paxos.h:142-163
+        ``Accepted``/``Applied``):
+
+        - ``pending``: never chosen (still queued, lost with a crashed
+          proposer, or displaced and re-proposed after this snapshot);
+        - ``accepted``: chosen, i.e. accepted by a majority of acceptors;
+        - ``applied``: also learned by a majority of nodes (the Applied
+          quorum that sequences membership changes).
+        """
+        if vid < 0:
+            # NONE and no-op sentinels are not proposals
+            return {"status": "pending"}
+        where = np.flatnonzero(self.chosen_vid == vid)
+        if not where.size:
+            return {"status": "pending"}
+        i = int(where[0])
+        n_nodes = self.learned.shape[1]
+        learners = int((self.learned[i] != val.NONE).sum())
+        applied = learners >= n_nodes // 2 + 1
+        return {
+            "status": "applied" if applied else "accepted",
+            "instance": i,
+            "round": int(self.chosen_round[i]),
+            "ballot": int(self.chosen_ballot[i]),
+            "learners": learners,
+        }
+
+
+def rounds_to_chosen_digest(rounds) -> dict:
+    """A ``rounds_to_chosen`` array (either package's) as goldens hold it:
+    its length, sum, max (``None`` when empty) and the sha256 of its
+    little-endian int32 bytes."""
+    r = np.asarray(rounds)
+    return {"length": int(r.size), "sum": int(r.astype(np.int64).sum()),
+            "max": int(r.max()) if r.size else None,
+            "sha256": hashlib.sha256(np.ascontiguousarray(r, dtype="<i4").tobytes()).hexdigest()}
 
 
 def _init_lanes(cfg: SimConfig, pend, gate, tail, roots, device,

@@ -122,16 +122,17 @@ def _membership_log(chosen_vid, chosen_ballot, stride, n_instances, payload, mem
             continue
         b = int(chosen_ballot[i])
         if v <= val.NOOP_BASE:
-            k = val.NOOP_BASE - v
-            lines.append(f"[{i}] = <{b}>({k // n_instances}:{k % n_instances})-")
+            proposer, inst, _ = val.decode_host(v, stride, n_instances)
+            lines.append(f"[{i}] = <{b}>({proposer}:{inst})-")
             continue
         m = membership(v)
         if m is not None:
             node, kind = mem.decode_change(v)
             lines.append(f"[{i}] = <{b}>({node}:{kind}){m}")
             continue
-        body = payload(v) if payload is not None else str(v % stride)
-        lines.append(f"[{i}] = <{b}>({v // stride}:{v % stride})+{body}")
+        proposer, seq, _ = val.decode_host(v, stride, n_instances)
+        body = payload(v) if payload is not None else str(seq)
+        lines.append(f"[{i}] = <{b}>({proposer}:{seq})+{body}")
     return "\n".join(lines) + ("\n" if lines else "")
 
 

@@ -13,6 +13,8 @@ Line format (reference shape, ref multi/paxos.cpp:95-101):
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import sys
 import threading
@@ -133,3 +135,66 @@ def get_logger(name: str | None = None, level: int | None = None) -> Logger:
         return _default
     return Logger(name or "tpu_paxos", level)
 
+
+def trace_dump(logger: Logger, label: str, arr, limit: int = 64) -> None:
+    """TRACE-level dump of (a small prefix of) a decision tensor, the
+    array analog of the reference's DumpHex wire dumps
+    (ref multi/paxos.cpp:32-44)."""
+    if TRACE < logger.level:
+        return
+    import numpy as np
+
+    a = np.asarray(arr.cpu() if hasattr(arr, "cpu") else arr)
+    flat = a.reshape(-1)
+    head = np.array2string(flat[:limit], max_line_width=120)
+    suffix = f" …(+{flat.size - limit})" if flat.size > limit else ""
+    logger.log(TRACE, "%s shape=%s %s%s", label, a.shape, head, suffix)
+
+
+#: The Chrome trace :func:`profile_trace` writes into its directory.
+TRACE_FILE = "trace.json"
+
+
+def trace_kernel_counts(path: str, kernels=None) -> dict[str, int]:
+    """Device kernel events of a Chrome trace, counted by kernel name; with
+    ``kernels``, counted for each of those names found in an event's name
+    (a ``__global__`` function's instantiations summed)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    if kernels is None:
+        return counts
+    return {k: sum(n for name, n in counts.items() if k in name) for k in kernels}
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: str | None, device="cuda"):
+    """A ``torch.profiler`` window (the bench harness's profiling hook):
+    CPU activity, plus CUDA activity when ``device`` is a CUDA device,
+    exported as a Chrome trace to ``out_dir/trace.json`` (the directory
+    is made).  A no-op when ``out_dir`` is falsy.  On a CUDA device a
+    trace that holds no kernel event (no CUPTI, say) raises: the hook
+    never writes a trace of the host alone in its place."""
+    if not out_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    path = os.path.join(out_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    if cuda and not trace_kernel_counts(path):
+        raise RuntimeError(
+            f"{path}: the profiler recorded no CUDA kernel event "
+            "(is CUPTI available?); refusing a host-only trace"
+        )
